@@ -2,12 +2,26 @@
 
     python chip_smoke.py [--report PATH]
 
-Builds every CUDA kernel of the serving path from ``src/repro_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card (replayed
-case families and the top-of-ladder shapes of the default ServeConfig),
-times both with CUDA events, then serves mixed QT1-QT5 traffic through
-``SearchService`` on the card and checks that its records equal a CPU run
-of the same service and that the main path went through the kernels.
+Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together) and drives two paths:
+
+- the kernel library (intersect, compressed intersect, proximity join,
+  embedding bag): each kernel is held against its plain PyTorch version
+  on the card over seeded replay families; then, with every launch count
+  set to 0, each entry point runs once per full-width shape (the sorted
+  lists of ``kernel_bench.py`` and ``qt1_heavy``, the two-tower-retrieval
+  bag), its results are checked against the plain version and an oracle,
+  and kernel, wrapper, plain version and library call are timed;
+- the serving path: the nearest-r window join is held against its plain
+  version (replayed case families and the top-of-ladder shapes of the
+  default ServeConfig) and timed, then mixed QT1-QT5 traffic is served
+  through ``SearchService`` on the card with the counts set to 0, and its
+  records must equal a CPU run of the same service.
+
+Each path must have launched each of its kernels. Times are medians of
+CUDA events: kernel, plain and library times are device times (the
+calls are queued behind a sleep kernel), wrapper times are call times as
+the host issues them.
 
 The second-to-last line of standard output is the kernels JSON line, the
 last line ``{"ok": true, "device": {...}}``. The script fails (non-zero
@@ -34,6 +48,16 @@ INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores; no int3
 MAX_SEP, R_MAX = 5, 4  # ServeConfig defaults: max_distance=5, r_max=4
 N_DOCS, N_QUERIES = 20_000, 256
 TIMING_RUNS = 25
+SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock, so a hold lasts at least as asked
+SOURCES = ("nearest_r", "intersect", "proximity", "embedding_bag")  # csrc/<name>.cu
+# (tag, Na, Nb): kernel_bench.py's full shape and qt1_heavy's posting length
+# (configs/proximity_search.py)
+FULL_SHAPES = (("kernel_bench", 131_072, 1_048_576), ("qt1_heavy", 1_048_576, 1_048_576))
+PROX_D = 5  # MaxDistance's default
+# two-tower-retrieval (configs/recsys_archs.py): n_items, embed_dim, hist_len;
+# batches: RECSYS_SHAPES serve_p99 and a larger one
+BAG_WIDTHS = {"V": 10_000_000, "D": 256, "S": 50}
+BAG_BATCHES = (512, 4096)
 
 
 def log(*args) -> None:
@@ -50,21 +74,53 @@ def header() -> str:
     return smi
 
 
-def median_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median device time of ``fn`` over ``runs`` calls, by CUDA events."""
-    for _ in range(3):
+def _events_ms(fn, reps: int, hold_s: float = 0.0) -> float:
+    """Milliseconds per call of ``reps`` back-to-back calls between two
+    CUDA events. With ``hold_s``, a sleep kernel first holds the stream
+    that long, so the host has enqueued every call before the first
+    event fires and the events see device time alone."""
+    if hold_s:
+        torch.cuda._sleep(int(hold_s * SLEEP_CYCLES_PER_S))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
         fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _timing(fn, runs: int, device_only: bool, sample_ms: float = 1.0) -> float:
+    t0, n = time.perf_counter(), 0
+    while n < 3 or time.perf_counter() - t0 < 0.05:  # the card leaves its idle clocks
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        torch.cuda.synchronize()
+        n += 1
+    reps = max(1, min(100, int(sample_ms / max(_events_ms(fn, 1), 1e-3))))
+    hold_s = 0.0
+    if device_only:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        hold_s = 1.5 * (time.perf_counter() - t0) + 5e-4
+        torch.cuda.synchronize()
+    return statistics.median(_events_ms(fn, reps, hold_s) for _ in range(runs))
+
+
+def device_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """Median device time of one call of ``fn``, by CUDA events: after a
+    warm-up of at least 3 calls and 50 ms, each sample times as many
+    back-to-back calls as fill 1 ms, enqueued behind a sleep kernel so that
+    the host's launch rate leaves no gaps between them."""
+    return _timing(fn, runs, device_only=True)
+
+
+def call_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """Median time of one call of ``fn`` as the host issues it back to
+    back, by CUDA events: device time plus whatever host work (checks,
+    packing, launch) keeps the card waiting."""
+    return _timing(fn, runs, device_only=False)
 
 
 # -- the nearest-r window join ------------------------------------------------
@@ -223,10 +279,10 @@ def kernel_phase(dev) -> dict:
                 torch.empty((B, L), dtype=torch.int32, device=dev),
                 torch.empty((B, L), dtype=torch.int32, device=dev)]
         stops = ts[3:] if Ks else [None] * 3
-        ms = median_ms(lambda: launch_kernel(*ts[:3], *stops, *outs,
+        ms = device_ms(lambda: launch_kernel(*ts[:3], *stops, *outs,
                                              max_sep=MAX_SEP, r_max=R_MAX))
-        wrapper_ms = median_ms(lambda: window_join(*ts, max_sep=MAX_SEP, r_max=R_MAX))
-        plain_ms = median_ms(lambda: window_join_plain(*ts, max_sep=MAX_SEP, r_max=R_MAX))
+        wrapper_ms = call_ms(lambda: window_join(*ts, max_sep=MAX_SEP, r_max=R_MAX))
+        plain_ms = device_ms(lambda: window_join_plain(*ts, max_sep=MAX_SEP, r_max=R_MAX))
         b = bound(arrays)
         shapes[tag] = {"B": B, "Kn": Kn, "Ks": Ks, "L": L, "ms": ms,
                        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -238,6 +294,405 @@ def kernel_phase(dev) -> dict:
             f"{b['ops'] / 1e9:.2f} Gop -> {b['ops_ms'] * 1e3:.1f} us), "
             f"valid lanes {valid_share:.3f}; library_ms: null")
     return {"max_abs_err": worst, "shapes": shapes}
+
+
+# -- launch counts ---------------------------------------------------------------
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by its name in the kernels line."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.intersect import intersect_sorted, intersect_sorted_compressed
+    from repro_torch.kernels.nearest_r import window_join
+    from repro_torch.kernels.proximity import proximity_join
+
+    return {"nearest_r.window_join": window_join,
+            "intersect.intersect_sorted": intersect_sorted,
+            "intersect.intersect_sorted_compressed": intersect_sorted_compressed,
+            "proximity.proximity_join": proximity_join,
+            "embedding_bag.embedding_bag": embedding_bag}
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+# -- the kernel library: intersect, compressed intersect, proximity, bag -------
+def _unique(rng, n, hi):
+    return np.unique(rng.integers(0, hi, n)).astype(np.int32)
+
+
+def _dups_and_sentinel(rng):
+    """Sorted with repeats and SENTINEL tails: with block_a=8 the 20
+    SENTINELs of a fill two whole A-blocks; SENTINEL-3 is within d of the
+    b tail, which must never match."""
+    from repro_torch.kernels.common import SENTINEL
+
+    a = np.concatenate([np.sort(rng.integers(0, 60, 101)), [SENTINEL - 3],
+                        np.full(20, SENTINEL)])
+    b = np.concatenate([np.sort(rng.integers(0, 60, 70)), np.full(5, SENTINEL)])
+    return a.astype(np.int32), b.astype(np.int32)
+
+
+def window_replays(plan):
+    """Seeded replay families of a windowed kernel as (name, a, b, kwargs):
+    test_kernels.py's shapes (lengths off the block multiples among them)
+    at the planned and the full-scan k_tiles, blocks 8/16 at truncated and
+    exact k_tiles, repeats with SENTINEL tails filling whole A-blocks, and
+    one-element inputs. ``plan(a, b, block_a, block_b)`` is the kernel's
+    k_tiles planner."""
+    from repro_torch.kernels.common import SENTINEL
+
+    cases = []
+    for i, (na, nb, hi) in enumerate(((100, 100, 500), (1000, 5000, 20000),
+                                      (5000, 700, 100000), (513, 1025, 4000), (3, 2, 10))):
+        rng = np.random.default_rng(i)
+        a, b = _unique(rng, na, hi), _unique(rng, nb, hi)
+        cases.append((f"{na}x{nb} planned", a, b, dict(k_tiles=plan(a, b, 512, 1024))))
+        cases.append((f"{na}x{nb} full scan", a, b, {}))
+    for seed in range(4):
+        rng = np.random.default_rng(10 + seed)
+        a, b = _unique(rng, 150, 900), _unique(rng, 300, 900)
+        k = plan(a, b, 8, 16)
+        for kt in sorted({1, max(1, k - 1), k}):
+            cases.append((f"blocks 8/16 seed {seed} k_tiles={kt}", a, b,
+                          dict(block_a=8, block_b=16, k_tiles=kt)))
+    a, b = _dups_and_sentinel(np.random.default_rng(20))
+    for kt in (1, 2, None):
+        cases.append((f"repeats+SENTINEL k_tiles={kt}", a, b,
+                      dict(block_a=8, block_b=16, k_tiles=kt)))
+    for a, b in (([5], [5]), ([5], [6]), ([SENTINEL], [SENTINEL]), ([7], [1, 7, 7])):
+        cases.append((f"one element {a} in {b}", np.array(a, np.int32),
+                      np.array(b, np.int32), {}))
+    return cases
+
+
+def compressed_replays():
+    """Replay families of the compressed intersect: test_kernels.py's
+    shapes at blocks 128/256 and at the defaults (where short inputs leave
+    64-blocks all padding), blocks 64/64 at truncated and full k_tiles,
+    repeats whose all-pad blocks decode below the real values, and empty
+    and one-element inputs."""
+    cases = []
+    for i, (na, nb, hi) in enumerate(((300, 500, 4000), (1000, 2000, 30000), (70, 1500, 9000))):
+        rng = np.random.default_rng(30 + i)
+        a, b = _unique(rng, na, hi), _unique(rng, nb, hi)
+        cases.append((f"{na}x{nb} blocks 128/256", a, b, dict(block_a=128, block_b=256)))
+        cases.append((f"{na}x{nb} default blocks", a, b, {}))
+    rng = np.random.default_rng(40)
+    a, b = _unique(rng, 400, 3000), _unique(rng, 900, 3000)
+    for kt in (1, 2, None):
+        cases.append((f"blocks 64/64 k_tiles={kt}", a, b,
+                      dict(block_a=64, block_b=64, k_tiles=kt)))
+    a = np.sort(rng.integers(60_000, 70_000, 70)).astype(np.int32)
+    b = np.sort(rng.integers(60_000, 70_000, 1500)).astype(np.int32)
+    cases.append(("repeats, pads below the values", a, b, {}))
+    for a, b in (([], []), ([], [5]), ([5], []), ([5], [5]), ([5], [6])):
+        cases.append((f"{a} in {b}", np.array(a, np.int32), np.array(b, np.int32), {}))
+    return cases
+
+
+def assert_lanes(got, want, what: str) -> None:
+    """Exact agreement of integer and bool outputs on every lane."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"kernel disagrees with the plain version on {what}")
+
+
+def bag_tolerance(dtype) -> tuple[float, float]:
+    """(rtol, atol) of test_kernels.py: tight in float32, 2e-2 in bfloat16."""
+    return (1e-6, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+def bag_replays():
+    """Bag families: float32 and bfloat16 tables, sum and mean, with and
+    without weights, over test_kernels.py's shapes and a wider one; ids
+    run from -1 (padding) to past the vocabulary."""
+    cases = []
+    for i, (B, S, V, D) in enumerate(((32, 8, 100, 16), (130, 5, 513, 32), (8, 1, 2000, 64),
+                                      (33, 17, 3000, 200))):
+        rng = np.random.default_rng(50 + i)
+        ids = rng.integers(-1, V + V // 10, (B, S)).astype(np.int32)
+        w = rng.normal(size=(B, S)).astype(np.float32)
+        table = rng.normal(size=(V, D)).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            for combine in ("sum", "mean"):
+                for weights in (None, w):
+                    name = (f"B{B} S{S} V{V} D{D} {str(dtype)[6:]} {combine} "
+                            f"{'weighted' if weights is not None else 'unweighted'}")
+                    cases.append((name, ids, table, weights, dtype, combine))
+    return cases
+
+
+def window_bound(n_in_bytes: int, n_out_bytes: int, ops: float) -> dict:
+    """Least time on this card: bytes moved once over the memory rate
+    against integer operations over the 32-bit rate."""
+    bytes_ms = (n_in_bytes + n_out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT_OPS_PER_S * 1e3
+    return {"bytes": int(n_in_bytes + n_out_bytes), "ops": int(ops), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def replay_phase(dev) -> dict:
+    """Each new kernel against its plain version on the card, over the
+    replay families. Returns the largest error per kernel."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
+    from repro_torch.kernels.intersect import (
+        intersect_compressed_plain,
+        intersect_plain,
+        intersect_sorted,
+        intersect_sorted_compressed,
+    )
+    from repro_torch.kernels.intersect import plan_k_tiles as plan_int
+    from repro_torch.kernels.intersect.ops import device_streams, pack_compressed
+    from repro_torch.kernels.proximity import plan_k_tiles as plan_prox
+    from repro_torch.kernels.proximity import proximity_join, proximity_plain
+
+    def on_card(*arrays):
+        return [torch.from_numpy(x).to(dev) for x in arrays]
+
+    cases = window_replays(plan_int)
+    for name, a, b, kw in cases:
+        ta, tb = on_card(a, b)
+        assert_lanes(intersect_sorted(ta, tb, **kw), intersect_plain(ta, tb, **kw),
+                     f"intersect {name}")
+    log(f"kernel intersect.intersect_sorted: {len(cases)} replay cases exact")
+
+    n = 0
+    for d in (1, 5, 9):
+        cases = window_replays(lambda a, b, ba, bb: plan_prox(a, b, d, ba, bb))
+        for name, a, b, kw in cases:
+            ta, tb = on_card(a, b)
+            assert_lanes(proximity_join(ta, tb, d, **kw), proximity_plain(ta, tb, d, **kw),
+                         f"proximity d={d} {name}")
+        n += len(cases)
+    log(f"kernel proximity.proximity_join: {n} replay cases exact (d = 1, 5, 9)")
+
+    cases = compressed_replays()
+    for name, a, b, kw in cases:
+        blocks = {k: v for k, v in kw.items() if k != "k_tiles"}
+        streams = pack_compressed(a, b, **blocks)
+        a_base, a_delta, b_base, b_delta, starts = device_streams(streams, dev)
+        block_a = blocks.get("block_a", 512)
+        block_b = blocks.get("block_b", 1024)
+        k = kw.get("k_tiles") or b_delta.shape[0] // block_b
+        want = intersect_compressed_plain(a_base, a_delta, b_base, b_delta, starts, a.size,
+                                          block_a=block_a, block_b=block_b, k_tiles=k)
+        assert_lanes([intersect_sorted_compressed(a, b, device=dev, **kw)], [want],
+                     f"compressed intersect {name}")
+    log(f"kernel intersect.intersect_sorted_compressed: {len(cases)} replay cases exact")
+
+    worst = 0.0
+    cases = bag_replays()
+    for name, ids, table, w, dtype, combine in cases:
+        tids, ttable = on_card(ids, table)
+        ttable = ttable.to(dtype)
+        tw = None if w is None else on_card(w)[0]
+        got = embedding_bag(tids, ttable, tw, combine)
+        want = embedding_bag_plain(tids, ttable, tw, combine)
+        rtol, atol = bag_tolerance(dtype)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m, name=name: f"embedding bag {name}: {m}")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    log(f"kernel embedding_bag.embedding_bag: {len(cases)} replay cases within tolerance "
+        f"(max abs err {worst})")
+    return {"intersect": 0, "compressed": 0, "proximity": 0, "embedding_bag": worst}
+
+
+def library_inputs(dev) -> dict:
+    """Full-width inputs of the kernel library, made from seeds: the sorted
+    lists of kernel_bench.py's full shape and of qt1_heavy's posting length
+    (values unique in [0, 4 Nb), as kernel_bench.py draws them), and the
+    two-tower-retrieval bag: a 10M x 256 float32 table made on the card,
+    50-id histories padded with -1 after a random length, positive
+    weights, at the serve_p99 batch and a larger one."""
+    rng = np.random.default_rng(7)
+    lists = {}
+    for tag, n, m in FULL_SHAPES:
+        a = np.unique(rng.integers(0, 4 * m, n)).astype(np.int32)
+        b = np.unique(rng.integers(0, 4 * m, m)).astype(np.int32)
+        lists[tag] = (a, b)
+    V, D, S = BAG_WIDTHS["V"], BAG_WIDTHS["D"], BAG_WIDTHS["S"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    table = torch.randn((V, D), generator=gen, device=dev, dtype=torch.float32)
+    bags = {}
+    for B in BAG_BATCHES:
+        ids = rng.integers(0, V, (B, S)).astype(np.int32)
+        lengths = rng.integers(1, S + 1, B)
+        ids[np.arange(S)[None, :] >= lengths[:, None]] = -1
+        w = rng.random((B, S)).astype(np.float32)
+        bags[B] = (torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev))
+    return {"lists": lists, "table": table, "bags": bags}
+
+
+def drive_library(dev, inputs) -> dict:
+    """The slice's main path: each kernel-library entry point once per
+    full-width shape, as a user calls it."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.intersect import (
+        intersect_sorted,
+        intersect_sorted_compressed,
+        plan_k_tiles,
+    )
+    from repro_torch.kernels.proximity import plan_k_tiles as plan_prox
+    from repro_torch.kernels.proximity import proximity_join
+
+    outs = {}
+    for tag, (a, b) in inputs["lists"].items():
+        k, kp = plan_k_tiles(a, b), plan_prox(a, b, PROX_D)
+        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        outs["intersect", tag] = (intersect_sorted(ta, tb, k_tiles=k), k)
+        outs["compressed", tag] = (intersect_sorted_compressed(a, b, k_tiles=k, device=dev), k)
+        outs["proximity", tag] = (proximity_join(ta, tb, PROX_D, k_tiles=kp), kp)
+    for B, (ids, w) in inputs["bags"].items():
+        outs["bag", B] = (embedding_bag(ids, inputs["table"], w, "sum"), None)
+    torch.cuda.synchronize()
+    return outs
+
+
+def library_phase(dev, errs: dict) -> dict:
+    """Drives the kernel library at full width with the launch counts set
+    to 0, holds every result against its plain version and its oracle,
+    and times kernel, wrapper, plain version and library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
+    from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.intersect import (
+        intersect_compressed_plain,
+        intersect_plain,
+        intersect_sorted,
+        intersect_sorted_compressed,
+    )
+    from repro_torch.kernels.intersect.ops import (
+        device_streams,
+        launch_intersect,
+        launch_intersect_compressed,
+        pack_compressed,
+    )
+    from repro_torch.kernels.proximity import proximity_join, proximity_plain
+    from repro_torch.kernels.proximity.ops import launch_proximity
+    from repro_torch.kernels.proximity.ref import proximity_join_ref
+
+    t0 = time.perf_counter()
+    inputs = library_inputs(dev)
+    torch.cuda.synchronize()
+    log(f"library: inputs made in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    outs = drive_library(dev, inputs)
+    launches = read_counts()
+    log(f"library: main path launches {launches}")
+    for name in ("intersect.intersect_sorted", "intersect.intersect_sorted_compressed",
+                 "proximity.proximity_join", "embedding_bag.embedding_bag"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the kernel-library path never launched {name}")
+
+    shapes = {"intersect": {}, "compressed": {}, "proximity": {}, "embedding_bag": {}}
+    for tag, (a, b) in inputs["lists"].items():
+        na, nb = a.size, b.size
+        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        member = torch.from_numpy(np.isin(a, b))
+
+        (mask, idx), k = outs["intersect", tag]
+        assert_lanes((mask, idx), intersect_plain(ta, tb, k_tiles=k), f"intersect {tag}")
+        if not torch.equal(mask.cpu(), member):
+            raise AssertionError(f"intersect {tag}: mask differs from np.isin at k_tiles={k}")
+        m_out, i_out = torch.empty_like(mask), torch.empty_like(idx)
+        rec = {"Na": na, "Nb": nb, "k_tiles": k, "matches": int(member.sum()),
+               "ms": device_ms(lambda: launch_intersect(ta, tb, m_out, i_out, block_a=512,
+                                                        block_b=1024, k_tiles=k)),
+               "wrapper_ms": call_ms(lambda: intersect_sorted(ta, tb, k_tiles=k)),
+               "plain_ms": device_ms(lambda: intersect_plain(ta, tb, k_tiles=k)),
+               "library_ms": device_ms(lambda: torch.isin(ta, tb)),
+               "library": "torch.isin(a, b), mask only",
+               **window_bound(4 * na + 4 * nb, 5 * na, 2 * (na + nb))}
+        shapes["intersect"][tag] = rec
+
+        mask, k = outs["compressed", tag]
+        streams = pack_compressed(a, b)
+        dev_streams = device_streams(streams, dev)
+        want = intersect_compressed_plain(*dev_streams, na, block_a=512, block_b=1024, k_tiles=k)
+        assert_lanes([mask], [want], f"compressed intersect {tag}")
+        if not torch.equal(mask.cpu(), member):
+            raise AssertionError(f"compressed intersect {tag}: mask differs from np.isin")
+        c_out = torch.empty_like(mask)
+        rec = {"Na": na, "Nb": nb, "k_tiles": k,
+               "ms": device_ms(lambda: launch_intersect_compressed(
+                   *dev_streams, c_out, block_a=512, block_b=1024, k_tiles=k)),
+               "wrapper_ms": call_ms(lambda: intersect_sorted_compressed(
+                   a, b, k_tiles=k, device=dev)),
+               "plain_ms": device_ms(lambda: intersect_compressed_plain(
+                   *dev_streams, na, block_a=512, block_b=1024, k_tiles=k)),
+               "library_ms": None, "library": "none on the delta16 streams",
+               **window_bound(sum(x.nbytes for x in streams), na, 3 * (na + nb))}
+        shapes["compressed"][tag] = rec
+
+        out, k = outs["proximity", tag]
+        assert_lanes(out, proximity_plain(ta, tb, PROX_D, k_tiles=k), f"proximity {tag}")
+        assert_lanes(out, proximity_join_ref(ta, tb, PROX_D), f"proximity {tag} (oracle)")
+        p_out = [torch.empty_like(x) for x in out]
+        rec = {"Na": na, "Nb": nb, "d": PROX_D, "k_tiles": k, "matches": int(out[0].sum()),
+               "ms": device_ms(lambda: launch_proximity(ta, tb, *p_out, d=PROX_D, block_a=512,
+                                                        block_b=1024, k_tiles=k)),
+               "wrapper_ms": call_ms(lambda: proximity_join(ta, tb, PROX_D, k_tiles=k)),
+               "plain_ms": device_ms(lambda: proximity_plain(ta, tb, PROX_D, k_tiles=k)),
+               "library_ms": None, "library": "none",
+               **window_bound(4 * na + 4 * nb, 9 * na, 4 * (na + nb))}
+        shapes["proximity"][tag] = rec
+        for kind in ("intersect", "compressed", "proximity"):
+            r = shapes[kind][tag]
+            lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            log(f"kernel {kind} {tag} Na={na} Nb={nb} k_tiles={r['k_tiles']}: exact; "
+                f"kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms), "
+                f"plain {r['plain_ms']:.4f} ms, library {lib}, "
+                f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                f"({r['bytes'] / 1e6:.2f} MB)")
+
+    table = inputs["table"]
+    V, D = table.shape
+    worst = errs["embedding_bag"]
+    for B, (ids, w) in inputs["bags"].items():
+        out, _ = outs["bag", B]
+        want = embedding_bag_plain(ids, table, w, "sum")
+        rtol, atol = bag_tolerance(table.dtype)
+        torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+        torch.testing.assert_close(out, embedding_bag_ref(ids, table, w, "sum"),
+                                   rtol=1e-5, atol=1e-4)
+        worst = max(worst, float((out - want).abs().max()))
+        valid = (ids >= 0) & (ids < V)
+        rows = int(torch.unique(ids[valid]).numel())
+        lib_ids, lib_w = ids.clamp(min=0), w * (ids >= 0)
+        lib_out = F.embedding_bag(lib_ids, table, per_sample_weights=lib_w, mode="sum")
+        b_out = torch.empty_like(out)
+        S = ids.shape[1]
+        rec = {"B": B, "S": S, "V": V, "D": D, "dtype": "float32", "combine": "sum",
+               "weighted": True, "valid_ids": int(valid.sum()), "distinct_rows": rows,
+               "ms": device_ms(lambda: launch_embedding_bag(ids, table, w, b_out, mean=False)),
+               "wrapper_ms": call_ms(lambda: embedding_bag(ids, table, w, "sum")),
+               "plain_ms": device_ms(lambda: embedding_bag_plain(ids, table, w, "sum")),
+               "library_ms": device_ms(lambda: F.embedding_bag(
+                   lib_ids, table, per_sample_weights=lib_w, mode="sum")),
+               "library": "F.embedding_bag(mode='sum', per_sample_weights)",
+               "library_max_abs_diff": float((lib_out - out).abs().max()),
+               **window_bound(8 * B * S + rows * D * table.element_size(),
+                              B * D * table.element_size(), 2 * int(valid.sum()) * D)}
+        shapes["embedding_bag"][f"B{B}"] = rec
+        log(f"kernel embedding_bag B={B} S={S} V={V} D={D} float32 weighted sum: "
+            f"max abs err {float((out - want).abs().max())}; "
+            f"kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f} ms), "
+            f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({rec['bytes'] / 1e6:.1f} MB, {rows} distinct rows)")
+    del inputs, outs, table
+    torch.cuda.empty_cache()
+    errs = dict(errs, embedding_bag=worst)
+    return {"launches": launches, "max_abs_err": errs, "shapes": shapes}
 
 
 # -- the serving path ----------------------------------------------------------
@@ -255,7 +710,7 @@ def serve_phase(dev) -> dict:
         f"index built, {len(queries)} queries in {time.perf_counter() - t0:.1f} s")
 
     svc = SearchService(index, ServeConfig(), device=dev)
-    window_join.launches = 0
+    reset_counts()
     drains, per_drain = [], {}
     for name in ("cold", "warm"):
         for q in queries:
@@ -305,6 +760,15 @@ def serve_phase(dev) -> dict:
                             for (k, b, l), n in svc.compiled.executables.items()}}
 
 
+def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
+    """One kernel of the kernels line, from its primary shape's record."""
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "matches_plain": True,
+            "max_abs_err": err, **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms")},
+            "wrapper_ms": rec["wrapper_ms"], **extra}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", help="also write the full report as JSON here")
@@ -317,34 +781,62 @@ def main() -> int:
     smi = header()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    built = build(["nearest_r"])
-    log(f"build: nearest_r.cu in {built['nearest_r']:.1f} s "
-        f"(all sources {time.perf_counter() - t0:.1f} s)")
+    built = build(SOURCES)
+    log("build: " + ", ".join(f"{n}.cu {t:.1f} s" for n, t in built.items())
+        + f" (all sources, in parallel, {time.perf_counter() - t0:.1f} s)")
     kern = kernel_phase(dev)
+    errs = replay_phase(dev)
+    lib = library_phase(dev, errs)
     serve = serve_phase(dev)
     qt5 = kern["shapes"]["qt5"]
-    line = {"kernels": [{
-        "name": "nearest_r.window_join",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/nearest_r.cu",
-        "replaces": "src/repro/kernels/nearest_r/nearest_r.py:207",
-        "launches": serve["launches"],
-        "matches_plain": True,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": qt5["ms"],
-        "plain_ms": qt5["plain_ms"],
-        "bound_ms": qt5["bound_ms"],
-        "bound_by": qt5["bound_by"],
-        "library_ms": None,
-        "shape": {k: qt5[k] for k in ("B", "Kn", "Ks", "L")},
-        "qt34": {k: kern["shapes"]["qt34"][k]
-                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-    }]}
+    sh, n = lib["shapes"], lib["launches"]
+    heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
+
+    def others(kind, primary):
+        return {"shape": {k: v for k, v in sh[kind][primary].items()
+                          if k in ("Na", "Nb", "d", "k_tiles", "B", "S", "V", "D")},
+                "other_shapes": {tag: {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "library_ms")}
+                                 for tag, r in sh[kind].items() if tag != primary}}
+
+    line = {"kernels": [
+        {"name": "nearest_r.window_join",
+         "route": "cuda",
+         "source": "src/repro_torch/csrc/nearest_r.cu",
+         "replaces": "src/repro/kernels/nearest_r/nearest_r.py:207",
+         "launches": serve["launches"],
+         "matches_plain": True,
+         "max_abs_err": kern["max_abs_err"],
+         "ms": qt5["ms"],
+         "plain_ms": qt5["plain_ms"],
+         "bound_ms": qt5["bound_ms"],
+         "bound_by": qt5["bound_by"],
+         "library_ms": None,
+         "shape": {k: qt5[k] for k in ("B", "Kn", "Ks", "L")},
+         "qt34": {k: kern["shapes"]["qt34"][k]
+                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        kernel_entry("intersect.intersect_sorted", "intersect.cu",
+                     "src/repro/kernels/intersect/intersect.py:153",
+                     n["intersect.intersect_sorted"], lib["max_abs_err"]["intersect"],
+                     sh["intersect"][heavy], others("intersect", heavy)),
+        kernel_entry("intersect.intersect_sorted_compressed", "intersect.cu",
+                     "src/repro/kernels/intersect/intersect.py:106",
+                     n["intersect.intersect_sorted_compressed"],
+                     lib["max_abs_err"]["compressed"], sh["compressed"][heavy], others("compressed", heavy)),
+        kernel_entry("proximity.proximity_join", "proximity.cu",
+                     "src/repro/kernels/proximity/proximity.py:69",
+                     n["proximity.proximity_join"], lib["max_abs_err"]["proximity"],
+                     sh["proximity"][heavy], others("proximity", heavy)),
+        kernel_entry("embedding_bag.embedding_bag", "embedding_bag.cu",
+                     "src/repro/kernels/embedding_bag/embedding_bag.py:73",
+                     n["embedding_bag.embedding_bag"], lib["max_abs_err"]["embedding_bag"],
+                     sh["embedding_bag"][bag], others("embedding_bag", bag)),
+    ]}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
-            {"nvidia_smi": smi, "build_s": built, "kernel": kern, "serve": serve},
-            indent=1, default=float))
+            {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
+             "serve": serve}, indent=1, default=float))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

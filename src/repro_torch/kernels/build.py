@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -82,3 +84,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, symbol: str, args, device) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` on the
+    current stream of ``device``. ``args`` are the entry point's arguments
+    before its trailing stream: tensors pass their data pointer (``None``
+    a null one), Python ints pass as C ints. Raises when the entry point
+    returns a CUDA error."""
+    fn = getattr(load(name), symbol)
+    argtypes, values = [], []
+    for arg in args:
+        if arg is None or isinstance(arg, torch.Tensor):
+            argtypes.append(ctypes.c_void_p)
+            values.append(None if arg is None else arg.data_ptr())
+        else:
+            argtypes.append(ctypes.c_int)
+            values.append(int(arg))
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*values, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")

@@ -26,8 +26,6 @@ multiplicities are <= r_max.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -196,22 +194,14 @@ def launch_kernel(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, valid, lo, hi, *,
     """Launch the CUDA kernel into preallocated outputs on the current
     stream — no checks and no launch count: the wrapper's inner step,
     exposed for timing the kernel alone."""
-    from repro_torch.kernels.build import load
+    from repro_torch.kernels.build import launch
 
     B, Kn, L = ns_g.shape
     Ks = 0 if st_cnt is None else st_cnt.shape[1]
-    fn = load("nearest_r").nearest_r_window_join
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stop_ptrs = ([t.data_ptr() for t in (st_cnt, st_ext, st_r)] if Ks
-                 else [None] * 3)
-    with torch.cuda.device(a_g.device):
-        rc = fn(a_g.data_ptr(), ns_g.data_ptr(), ns_r.data_ptr(), *stop_ptrs,
-                valid.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                B, Kn, Ks, L, int(max_sep), int(r_max),
-                torch.cuda.current_stream(a_g.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nearest_r kernel launch failed with CUDA error {rc}")
+    stops = (st_cnt, st_ext, st_r) if Ks else (None,) * 3
+    launch("nearest_r", "nearest_r_window_join",
+           [a_g, ns_g, ns_r, *stops, valid, lo, hi, B, Kn, Ks, L, max_sep, r_max],
+           a_g.device)
 
 
 def plan_k_tiles(a_g, ns_g, max_sep: int, block_l: int, block_k: int) -> int:

@@ -194,6 +194,7 @@ def test_block_boundary_straddle_matches_pallas_interpret(ref):
 
 
 # ---------------- the CUDA kernel vs the plain version, on a card ----------
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed", SEEDS[:4])
 def test_kernel_matches_plain_cuda(cuda, seed):
     for stops in (False, True):
