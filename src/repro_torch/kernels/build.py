@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` under the
 checkout's root, keyed by a hash of the source and the flags, then loaded
 with ``ctypes``. Nothing here runs at import time: the CPU tests import
-every module on a host without ``nvcc``. A failed build raises.
+every module on a host without ``nvcc``. A failed build raises. Every
+function takes ``csrc``, another directory of sources with the same C
+entry points (an earlier version of a kernel, timed beside the current
+one); it defaults to the package's own.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[Path, str], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -38,15 +41,15 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
     """Where the build of ``csrc/<name>.cu`` lives for the current source."""
     digest = hashlib.sha256()
-    digest.update((CSRC / f"{name}.cu").read_bytes())
+    digest.update((Path(csrc) / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, float]:
+def build(names, csrc: Path = CSRC) -> dict[str, float]:
     """Compile every named source that has no current build, one ``nvcc``
     per source, all started together. Returns seconds per source built
     (0.0 for a build that already existed). Raises on any failure."""
@@ -54,11 +57,11 @@ def build(names) -> dict[str, float]:
     t0 = time.perf_counter()
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(Path(csrc) / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -76,23 +79,24 @@ def build(names) -> dict[str, float]:
     return times
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+    key = (Path(csrc), name)
+    lib = _LIBS.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        build([name], csrc)
+        lib = ctypes.CDLL(str(library_path(name, csrc)))
+        _LIBS[key] = lib
     return lib
 
 
-def launch(name: str, symbol: str, args, device) -> None:
+def launch(name: str, symbol: str, args, device, csrc: Path = CSRC) -> None:
     """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` on the
     current stream of ``device``. ``args`` are the entry point's arguments
     before its trailing stream: tensors pass their data pointer (``None``
     a null one), Python ints pass as C ints. Raises when the entry point
     returns a CUDA error."""
-    fn = getattr(load(name), symbol)
+    fn = getattr(load(name, csrc), symbol)
     argtypes, values = [], []
     for arg in args:
         if arg is None or isinstance(arg, torch.Tensor):

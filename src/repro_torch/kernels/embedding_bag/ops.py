@@ -108,14 +108,15 @@ def embedding_bag(ids, table, weights=None, combine: str = "sum", *,
 embedding_bag.launches = 0
 
 
-def launch_embedding_bag(ids, table, weights, out, *, mean: bool) -> None:
+def launch_embedding_bag(ids, table, weights, out, *, mean: bool, csrc=None) -> None:
     """Launch the CUDA kernel into a preallocated output on the current
     stream — no checks and no launch count: the wrapper's inner step,
-    exposed for timing the kernel alone."""
-    from repro_torch.kernels.build import launch
+    exposed for timing the kernel alone (``csrc``: another source
+    directory, as in :mod:`repro_torch.kernels.build`)."""
+    from repro_torch.kernels.build import CSRC, launch
 
     B, S = ids.shape
     V, D = table.shape
     launch("embedding_bag", "embedding_bag_fwd",
            [ids, weights, table, out, B, S, V, D, int(mean), KERNEL_DTYPES[table.dtype]],
-           table.device)
+           table.device, CSRC if csrc is None else csrc)

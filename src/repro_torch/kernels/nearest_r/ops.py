@@ -3,9 +3,11 @@
 One signature, two versions, chosen by where the tensors lie:
 
 - on a card, the hand-written CUDA kernel ``csrc/nearest_r.cu`` (the
-  port of the reference package's Pallas ``window_join_pallas``): one
-  thread per anchor lane, a binary search per active key, the counting
-  rank below, the stop fold, early exit on invalid lanes;
+  port of the reference package's Pallas ``window_join_pallas``): a block
+  per tile of anchor lanes, the stop fold, then per active key the key-row
+  window that the tile's anchors can reach, staged in shared memory when
+  it fits, a search per lane inside it, the counting rank below, and a
+  stop once no lane of the tile is valid;
 - on the CPU, :func:`window_join_plain`: the sort-free *counting*
   formulation. One ``searchsorted`` per flattened (query, key) row, then
   the p-th nearest predecessor / q-th nearest successor distances are
@@ -21,7 +23,8 @@ fallback from a failed kernel to it.
 
 Preconditions shared with the rest of the serve path: rows are sorted
 ascending, strictly increasing on real values, SENTINEL-padded; ns_r
-multiplicities are <= r_max.
+multiplicities are <= r_max (the packers guarantee both). Anchors need
+not be sorted.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from repro_torch.kernels.common import SENTINEL, cdiv
 
 BIG_DIST = 2**30
 R_MAX_LIMIT = 8  # the kernel is instantiated for r_max in 1..8
+TILE = 1024  # anchor lanes per block of the kernel (kTile)
 
 
 def _nearest_r_counting(b_rows, centers, max_sep: int, r, r_max: int):
@@ -135,7 +139,15 @@ def window_join(a_g, ns_g, ns_r, st_cnt=None, st_ext=None, st_r=None, *,
     launch); tensors on the CPU go through the plain version. On invalid
     lanes the kernel's lo/hi may differ from the plain version's: callers
     read only ``(valid, lo[valid], hi[valid])``.
+
+    A multiplicity above ``r_max`` raises ValueError where ``ns_r`` lies
+    on the CPU. On a card it is not checked, because reading ``ns_r``
+    back would stall the host until the card catches up; the call then
+    makes no host synchronisation, and such a lane reads at most
+    ``r_max`` candidates per side.
     """
+    if not ns_r.is_cuda and ns_r.numel() and int(ns_r.max()) > r_max:
+        raise ValueError(f"ns_r holds a multiplicity above r_max={r_max}")
     if a_g.is_cuda:
         return _window_join_cuda(a_g, ns_g, ns_r, st_cnt, st_ext, st_r,
                                  max_sep=max_sep, r_max=r_max)
@@ -174,10 +186,9 @@ def _window_join_cuda(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, *, max_sep: int,
         raise ValueError(f"r_max must be in 1..{R_MAX_LIMIT}, got {r_max}")
     if not 0 <= max_sep < BIG_DIST:
         raise ValueError(f"max_sep out of range: {max_sep}")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit of 65535")
-    if Kn and int(ns_r.max()) > r_max:
-        raise ValueError(f"ns_r holds a multiplicity above r_max={r_max}")
+    if cdiv(L, TILE) > 65535:
+        raise ValueError(f"row length {L} exceeds the kernel's grid limit of "
+                         f"{65535 * TILE}")
     valid = torch.empty((B, L), dtype=torch.bool, device=dev)
     lo = torch.empty((B, L), dtype=torch.int32, device=dev)
     hi = torch.empty((B, L), dtype=torch.int32, device=dev)
@@ -190,18 +201,19 @@ def _window_join_cuda(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, *, max_sep: int,
 
 
 def launch_kernel(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, valid, lo, hi, *,
-                  max_sep: int, r_max: int) -> None:
+                  max_sep: int, r_max: int, csrc=None) -> None:
     """Launch the CUDA kernel into preallocated outputs on the current
     stream — no checks and no launch count: the wrapper's inner step,
-    exposed for timing the kernel alone."""
-    from repro_torch.kernels.build import launch
+    exposed for timing the kernel alone (``csrc``: another source
+    directory, as in :mod:`repro_torch.kernels.build`)."""
+    from repro_torch.kernels.build import CSRC, launch
 
     B, Kn, L = ns_g.shape
     Ks = 0 if st_cnt is None else st_cnt.shape[1]
     stops = (st_cnt, st_ext, st_r) if Ks else (None,) * 3
     launch("nearest_r", "nearest_r_window_join",
            [a_g, ns_g, ns_r, *stops, valid, lo, hi, B, Kn, Ks, L, max_sep, r_max],
-           a_g.device)
+           a_g.device, CSRC if csrc is None else csrc)
 
 
 def plan_k_tiles(a_g, ns_g, max_sep: int, block_l: int, block_k: int) -> int:

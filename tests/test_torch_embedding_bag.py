@@ -149,3 +149,38 @@ def test_kernel_matches_plain_cuda(cuda):
                 torch.cuda.synchronize()
                 assert embedding_bag.launches == before + 1
                 assert torch.equal(got.cpu(), want)
+
+
+def _shifted(table: torch.Tensor) -> torch.Tensor:
+    """A contiguous view of ``table`` one element into a larger buffer:
+    its base is 4 or 2 bytes off 16-byte alignment."""
+    big = torch.empty(table.numel() + 1, dtype=table.dtype, device=table.device)
+    big[1:] = table.flatten()
+    return big[1:].view(table.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["D1", "D3", "D12", "D129", "shifted", "repeats", "all-pad",
+                                  "S7", "S33", "S65"])
+def test_kernel_edges_match_plain_cuda(cuda, case):
+    """Row widths off the kernel's 16-byte loads, a misaligned table,
+    repeated ids, all-pad bags and bag lengths off its 8-row and 32-id
+    steps: float32 equal to the plain version to the bit, bfloat16 too
+    (the same float32 sums, one rounding)."""
+    D = int(case[1:]) if case.startswith("D") else 64
+    S = int(case[1:]) if case.startswith("S") else 13
+    ids, w, table = _inputs(len(case), 40, S, 300, D, lo=-1, hi=330)
+    if case == "repeats":
+        ids = np.random.default_rng(0).integers(0, 3, ids.shape).astype(np.int32)
+    if case == "all-pad":
+        ids[::2] = -1
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(table).to(dtype)
+        tc = _shifted(t.to(cuda)) if case == "shifted" else t.to(cuda)
+        assert (tc.data_ptr() % 16 != 0) == (case == "shifted")
+        for combine in ("sum", "mean"):
+            for tw in (None, torch.from_numpy(w)):
+                want = embedding_bag_plain(torch.from_numpy(ids), t, tw, combine)
+                got = embedding_bag(torch.from_numpy(ids).to(cuda), tc,
+                                    None if tw is None else tw.to(cuda), combine)
+                assert torch.equal(got.cpu(), want), (dtype, combine, tw is None)

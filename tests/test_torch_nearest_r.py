@@ -205,3 +205,107 @@ def test_kernel_matches_plain_cuda(cuda, seed):
         torch.cuda.synchronize()
         assert window_join.launches == before + 1
         _assert_same(got, want)
+
+
+# ---------------- unsorted anchors, multiplicities above r_max -------------
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_plain_matches_lax_join_shuffled_anchors(ref, seed):
+    """Anchors need not be sorted: each lane is its own query, so a row
+    of anchors shuffled among its SENTINEL lanes gives the same lanes,
+    permuted alike."""
+    arrays, max_sep = _case(seed, b=3, kn=3, l=64, stride=2, stops=seed % 2 == 1)
+    rng = np.random.default_rng(seed)
+    perm = np.stack([rng.permutation(arrays[0].shape[1]) for _ in range(arrays[0].shape[0])])
+    shuffled = [np.take_along_axis(arrays[0], perm, 1), *arrays[1:3]]
+    if len(arrays) > 3:
+        shuffled += [np.take_along_axis(x, perm[:, None, :], 2) for x in arrays[3:5]]
+        shuffled.append(arrays[5])
+    got = _port(window_join, shuffled, max_sep)
+    _assert_all_lanes(got, _jax(jax_window_join, shuffled, max_sep))
+    want = _port(window_join, arrays, max_sep)
+    _assert_all_lanes(got, tuple(np.take_along_axis(x, perm, 1) for x in want))
+
+
+def test_host_multiplicity_above_r_max_raises():
+    arrays, max_sep = _case(3)
+    arrays[2][0, 0] = R_MAX + 1
+    with pytest.raises(ValueError, match="r_max"):
+        _port(window_join, arrays, max_sep)
+
+
+# ---------------- the redesigned kernel's cases, on a card -----------------
+def _gap_rows(rng, n, l, gaps, fill):
+    vals = np.cumsum(rng.integers(gaps[0], gaps[1] + 1, (n, l)), axis=1) + 1000
+    vals[np.arange(l)[None, :] >= rng.integers(fill[0], fill[1] + 1, n)[:, None]] = SENTINEL
+    return vals.astype(np.int32)
+
+
+def _kernel_cases():
+    """Shapes the block-window kernel treats apart: L off its 256-thread
+    and 1024-lane multiples, shuffled anchors, windows wider than its
+    4096-value shared-memory buffer (sparse anchors over dense keys,
+    searched in global memory), a few anchors over a wide dense window,
+    and tiles whose lanes all fail the first key."""
+    cases = []
+    for l in (1, 255, 1025, 3071):
+        rng = np.random.default_rng(l)
+        cases.append(("L", [_gap_rows(rng, 2, l, (1, 6), (max(1, l // 2), l)),
+                            _gap_rows(rng, 6, l, (1, 6), (max(1, l // 2), l)).reshape(2, 3, l),
+                            rng.integers(0, R_MAX + 1, (2, 3)).astype(np.int32)]))
+    rng = np.random.default_rng(1)
+    a = _gap_rows(rng, 2, 6000, (1, 6), (5980, 5980))
+    for row in a:
+        rng.shuffle(row)
+    cases.append(("shuffled", [a, _gap_rows(rng, 6, 6000, (1, 6), (3000, 6000)).reshape(2, 3, 6000),
+                               rng.integers(0, R_MAX + 1, (2, 3)).astype(np.int32)]))
+    dense = _gap_rows(rng, 6, 6000, (1, 2), (3000, 6000)).reshape(2, 3, 6000)
+    cases.append(("wide windows", [_gap_rows(rng, 2, 6000, (4, 12), (1100, 3000)), dense,
+                                   rng.integers(0, R_MAX + 1, (2, 3)).astype(np.int32),
+                                   *_stops(rng, 2, 2, 6000, 5)]))
+    a = np.full((2, 30000), SENTINEL, np.int32)
+    a[:, :12] = np.sort(rng.choice(np.arange(2000, 100_000), (2, 12), replace=False), axis=1)
+    dense = _gap_rows(rng, 6, 30000, (1, 6), (29900, 30000)).reshape(2, 3, 30000)
+    cases.append(("few anchors", [a, dense, rng.integers(0, R_MAX + 1, (2, 3)).astype(np.int32)]))
+    a = _gap_rows(rng, 2, 3000, (20, 30), (3000, 3000))
+    ns = np.stack([a + 10, _gap_rows(rng, 2, 3000, (1, 6), (3000, 3000)),
+                   _gap_rows(rng, 2, 3000, (1, 6), (3000, 3000))], axis=1)
+    cases.append(("all fail key 0", [a, ns, np.ones((2, 3), np.int32)]))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(8))
+def test_kernel_block_windows_match_plain_cuda(cuda, case):
+    name, arrays = _kernel_cases()[case]
+    want = _port(window_join_plain, arrays, 5)
+    got = _port(window_join, arrays, 5, device=cuda)
+    _assert_same(got, want)
+    if name == "all fail key 0":
+        assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_max", range(1, 9))
+def test_kernel_every_multiplicity_cuda(cuda, r_max):
+    for r in range(r_max + 1):
+        arrays, max_sep = _case(200 + r, b=2, kn=3, l=200, stride=2, r=r)
+        ts = [torch.from_numpy(x) for x in arrays]
+        want = window_join_plain(*ts, max_sep=max_sep, r_max=r_max)
+        got = window_join(*[t.to(cuda) for t in ts], max_sep=max_sep, r_max=r_max)
+        _assert_same(tuple(x.cpu().numpy() for x in got), tuple(x.numpy() for x in want))
+
+
+@pytest.mark.cuda
+def test_kernel_call_makes_no_host_sync_cuda(cuda):
+    """The card path reads nothing back: no check of ns_r against r_max,
+    no sizes from the device. Sync debug mode raises on any host sync."""
+    arrays, max_sep = _case(5, b=4, kn=3, l=300, stride=2, stops=True)
+    ts = [torch.from_numpy(x).to(cuda) for x in arrays]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = window_join(*ts, max_sep=max_sep, r_max=R_MAX)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_same(tuple(x.cpu().numpy() for x in got),
+                 _port(window_join_plain, arrays, max_sep))

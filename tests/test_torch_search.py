@@ -84,6 +84,21 @@ def test_packers_match_reference(world, family):
         np.testing.assert_array_equal(a.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("family", ["qt34", "qt5"])
+def test_window_join_rows_strictly_increasing(world, family):
+    """What the window-join kernel leans on: every anchor and key row of
+    a raw, one-shard batch is strictly increasing on its real values and
+    SENTINEL from there to the end."""
+    _, _, got = _batches(world, family)
+    rows = np.concatenate([got.a_g, got.ns_g.reshape(-1, got.ns_g.shape[-1])])
+    real = rows != port.SENTINEL
+    assert real.any()
+    n = real.sum(axis=1)
+    assert np.array_equal(real, np.arange(rows.shape[1])[None, :] < n[:, None])
+    steps = np.diff(rows.astype(np.int64), axis=1)
+    assert (steps[real[:, 1:]] > 0).all()
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_step_outputs_and_records_match_reference(world, family):
     qs, want_b, got_b = _batches(world, family)
