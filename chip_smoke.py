@@ -9,9 +9,11 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   embedding bag): each kernel is held against its plain PyTorch version
   on the card over seeded replay families; then, with every launch count
   set to 0, each entry point runs once per full-width shape (the sorted
-  lists of ``kernel_bench.py`` and ``qt1_heavy``, the two-tower-retrieval
-  bag), its results are checked against the plain version and an oracle,
-  and kernel, wrapper, plain version and library call are timed;
+  lists of ``kernel_bench.py`` and ``qt1_heavy``, and for the raw
+  intersect and the proximity join a rarer list against ``qt1_heavy``'s;
+  the two-tower-retrieval bag), its results are checked against the plain
+  version and an oracle, and kernel, wrapper, plain version and library
+  call are timed;
 - the serving path: the nearest-r window join is held against its plain
   version (replayed case families, the top-of-ladder shapes of the
   default ServeConfig and two density-skewed shapes at the same width)
@@ -22,11 +24,12 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
 calls are queued behind a sleep kernel), wrapper times are call times as
-the host issues them. With ``--parent-csrc DIR``, the nearest-r and
-embedding-bag kernels built from ``DIR/nearest_r.cu`` and
-``DIR/embedding_bag.cu`` (an earlier version with the same C entry
-points) are timed at each full-width shape too, in turns with the
-current ones: earlier, current, current, earlier.
+the host issues them; each line also gives the wrapper minus the
+kernel, the host's share of a call. With ``--parent-csrc DIR``, the
+nearest-r, embedding-bag, raw intersect and proximity kernels built from
+``DIR/{nearest_r,embedding_bag,intersect,proximity}.cu`` (an earlier
+version with the same C entry points) are timed at each full-width shape
+too, in turns with the current ones: earlier, current, current, earlier.
 
 The second-to-last line of standard output is the kernels JSON line, the
 last line ``{"ok": true, "device": {...}}``. The script fails (non-zero
@@ -67,6 +70,12 @@ SOURCES = ("nearest_r", "intersect", "proximity", "embedding_bag")  # csrc/<name
 # (tag, Na, Nb): kernel_bench.py's full shape and qt1_heavy's posting length
 # (configs/proximity_search.py)
 FULL_SHAPES = (("kernel_bench", 131_072, 1_048_576), ("qt1_heavy", 1_048_576, 1_048_576))
+# the Equalize of a rarer lemma against qt1_heavy's b: (tag, draws into
+# [0, 4 Nb)); raw intersect and proximity only. Its A-blocks need more b
+# than a block stages, so it drives the kernels' global branch.
+RARE_A = ("qt1 rare-a", 16_384)
+LIST_CAP = 4096  # b-values a block of csrc/sorted_window.cuh stages (kCap)
+PARENT_SOURCES = ("nearest_r", "embedding_bag", "intersect", "proximity")
 PROX_D = 5  # MaxDistance's default
 # two-tower-retrieval (configs/recsys_archs.py): n_items, embed_dim, hist_len;
 # batches: RECSYS_SHAPES serve_p99 and a larger one
@@ -386,6 +395,18 @@ def turns(fn_parent, fn) -> dict:
     return {"parent_ms": [t[0], t[3]], "turn_ms": [t[1], t[2]]}
 
 
+def host_ms(rec: dict) -> float:
+    """Wrapper minus kernel: the host's share of one call."""
+    return rec["wrapper_ms"] - rec["ms"]
+
+
+def in_turns(rec: dict) -> str:
+    if "parent_ms" not in rec:
+        return ""
+    return (f"; in turns: earlier kernel {rec['parent_ms'][0]:.4f} / {rec['parent_ms'][1]:.4f} ms, "
+            f"this kernel {rec['turn_ms'][0]:.4f} / {rec['turn_ms'][1]:.4f} ms")
+
+
 def kernel_phase(dev, parent=None) -> dict:
     from repro_torch.kernels.nearest_r import window_join, window_join_plain
     from repro_torch.kernels.nearest_r.ops import launch_kernel
@@ -443,17 +464,15 @@ def kernel_phase(dev, parent=None) -> dict:
         if parent is not None:
             rec.update(turns(run(parent), run()))
         shapes[tag] = rec
-        vs = "" if parent is None else (
-            f"; in turns: earlier kernel {rec['parent_ms'][0]:.4f} / {rec['parent_ms'][1]:.4f} ms, "
-            f"this kernel {rec['turn_ms'][0]:.4f} / {rec['turn_ms'][1]:.4f} ms")
         log(f"kernel nearest_r.window_join {tag} B={B} Kn={Kn} Ks={Ks} L={L}: exact; "
-            f"kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms, wrapper - kernel "
+            f"{host_ms(rec):.4f} ms), plain {plain_ms:.4f} ms, "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
             f"({b['bytes'] / 1e6:.1f} MB -> {b['bytes_ms'] * 1e3:.1f} us; "
             f"{b['ops'] / 1e9:.2f} Gop -> {b['ops_ms'] * 1e3:.1f} us), "
             f"valid lanes {valid_share:.3f}, block windows {rec['windows']} "
             f"({rec['windows_staged']} staged, median {rec['window_median']:.0f} values); "
-            f"library_ms: null{vs}")
+            f"library_ms: null{in_turns(rec)}")
     return {"max_abs_err": worst, "shapes": shapes}
 
 
@@ -502,9 +521,13 @@ def window_replays(plan):
     """Seeded replay families of a windowed kernel as (name, a, b, kwargs):
     test_kernels.py's shapes (lengths off the block multiples among them)
     at the planned and the full-scan k_tiles, blocks 8/16 at truncated and
-    exact k_tiles, repeats with SENTINEL tails filling whole A-blocks, and
-    one-element inputs. ``plan(a, b, block_a, block_b)`` is the kernel's
-    k_tiles planner."""
+    exact k_tiles, repeats with SENTINEL tails filling whole A-blocks,
+    one-element inputs; then the block-per-A-block kernels' own hazards:
+    a shuffled inside each A-block, an A-block of SENTINEL alone in the
+    middle of a, a sparse a over a dense b at full scan (needed ranges
+    past the shared-memory buffer), and runs of repeats in b that the
+    window's edges, the staged range's edges and its sample points cut.
+    ``plan(a, b, block_a, block_b)`` is the kernel's k_tiles planner."""
     from repro_torch.kernels.common import SENTINEL
 
     cases = []
@@ -528,6 +551,31 @@ def window_replays(plan):
     for a, b in (([5], [5]), ([5], [6]), ([SENTINEL], [SENTINEL]), ([7], [1, 7, 7])):
         cases.append((f"one element {a} in {b}", np.array(a, np.int32),
                       np.array(b, np.int32), {}))
+
+    rng = np.random.default_rng(21)
+    a, b = _unique(rng, 1800, 12_000), _unique(rng, 4000, 12_000)
+    k = plan(a, b, 512, 1024)  # planned on the sorted a, as a caller would
+    for block_a in (512, 8):
+        shuffled = a.copy()
+        for s in range(0, a.size, block_a):
+            rng.shuffle(shuffled[s:s + block_a])
+        blocks = dict(block_a=block_a, block_b=1024 if block_a == 512 else 16)
+        kb = plan(a, b, blocks["block_a"], blocks["block_b"])
+        cases.append((f"shuffled in each A-block of {block_a}", shuffled, b, dict(blocks, k_tiles=kb)))
+        cases.append((f"shuffled in each A-block of {block_a}, full scan", shuffled, b, blocks))
+    holed = a.copy()
+    holed[512:1024] = SENTINEL
+    cases.append(("SENTINEL A-block in the middle", holed, b, dict(k_tiles=k)))
+    cases.append(("SENTINEL A-block in the middle, full scan", holed, b, {}))
+    cases.append(("600 draws over 200,000 in [0, 1e6), full scan",
+                  _unique(rng, 600, 10**6), _unique(rng, 200_000, 10**6), {}))
+    vals = _unique(rng, 3000, 40_000)
+    b = np.repeat(vals, rng.integers(1, 40, vals.size)).astype(np.int32)
+    a = np.unique(np.concatenate([rng.choice(vals, 1500, replace=False),
+                                  rng.integers(0, 40_000, 500)])).astype(np.int32)
+    for kw in (dict(block_a=64, block_b=48, k_tiles=1), dict(block_a=64, block_b=48, k_tiles=2),
+               dict(block_a=64, block_b=48, k_tiles=plan(a, b, 64, 48)), {}):
+        cases.append((f"runs of repeats in b, {kw or 'full scan'}", a, b, kw))
     return cases
 
 
@@ -654,6 +702,41 @@ def window_bound(n_in_bytes: int, n_out_bytes: int, ops: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def a_block_windows(a, b, d: int, k_tiles: int, block_a: int = 512,
+                    block_b: int = 1024) -> np.ndarray:
+    """b-values in the range that each block of the block-per-A-block
+    kernels (csrc/sorted_window.cuh) needs: a block's tile of one A-block
+    (512 elements, or 128 where 512 evenly spread ones would need more
+    than LIST_CAP values of b, as ``sparse_a`` chooses), the window from
+    the A-block's first element, [lb(min - d), lb(min(max + d, SENTINEL - 1)
+    + 1)) of its live elements clamped to it. Blocks whose tile holds no
+    live element are left out."""
+    from repro_torch.kernels.common import SENTINEL, cdiv
+
+    b64 = b.astype(np.int64)
+    na, nb, last = a.size, b.size, cdiv(b.size, block_b) - 1
+    tile = 128 if 512 * nb > LIST_CAP * na else 512
+    sizes = []
+    for a0 in range(0, na, block_a):
+        start = int(np.searchsorted(b64, int(a[a0]) - d)) // block_b
+        w_lo = min(start, last) * block_b
+        w_hi = min((min(start + k_tiles - 1, last) + 1) * block_b, nb)
+        for t0 in range(a0, min(a0 + block_a, na), tile):
+            x = a[t0:min(t0 + tile, a0 + block_a, na)].astype(np.int64)
+            live = x[x != SENTINEL]
+            if live.size == 0:
+                continue
+            lo = int(np.clip(np.searchsorted(b64, live.min() - d), w_lo, w_hi))
+            top = min(int(live.max()) + d, SENTINEL - 1) + 1
+            sizes.append(max(int(np.clip(np.searchsorted(b64, top), w_lo, w_hi)), lo) - lo)
+    return np.array(sizes, np.int64)
+
+
+def window_stats(win: np.ndarray) -> dict:
+    return {"windows": int(win.size), "windows_staged": int((win <= LIST_CAP).sum()),
+            "window_median": float(np.median(win)) if win.size else 0.0}
+
+
 def replay_phase(dev) -> dict:
     """Each new kernel against its plain version on the card, over the
     replay families. Returns the largest error per kernel."""
@@ -680,14 +763,14 @@ def replay_phase(dev) -> dict:
     log(f"kernel intersect.intersect_sorted: {len(cases)} replay cases exact")
 
     n = 0
-    for d in (1, 5, 9):
+    for d in (1, 5, 9, -2):  # a negative d matches nothing and skips the search
         cases = window_replays(lambda a, b, ba, bb: plan_prox(a, b, d, ba, bb))
         for name, a, b, kw in cases:
             ta, tb = on_card(a, b)
             assert_lanes(proximity_join(ta, tb, d, **kw), proximity_plain(ta, tb, d, **kw),
                          f"proximity d={d} {name}")
         n += len(cases)
-    log(f"kernel proximity.proximity_join: {n} replay cases exact (d = 1, 5, 9)")
+    log(f"kernel proximity.proximity_join: {n} replay cases exact (d = 1, 5, 9, -2)")
 
     cases = compressed_replays()
     for name, a, b, kw in cases:
@@ -720,7 +803,8 @@ def replay_phase(dev) -> dict:
 def library_inputs(dev) -> dict:
     """Full-width inputs of the kernel library, made from seeds: the sorted
     lists of kernel_bench.py's full shape and of qt1_heavy's posting length
-    (values unique in [0, 4 Nb), as kernel_bench.py draws them), and the
+    (values unique in [0, 4 Nb), as kernel_bench.py draws them), a rarer
+    list against qt1_heavy's b (RARE_A), and the
     two-tower-retrieval bag: a 10M x 256 float32 table made on the card,
     50-id histories padded with -1 after a random length, positive
     weights, at the serve_p99 batch and a larger one."""
@@ -730,6 +814,9 @@ def library_inputs(dev) -> dict:
         a = np.unique(rng.integers(0, 4 * m, n)).astype(np.int32)
         b = np.unique(rng.integers(0, 4 * m, m)).astype(np.int32)
         lists[tag] = (a, b)
+    m = FULL_SHAPES[-1][2]
+    rare = np.unique(np.random.default_rng(8).integers(0, 4 * m, RARE_A[1])).astype(np.int32)
+    lists[RARE_A[0]] = (rare, lists[FULL_SHAPES[-1][0]][1])
     V, D, S = BAG_WIDTHS["V"], BAG_WIDTHS["D"], BAG_WIDTHS["S"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -761,7 +848,9 @@ def drive_library(dev, inputs) -> dict:
         k, kp = plan_k_tiles(a, b), plan_prox(a, b, PROX_D)
         ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
         outs["intersect", tag] = (intersect_sorted(ta, tb, k_tiles=k), k)
-        outs["compressed", tag] = (intersect_sorted_compressed(a, b, k_tiles=k, device=dev), k)
+        if tag != RARE_A[0]:
+            outs["compressed", tag] = (intersect_sorted_compressed(a, b, k_tiles=k, device=dev),
+                                       k)
         outs["proximity", tag] = (proximity_join(ta, tb, PROX_D, k_tiles=kp), kp)
     for B, (ids, w) in inputs["bags"].items():
         outs["bag", B] = (embedding_bag(ids, inputs["table"], w, "sum"), None)
@@ -818,55 +907,76 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
         if not torch.equal(mask.cpu(), member):
             raise AssertionError(f"intersect {tag}: mask differs from np.isin at k_tiles={k}")
         m_out, i_out = torch.empty_like(mask), torch.empty_like(idx)
+
+        def run_i(csrc=None, k=k):
+            return lambda: launch_intersect(ta, tb, m_out, i_out, block_a=512, block_b=1024,
+                                            k_tiles=k, csrc=csrc)
+
         rec = {"Na": na, "Nb": nb, "k_tiles": k, "matches": int(member.sum()),
-               "ms": device_ms(lambda: launch_intersect(ta, tb, m_out, i_out, block_a=512,
-                                                        block_b=1024, k_tiles=k)),
+               "ms": device_ms(run_i()),
                "wrapper_ms": call_ms(lambda: intersect_sorted(ta, tb, k_tiles=k)),
                "plain_ms": device_ms(lambda: intersect_plain(ta, tb, k_tiles=k)),
                "library_ms": device_ms(lambda: torch.isin(ta, tb)),
                "library": "torch.isin(a, b), mask only",
+               **window_stats(a_block_windows(a, b, 0, k)),
                **window_bound(4 * na + 4 * nb, 5 * na, 2 * (na + nb))}
+        if parent is not None:
+            rec.update(turns(run_i(parent), run_i()))
         shapes["intersect"][tag] = rec
 
-        mask, k = outs["compressed", tag]
-        streams = pack_compressed(a, b)
-        dev_streams = device_streams(streams, dev)
-        want = intersect_compressed_plain(*dev_streams, na, block_a=512, block_b=1024, k_tiles=k)
-        assert_lanes([mask], [want], f"compressed intersect {tag}")
-        if not torch.equal(mask.cpu(), member):
-            raise AssertionError(f"compressed intersect {tag}: mask differs from np.isin")
-        c_out = torch.empty_like(mask)
-        rec = {"Na": na, "Nb": nb, "k_tiles": k,
-               "ms": device_ms(lambda: launch_intersect_compressed(
-                   *dev_streams, c_out, block_a=512, block_b=1024, k_tiles=k)),
-               "wrapper_ms": call_ms(lambda: intersect_sorted_compressed(
-                   a, b, k_tiles=k, device=dev)),
-               "plain_ms": device_ms(lambda: intersect_compressed_plain(
-                   *dev_streams, na, block_a=512, block_b=1024, k_tiles=k)),
-               "library_ms": None, "library": "none on the delta16 streams",
-               **window_bound(sum(x.nbytes for x in streams), na, 3 * (na + nb))}
-        shapes["compressed"][tag] = rec
+        if tag != RARE_A[0]:  # the compressed intersect runs at FULL_SHAPES only
+            mask, k = outs["compressed", tag]
+            streams = pack_compressed(a, b)
+            dev_streams = device_streams(streams, dev)
+            want = intersect_compressed_plain(*dev_streams, na, block_a=512, block_b=1024, k_tiles=k)
+            assert_lanes([mask], [want], f"compressed intersect {tag}")
+            if not torch.equal(mask.cpu(), member):
+                raise AssertionError(f"compressed intersect {tag}: mask differs from np.isin")
+            c_out = torch.empty_like(mask)
+            rec = {"Na": na, "Nb": nb, "k_tiles": k,
+                   "ms": device_ms(lambda: launch_intersect_compressed(
+                       *dev_streams, c_out, block_a=512, block_b=1024, k_tiles=k)),
+                   "wrapper_ms": call_ms(lambda: intersect_sorted_compressed(
+                       a, b, k_tiles=k, device=dev)),
+                   "plain_ms": device_ms(lambda: intersect_compressed_plain(
+                       *dev_streams, na, block_a=512, block_b=1024, k_tiles=k)),
+                   "library_ms": None, "library": "none on the delta16 streams",
+                   **window_bound(sum(x.nbytes for x in streams), na, 3 * (na + nb))}
+            shapes["compressed"][tag] = rec
 
         out, k = outs["proximity", tag]
         assert_lanes(out, proximity_plain(ta, tb, PROX_D, k_tiles=k), f"proximity {tag}")
         assert_lanes(out, proximity_join_ref(ta, tb, PROX_D), f"proximity {tag} (oracle)")
         p_out = [torch.empty_like(x) for x in out]
+
+        def run_p(csrc=None, k=k):
+            return lambda: launch_proximity(ta, tb, *p_out, d=PROX_D, block_a=512, block_b=1024,
+                                            k_tiles=k, csrc=csrc)
+
         rec = {"Na": na, "Nb": nb, "d": PROX_D, "k_tiles": k, "matches": int(out[0].sum()),
-               "ms": device_ms(lambda: launch_proximity(ta, tb, *p_out, d=PROX_D, block_a=512,
-                                                        block_b=1024, k_tiles=k)),
+               "ms": device_ms(run_p()),
                "wrapper_ms": call_ms(lambda: proximity_join(ta, tb, PROX_D, k_tiles=k)),
                "plain_ms": device_ms(lambda: proximity_plain(ta, tb, PROX_D, k_tiles=k)),
                "library_ms": None, "library": "none",
+               **window_stats(a_block_windows(a, b, PROX_D, k)),
                **window_bound(4 * na + 4 * nb, 9 * na, 4 * (na + nb))}
+        if parent is not None:
+            rec.update(turns(run_p(parent), run_p()))
         shapes["proximity"][tag] = rec
         for kind in ("intersect", "compressed", "proximity"):
-            r = shapes[kind][tag]
+            r = shapes[kind].get(tag)
+            if r is None:
+                continue
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+            win = "" if "windows" not in r else (
+                f", A-block windows {r['windows']} ({r['windows_staged']} staged, "
+                f"median {r['window_median']:.0f} values)")
             log(f"kernel {kind} {tag} Na={na} Nb={nb} k_tiles={r['k_tiles']}: exact; "
-                f"kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms), "
+                f"kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
+                f"wrapper - kernel {host_ms(r):.4f} ms), "
                 f"plain {r['plain_ms']:.4f} ms, library {lib}, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-                f"({r['bytes'] / 1e6:.2f} MB)")
+                f"({r['bytes'] / 1e6:.2f} MB){win}{in_turns(r)}")
 
     table = inputs["table"]
     V, D = table.shape
@@ -900,15 +1010,13 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
                 lambda: launch_embedding_bag(ids, table, w, b_out, mean=False, csrc=parent),
                 lambda: launch_embedding_bag(ids, table, w, b_out, mean=False)))
         shapes["embedding_bag"][f"B{B}"] = rec
-        vs = "" if parent is None else (
-            f"; in turns: earlier kernel {rec['parent_ms'][0]:.4f} / {rec['parent_ms'][1]:.4f} ms, "
-            f"this kernel {rec['turn_ms'][0]:.4f} / {rec['turn_ms'][1]:.4f} ms")
         log(f"kernel embedding_bag B={B} S={S} V={V} D={D} float32 weighted sum: "
             f"max abs err {err}; "
-            f"kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f} ms), "
+            f"kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f} ms, "
+            f"wrapper - kernel {host_ms(rec):.4f} ms), "
             f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-            f"({rec['bytes'] / 1e6:.1f} MB, {rows} distinct rows){vs}")
+            f"({rec['bytes'] / 1e6:.1f} MB, {rows} distinct rows){in_turns(rec)}")
     del inputs, outs, table
     torch.cuda.empty_cache()
     errs = dict(errs, embedding_bag=worst)
@@ -993,8 +1101,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", help="also write the full report as JSON here")
     parser.add_argument("--parent-csrc", type=Path,
-                        help="also time nearest_r.cu and embedding_bag.cu built from this "
-                             "directory, in turns with the current kernels")
+                        help="also time nearest_r.cu, embedding_bag.cu, intersect.cu and "
+                             "proximity.cu built from this directory, in turns with the "
+                             "current kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1010,7 +1119,7 @@ def main() -> int:
     parent = args.parent_csrc
     if parent is not None:
         parent = parent.resolve()
-        built_parent = build(("nearest_r", "embedding_bag"), parent)
+        built_parent = build(PARENT_SOURCES, parent)
         log(f"build: earlier kernels from {parent}: "
             + ", ".join(f"{n}.cu {t:.1f} s" for n, t in built_parent.items()))
     kern = kernel_phase(dev, parent)

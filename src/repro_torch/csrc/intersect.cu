@@ -18,20 +18,25 @@
 // which need not be sorted (a pad block's base is 0), so the search reads a
 // pad as +infinity and a pad never matches.
 //
-// Design. One thread per element of a, a lower-bound binary search inside
-// its window. The TPU kernel's (512 x 1024) broadcast compare per grid step
-// is not carried over: its work grows with Na times the window, which makes
-// the full-scan default quadratic. The raw kernel finds each A-block's start
-// itself (all threads of an A-block search the same value, so their loads
-// are broadcasts); the compressed kernel takes the starts that the wrapper
-// planned on the host, as the reference does, and decodes every probe in
-// registers, so the int32 form never reaches device memory.
+// Design. The raw kernel is a block per A-block (sorted_window.cuh): the
+// block finds its A-block's window once, stages the part of it that its
+// elements can match in shared memory (a sample of it when it is longer
+// than the buffer) and each lane searches there; idx is the staged range's
+// offset plus the lane's index in it. The compressed kernel is one thread
+// per element of a and a lower-bound binary search inside its window; it
+// takes the starts that the wrapper planned on the host, as the reference
+// does, and decodes every probe in registers, so the int32 form never
+// reaches device memory. The TPU kernel's (512 x 1024) broadcast compare
+// per grid step is carried over by neither: its work grows with Na times
+// the window, which makes the full-scan default quadratic.
 //
 // What bounds it. On an H100 the function is memory-bound: it reads a and b
 // once and writes 5 bytes (raw) or 1 byte (compressed) per element of a,
-// against a few dozen integer operations per element. This first kernel is
-// latency-bound instead: each of the ~log2(window) steps of a search is a
-// dependent load, and neighbouring threads repeat nearly the same path.
+// against a few dozen integer operations per element. The compressed
+// kernel is latency-bound instead: each of the ~log2(window) steps of a
+// search is a dependent load, and neighbouring threads repeat nearly the
+// same path. The raw kernel's chain is per block: a load, four search
+// rounds, a staging copy, shared-memory searches and a store.
 //
 // Interface. Plain C functions that launch on the caller's stream and return
 // cudaGetLastError(); the Python wrappers allocate the outputs, check
@@ -40,26 +45,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_window.cuh"
+
 namespace {
 
-constexpr int kSentinel = 2147483647;
 constexpr unsigned kPadDelta = 65535;
 constexpr long long kPadKey = 1LL << 40;  // a decoded pad slot: above every int32
 constexpr int kThreads = 256;
-
-// First index in [lo, hi) of the sorted row whose value is >= x (hi if none).
-__device__ __forceinline__ int lower_bound(const int* __restrict__ row, int lo, int hi,
-                                           long long x) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (static_cast<long long>(__ldg(row + mid)) < x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 // [w_lo, w_hi): the b-elements the TPU kernel's clamped index map visits for
 // an A-block whose window starts at b-block `start`, cut to the nb elements.
@@ -72,21 +64,43 @@ __device__ __forceinline__ void window(long long start, int nbb, int k_tiles, in
   *w_hi = static_cast<int>(min((hi_blk + 1) * block_b, static_cast<long long>(nb)));
 }
 
-__global__ void __launch_bounds__(kThreads) intersect_kernel(
+namespace sw = sorted_window;
+
+template <int LANES>
+__global__ void __launch_bounds__(sw::kThreads, sw::kMinBlocks) intersect_raw_kernel(
     const int* __restrict__ a, const int* __restrict__ b, uint8_t* __restrict__ mask,
     int* __restrict__ idx, int na, int nb, int block_a, int block_b, int k_tiles) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= na) return;
-  const int x = a[i];
-  const int first = __ldg(a + (i / block_a) * block_a);
-  const int nbb = (nb + block_b - 1) / block_b;
-  const int start = lower_bound(b, 0, nb, first) / block_b;
-  int w_lo, w_hi;
-  window(start, nbb, k_tiles, block_b, nb, &w_lo, &w_hi);
-  const int pos = lower_bound(b, w_lo, w_hi, x);
-  const bool hit = x != kSentinel && pos < w_hi && __ldg(b + pos) == x;
-  mask[i] = hit ? 1 : 0;
-  idx[i] = hit ? pos : -1;
+  __shared__ sw::Shared sh;
+  const sw::Tile t = sw::tile_of<LANES>(na, block_a);
+  int x[LANES], at[LANES];
+  sw::load_tile(a, t, x);
+  sw::Range r;
+  bool hit[LANES] = {};
+  if (sw::stage_range(a, b, nb, 0, block_b, k_tiles, t, x, sh, r)) {
+    sw::range_bounds(r, b, x, at);
+#pragma unroll
+    for (int i = 0; i < LANES; ++i) {
+      hit[i] = x[i] != sw::kSentinel && at[i] < r.n && r.value(b, at[i]) == x[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LANES; ++i) {
+    const long long g = t.begin + threadIdx.x + i * sw::kThreads;
+    if (g < t.end) {
+      mask[g] = hit[i] ? 1 : 0;
+      idx[g] = hit[i] ? r.lo + at[i] : -1;
+    }
+  }
+}
+
+template <int LANES>
+int launch_raw(const int* a, const int* b, uint8_t* mask, int* idx, int na, int nb,
+               int block_a, int block_b, int k_tiles, cudaStream_t stream) {
+  const unsigned blocks = sw::grid_blocks(na, block_a, sw::kThreads * LANES);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  intersect_raw_kernel<LANES><<<blocks, sw::kThreads, 0, stream>>>(a, b, mask, idx, na, nb,
+                                                                  block_a, block_b, k_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Element j of a delta16 stream: base + delta in int32 arithmetic (wrapping
@@ -132,9 +146,9 @@ inline unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads -
 
 extern "C" int intersect_raw(const int* a, const int* b, uint8_t* mask, int* idx, int na,
                              int nb, int block_a, int block_b, int k_tiles, void* stream) {
-  intersect_kernel<<<blocks_for(na), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, mask, idx, na, nb, block_a, block_b, k_tiles);
-  return static_cast<int>(cudaGetLastError());
+  auto go = sw::sparse_a(na, nb) ? launch_raw<1> : launch_raw<4>;
+  return go(a, b, mask, idx, na, nb, block_a, block_b, k_tiles,
+            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int intersect_compressed(const int* a_base, const uint16_t* a_delta,

@@ -15,17 +15,19 @@
 // kernel). Distances are taken in 64 bits: the TPU kernel's int32 a - b can
 // wrap, hidden only by its masks.
 //
-// Design. One thread per element of a and two lower-bound binary searches
-// inside its window, for a - d and for min(a + d, SENTINEL - 1) + 1. The TPU
-// kernel's (512 x 1024) broadcast compare per grid step is not carried over:
-// its work grows with Na times the window. Each thread finds its A-block's
-// start itself; all threads of an A-block search the same value, so their
-// loads are broadcasts.
+// Design. A block per A-block (sorted_window.cuh): the block finds its
+// A-block's window once, stages the part of it that its elements can reach
+// in shared memory (a sample of it when it is longer than the buffer), and
+// each lane runs its two lower bounds there, for a - d and for
+// min(a + d, SENTINEL - 1) + 1, and reads the run's ends from there. A
+// negative d gives every lane an empty run and stages nothing. The TPU
+// kernel's (512 x 1024) broadcast compare per grid step is not carried
+// over: its work grows with Na times the window.
 //
 // What bounds it. On an H100 the function is memory-bound: it reads a and b
-// once and writes 9 bytes per element of a. This first kernel is
-// latency-bound instead: each search step is a dependent load, and
-// neighbouring threads repeat nearly the same path.
+// once and writes 9 bytes per element of a. The kernel is bound by each
+// block's chain of dependent steps instead: a load, four search rounds, a
+// staging copy, shared-memory searches and a store.
 //
 // Interface. A plain C function that launches on the caller's stream and
 // returns cudaGetLastError(); the Python wrapper allocates the outputs,
@@ -34,45 +36,62 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_window.cuh"
+
 namespace {
 
-constexpr int kSentinel = 2147483647;
-constexpr int kThreads = 256;
+namespace sw = sorted_window;
 
-// First index in [lo, hi) of the sorted row whose value is >= x (hi if none).
-__device__ __forceinline__ int lower_bound(const int* __restrict__ row, int lo, int hi,
-                                           long long x) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (static_cast<long long>(__ldg(row + mid)) < x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(kThreads) proximity_kernel(
+template <int LANES>
+__global__ void __launch_bounds__(sw::kThreads, sw::kMinBlocks) proximity_kernel(
     const int* __restrict__ a, const int* __restrict__ b, uint8_t* __restrict__ mask,
     int* __restrict__ lo_out, int* __restrict__ hi_out, int na, int nb, int d, int block_a,
     int block_b, int k_tiles) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= na) return;
-  const int x = a[i];
-  const long long first = __ldg(a + (i / block_a) * block_a);
-  const long long start = lower_bound(b, 0, nb, first - d) / block_b;
-  const long long last = (nb + block_b - 1) / block_b - 1;
-  const int w_lo = static_cast<int>(min(start, last) * block_b);
-  const int w_hi = static_cast<int>(
-      min((min(start + k_tiles - 1, last) + 1) * block_b, static_cast<long long>(nb)));
-  const long long top = min(static_cast<long long>(x) + d, kSentinel - 1LL);
-  const int l = lower_bound(b, w_lo, w_hi, static_cast<long long>(x) - d);
-  const int h = lower_bound(b, l, w_hi, top + 1);
-  const bool hit = x != kSentinel && h > l;
-  mask[i] = hit ? 1 : 0;
-  lo_out[i] = hit ? __ldg(b + l) : x;
-  hi_out[i] = hit ? __ldg(b + h - 1) : x;
+  __shared__ sw::Shared sh;
+  const sw::Tile t = sw::tile_of<LANES>(na, block_a);
+  int x[LANES], lo[LANES], hi[LANES];
+  sw::load_tile(a, t, x);
+  sw::Range r;
+  bool hit[LANES] = {};
+  // d < 0: every run is empty (d is the same for the whole grid)
+  if (d >= 0 && sw::stage_range(a, b, nb, d, block_b, k_tiles, t, x, sh, r)) {
+    int key[2 * LANES], at[2 * LANES];  // a - d, then min(a + d, SENTINEL - 1) + 1
+#pragma unroll
+    for (int i = 0; i < LANES; ++i) {
+      key[i] = sw::key32(static_cast<long long>(x[i]) - d);
+      key[LANES + i] =
+          static_cast<int>(min(static_cast<long long>(x[i]) + d, sw::kSentinel - 1LL) + 1);
+    }
+    sw::range_bounds(r, b, key, at);
+#pragma unroll
+    for (int i = 0; i < LANES; ++i) {
+      const int l = at[i], h = at[LANES + i];
+      hit[i] = x[i] != sw::kSentinel && h > l;
+      if (hit[i]) {
+        lo[i] = r.value(b, l);
+        hi[i] = r.value(b, h - 1);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LANES; ++i) {
+    const long long g = t.begin + threadIdx.x + i * sw::kThreads;
+    if (g < t.end) {
+      mask[g] = hit[i] ? 1 : 0;
+      lo_out[g] = hit[i] ? lo[i] : x[i];
+      hi_out[g] = hit[i] ? hi[i] : x[i];
+    }
+  }
+}
+
+template <int LANES>
+int launch(const int* a, const int* b, uint8_t* mask, int* lo, int* hi, int na, int nb, int d,
+           int block_a, int block_b, int k_tiles, cudaStream_t stream) {
+  const unsigned blocks = sw::grid_blocks(na, block_a, sw::kThreads * LANES);
+  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  proximity_kernel<LANES><<<blocks, sw::kThreads, 0, stream>>>(a, b, mask, lo, hi, na, nb, d,
+                                                              block_a, block_b, k_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -80,8 +99,7 @@ __global__ void __launch_bounds__(kThreads) proximity_kernel(
 extern "C" int proximity_join_raw(const int* a, const int* b, uint8_t* mask, int* lo, int* hi,
                                   int na, int nb, int d, int block_a, int block_b, int k_tiles,
                                   void* stream) {
-  const unsigned blocks = static_cast<unsigned>((na + kThreads - 1) / kThreads);
-  proximity_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, mask, lo, hi, na, nb, d, block_a, block_b, k_tiles);
-  return static_cast<int>(cudaGetLastError());
+  auto go = sw::sparse_a(na, nb) ? launch<1> : launch<4>;
+  return go(a, b, mask, lo, hi, na, nb, d, block_a, block_b, k_tiles,
+            static_cast<cudaStream_t>(stream));
 }

@@ -95,8 +95,12 @@ def resolve_device(device=None) -> torch.device:
 def as_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
     """``x`` as a contiguous tensor of ``dtype``. A tensor stays on its
     device unless ``device`` names another; anything else (numpy arrays,
-    lists) goes to ``resolve_device(device)``, the card by default."""
+    lists) goes to ``resolve_device(device)``, the card by default. A
+    tensor that already qualifies comes back as it is, with no copy and no
+    call into PyTorch's dispatcher."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == dtype and (device is None or x.device == device) and x.is_contiguous():
+            return x
         dev = x.device if device is None else resolve_device(device)
     else:
         dev = resolve_device(device)

@@ -138,8 +138,8 @@ def intersect_sorted(a, b, *, block_a: int = DEFAULT_BLOCK_A, block_b: int = DEF
     k = resolve_k_tiles(cdiv(b.shape[0], block_b), k_tiles)
     if not a.is_cuda:
         return intersect_plain(a, b, block_a=block_a, block_b=block_b, k_tiles=k)
-    mask = torch.empty(a.shape, dtype=torch.bool, device=a.device)
-    idx = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    mask = torch.empty_like(a, dtype=torch.bool)
+    idx = torch.empty_like(a)
     launch_intersect(a, b, mask, idx, block_a=block_a, block_b=block_b, k_tiles=k)
     intersect_sorted.launches += 1
     return mask, idx
@@ -148,14 +148,17 @@ def intersect_sorted(a, b, *, block_a: int = DEFAULT_BLOCK_A, block_b: int = DEF
 intersect_sorted.launches = 0
 
 
-def launch_intersect(a, b, mask, idx, *, block_a: int, block_b: int, k_tiles: int) -> None:
+def launch_intersect(a, b, mask, idx, *, block_a: int, block_b: int, k_tiles: int,
+                     csrc=None) -> None:
     """Launch the raw kernel into preallocated outputs on the current
     stream — no checks and no launch count: the wrapper's inner step,
-    exposed for timing the kernel alone."""
-    from repro_torch.kernels.build import launch
+    exposed for timing the kernel alone (``csrc``: another source
+    directory, as in :mod:`repro_torch.kernels.build`)."""
+    from repro_torch.kernels.build import CSRC, launch
 
     launch("intersect", "intersect_raw",
-           [a, b, mask, idx, a.shape[0], b.shape[0], block_a, block_b, k_tiles], a.device)
+           [a, b, mask, idx, a.shape[0], b.shape[0], block_a, block_b, k_tiles], a.device,
+           CSRC if csrc is None else csrc)
 
 
 # -- delta16 streams -------------------------------------------------------------

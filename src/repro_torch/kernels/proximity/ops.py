@@ -103,9 +103,9 @@ def proximity_join(a, b, d: int, *, block_a: int = DEFAULT_BLOCK_A,
         raise ValueError(f"d out of int32 range: {d}")
     if not a.is_cuda:
         return proximity_plain(a, b, d, block_a=block_a, block_b=block_b, k_tiles=k)
-    mask = torch.empty(a.shape, dtype=torch.bool, device=a.device)
-    lo = torch.empty(a.shape, dtype=torch.int32, device=a.device)
-    hi = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    mask = torch.empty_like(a, dtype=torch.bool)
+    lo = torch.empty_like(a)
+    hi = torch.empty_like(a)
     launch_proximity(a, b, mask, lo, hi, d=d, block_a=block_a, block_b=block_b, k_tiles=k)
     proximity_join.launches += 1
     return mask, lo, hi
@@ -115,12 +115,13 @@ proximity_join.launches = 0
 
 
 def launch_proximity(a, b, mask, lo, hi, *, d: int, block_a: int, block_b: int,
-                     k_tiles: int) -> None:
+                     k_tiles: int, csrc=None) -> None:
     """Launch the CUDA kernel into preallocated outputs on the current
     stream — no checks and no launch count: the wrapper's inner step,
-    exposed for timing the kernel alone."""
-    from repro_torch.kernels.build import launch
+    exposed for timing the kernel alone (``csrc``: another source
+    directory, as in :mod:`repro_torch.kernels.build`)."""
+    from repro_torch.kernels.build import CSRC, launch
 
     launch("proximity", "proximity_join_raw",
            [a, b, mask, lo, hi, a.shape[0], b.shape[0], d, block_a, block_b, k_tiles],
-           a.device)
+           a.device, CSRC if csrc is None else csrc)

@@ -180,6 +180,50 @@ def test_oracles_equal_reference(ref):
     np.testing.assert_array_equal(idx, intersect_idx_ref(ta, tb)[1].numpy())
 
 
+def _block_layouts(case):
+    """Inputs that the block-per-A-block kernel must answer as the
+    reference does: ``a`` shuffled inside each A-block (the window still
+    comes from the block's first element), an A-block of SENTINEL alone in
+    the middle of ``a``, and a sparse ``a`` over a dense ``b`` at full scan,
+    whose needed b-range is longer than the kernel's shared-memory buffer
+    (4,096 values). Default blocks. Returns ``(a, b, kwargs)``."""
+    rng = np.random.default_rng({"shuffled": 61, "sentinel_block": 62, "sparse_full_scan": 63}[case])
+    if case == "sparse_full_scan":
+        return _sorted_unique(rng, 600, 250_000), _sorted_unique(rng, 50_000, 250_000), {}
+    a = _sorted_unique(rng, 1800, 12_000)
+    b = _sorted_unique(rng, 4000, 12_000)
+    k = plan_k_tiles(a, b)  # planned on the sorted a, as a caller would
+    if case == "shuffled":
+        for s in range(0, a.size, 512):
+            rng.shuffle(a[s:s + 512])
+    else:
+        a[512:1024] = SENTINEL
+    return a, b, dict(k_tiles=k)
+
+
+@pytest.mark.parametrize("case", ["shuffled", "sentinel_block", "sparse_full_scan"])
+def test_intersect_block_layouts_match_pallas(ref, case):
+    a, b, kw = _block_layouts(case)
+    got = _port(a, b, **kw)
+    _assert_lanes(got, _jax(a, b, **kw))
+    if case == "sparse_full_scan":
+        np.testing.assert_array_equal(got[0], np.isin(a, b))
+
+
+def test_library_path_follows_the_headers(tmp_path):
+    """A build is keyed by the headers beside a source, not only by the
+    source: editing csrc/sorted_window.cuh must rebuild intersect.cu."""
+    from repro_torch.kernels.build import CSRC, library_path
+
+    for src in CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    before = library_path("intersect", tmp_path)
+    assert before == library_path("intersect", CSRC)
+    header = tmp_path / "sorted_window.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert library_path("intersect", tmp_path) != before
+
+
 # ---------------- delta16 streams vs the Pallas kernel ----------------------
 def _port_c(a, b, **kw):
     return intersect_sorted_compressed(a, b, device="cpu", **kw).numpy()
@@ -279,6 +323,9 @@ def _card_cases():
     yield a, b, dict(block_a=8, block_b=16, k_tiles=1)
     yield _sorted_unique(rng, 700, 4000), _sorted_unique(rng, 1100, 4000), dict(
         block_a=8, block_b=16, k_tiles=2)
+    for case in ("shuffled", "sentinel_block", "sparse_full_scan"):
+        yield _block_layouts(case)
+    yield _sorted_unique(rng, 600, 10**6), _sorted_unique(rng, 200_000, 10**6), {}
 
 
 @pytest.mark.cuda
@@ -304,3 +351,27 @@ def test_compressed_kernel_matches_plain_cuda(cuda):
         torch.cuda.synchronize()
         assert intersect_sorted_compressed.launches == before + 1
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_wrappers_make_no_host_sync_cuda(cuda):
+    """Neither the intersect nor the proximity wrapper waits for the card:
+    both calls run under ``set_sync_debug_mode("error")``."""
+    from repro_torch.kernels.proximity import proximity_join, proximity_plain
+
+    rng = np.random.default_rng(23)
+    a, b = _sorted_unique(rng, 5000, 20000), _sorted_unique(rng, 3000, 20000)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_i = intersect_sorted(ta, tb, k_tiles=2)
+        got_p = proximity_join(ta, tb, 5, k_tiles=2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ca, cb = torch.from_numpy(a), torch.from_numpy(b)
+    _assert_lanes([g.cpu().numpy() for g in got_i],
+                  [w.numpy() for w in intersect_plain(ca, cb, k_tiles=2)])
+    _assert_lanes([g.cpu().numpy() for g in got_p],
+                  [w.numpy() for w in proximity_plain(ca, cb, 5, k_tiles=2)])

@@ -124,6 +124,17 @@ def test_proximity_one_element(ref, a, b):
     _assert_lanes(_port(a, b, 1), _jax(a, b, 1))
 
 
+@pytest.mark.parametrize("d", [-1, -3])
+def test_proximity_negative_d_matches_pallas(ref, d):
+    """A negative MaxDistance matches nothing; the kernel skips its search."""
+    rng = np.random.default_rng(-d)
+    a = _sorted_unique(rng, 300, 3000)
+    b = _sorted_unique(rng, 500, 3000)
+    got = _port(a, b, d)
+    _assert_lanes(got, _jax(a, b, d))
+    assert not got[0].any()
+
+
 @pytest.mark.parametrize("a,b", [([], []), ([], [5]), ([5], [])])
 def test_proximity_empty_raises_as_reference(ref, a, b):
     a = np.array(a, np.int32)
@@ -161,6 +172,35 @@ def test_oracles_equal_reference(ref):
                                   np.asarray(jref.proximity_count_ref(ja, jb, 5)))
 
 
+def _block_layouts(case):
+    """As in test_torch_intersect.py: ``a`` shuffled inside each A-block,
+    an A-block of SENTINEL alone in the middle of ``a``, and a sparse ``a``
+    over a dense ``b`` at full scan (a needed b-range longer than the
+    kernel's 4,096-value buffer). Default blocks. Returns ``(a, b, kwargs)``."""
+    rng = np.random.default_rng({"shuffled": 71, "sentinel_block": 72, "sparse_full_scan": 73}[case])
+    if case == "sparse_full_scan":
+        return _sorted_unique(rng, 600, 250_000), _sorted_unique(rng, 50_000, 250_000), {}
+    a = _sorted_unique(rng, 1800, 12_000)
+    b = _sorted_unique(rng, 4000, 12_000)
+    k = plan_k_tiles(a, b, 5)  # planned on the sorted a, as a caller would
+    if case == "shuffled":
+        for s in range(0, a.size, 512):
+            rng.shuffle(a[s:s + 512])
+    else:
+        a[512:1024] = SENTINEL
+    return a, b, dict(k_tiles=k)
+
+
+@pytest.mark.parametrize("case", ["shuffled", "sentinel_block", "sparse_full_scan"])
+def test_proximity_block_layouts_match_pallas(ref, case):
+    a, b, kw = _block_layouts(case)
+    got = _port(a, b, 5, **kw)
+    _assert_lanes(got, _jax(a, b, 5, **kw))
+    if case == "sparse_full_scan":
+        _assert_lanes(got, [x.numpy() for x in proximity_join_ref(
+            torch.from_numpy(a), torch.from_numpy(b), 5)])
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_cuda(cuda):
     rng = np.random.default_rng(31)
@@ -168,6 +208,10 @@ def test_kernel_matches_plain_cuda(cuda):
              (*_dups_and_sentinel(2), 5, dict(block_a=8, block_b=16, k_tiles=1)),
              (_sorted_unique(rng, 700, 4000), _sorted_unique(rng, 1100, 4000), 9,
               dict(block_a=8, block_b=16, k_tiles=2))]
+    for case in ("shuffled", "sentinel_block", "sparse_full_scan"):
+        a, b, kw = _block_layouts(case)
+        cases += [(a, b, d, kw) for d in (1, 5, -2)]
+    cases.append((_sorted_unique(rng, 600, 10**6), _sorted_unique(rng, 200_000, 10**6), 5, {}))
     for a, b, d, kw in cases:
         want = proximity_plain(torch.from_numpy(a), torch.from_numpy(b), d, **kw)
         before = proximity_join.launches
