@@ -7,13 +7,15 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
-  on the card over seeded replay families; then, with every launch count
-  set to 0, each entry point runs once per full-width shape (the sorted
-  lists of ``kernel_bench.py`` and ``qt1_heavy``, and for the raw
-  intersect and the proximity join a rarer list against ``qt1_heavy``'s;
-  the two-tower-retrieval bag), its results are checked against the plain
-  version and an oracle, and kernel, wrapper, plain version and library
-  call are timed;
+  on the card over seeded replay families (the compressed one from int16,
+  uint16 and misaligned deltas, its streams packed on the card equal to
+  the host's); then, with every launch count set to 0, each entry point
+  runs once per full-width shape (the sorted lists of ``kernel_bench.py``
+  and ``qt1_heavy`` and a rarer list against ``qt1_heavy``'s; the
+  compressed intersect both from host arrays and from streams packed on
+  the card; the two-tower-retrieval bag), its results are checked against
+  the plain version and an oracle, and kernel, wrapper, plain version and
+  library call are timed;
 - the serving path: the nearest-r window join is held against its plain
   version (replayed case families, the top-of-ladder shapes of the
   default ServeConfig and two density-skewed shapes at the same width)
@@ -26,10 +28,11 @@ CUDA events: kernel, plain and library times are device times (the
 calls are queued behind a sleep kernel), wrapper times are call times as
 the host issues them; each line also gives the wrapper minus the
 kernel, the host's share of a call. With ``--parent-csrc DIR``, the
-nearest-r, embedding-bag, raw intersect and proximity kernels built from
-``DIR/{nearest_r,embedding_bag,intersect,proximity}.cu`` (an earlier
-version with the same C entry points) are timed at each full-width shape
-too, in turns with the current ones: earlier, current, current, earlier.
+nearest-r, embedding-bag, raw and compressed intersect and proximity
+kernels built from ``DIR/{nearest_r,embedding_bag,intersect,proximity}.cu``
+(an earlier version with the same C entry points) are timed at each
+full-width shape too, in turns with the current ones: earlier, current,
+current, earlier.
 
 The second-to-last line of standard output is the kernels JSON line, the
 last line ``{"ok": true, "device": {...}}``. The script fails (non-zero
@@ -71,7 +74,7 @@ SOURCES = ("nearest_r", "intersect", "proximity", "embedding_bag")  # csrc/<name
 # (configs/proximity_search.py)
 FULL_SHAPES = (("kernel_bench", 131_072, 1_048_576), ("qt1_heavy", 1_048_576, 1_048_576))
 # the Equalize of a rarer lemma against qt1_heavy's b: (tag, draws into
-# [0, 4 Nb)); raw intersect and proximity only. Its A-blocks need more b
+# [0, 4 Nb), so its delta16 spans fit uint16). Its A-blocks need more b
 # than a block stages, so it drives the kernels' global branch.
 RARE_A = ("qt1 rare-a", 16_384)
 LIST_CAP = 4096  # b-values a block of csrc/sorted_window.cuh stages (kCap)
@@ -480,12 +483,17 @@ def kernel_phase(dev, parent=None) -> dict:
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by its name in the kernels line."""
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.intersect import intersect_sorted, intersect_sorted_compressed
+    from repro_torch.kernels.intersect import (
+        intersect_compressed_streams,
+        intersect_sorted,
+        intersect_sorted_compressed,
+    )
     from repro_torch.kernels.nearest_r import window_join
     from repro_torch.kernels.proximity import proximity_join
 
     return {"nearest_r.window_join": window_join,
             "intersect.intersect_sorted": intersect_sorted,
+            "intersect.intersect_compressed_streams": intersect_compressed_streams,
             "intersect.intersect_sorted_compressed": intersect_sorted_compressed,
             "proximity.proximity_join": proximity_join,
             "embedding_bag.embedding_bag": embedding_bag}
@@ -584,7 +592,15 @@ def compressed_replays():
     shapes at blocks 128/256 and at the defaults (where short inputs leave
     64-blocks all padding), blocks 64/64 at truncated and full k_tiles,
     repeats whose all-pad blocks decode below the real values, and empty
-    and one-element inputs."""
+    and one-element inputs; then the block-per-A-block kernel's hazards: a
+    full scan at 1M (needed ranges past the shared-memory buffer, searched
+    through a sample of 64-block starts), b whose all-pad tail blocks (base
+    0) follow high values, with a probing 0..100 and past b's end, runs of
+    repeats in b (runs longer than a 64-block among them) cut by window,
+    range and sample edges, a sparse a over a dense b, and 64-blocks at the
+    ends of the int32 range (INT_MAX matches; a max + 1 past int32)."""
+    from repro_torch.kernels.intersect import plan_k_tiles
+
     cases = []
     for i, (na, nb, hi) in enumerate(((300, 500, 4000), (1000, 2000, 30000), (70, 1500, 9000))):
         rng = np.random.default_rng(30 + i)
@@ -601,6 +617,36 @@ def compressed_replays():
     cases.append(("repeats, pads below the values", a, b, {}))
     for a, b in (([], []), ([], [5]), ([5], []), ([5], [5]), ([5], [6])):
         cases.append((f"{a} in {b}", np.array(a, np.int32), np.array(b, np.int32), {}))
+
+    rng = np.random.default_rng(41)
+    a, b = _unique(rng, 100_000, 4 << 20), _unique(rng, 1 << 20, 4 << 20)
+    cases.append(("100,000 in 1M draws, full scan", a, b, {}))
+    # 3000 values: the last 64-block of b's 3072 slots is all pad (base 0, its
+    # pads decoding to 65535, which a's first 64-block holds)
+    b = (2**31 - 2_000_000 + np.cumsum(rng.integers(1, 40, 3000))).astype(np.int32)
+    a = np.concatenate([np.arange(1, 64), [65535], np.sort(rng.choice(b, 400, replace=False)),
+                        b[-1] + np.arange(1, 50)]).astype(np.int32)
+    for kw in ({}, dict(k_tiles=1), dict(block_a=64, block_b=64, k_tiles=2)):
+        cases.append((f"all-pad tail blocks after high values, {kw or 'full scan'}", a, b, kw))
+    vals = _unique(rng, 3000, 40_000)
+    b = np.repeat(vals, rng.integers(1, 40, vals.size))
+    b = np.sort(np.concatenate([b, np.full(200, vals[1500])])).astype(np.int32)  # a run of 200+
+    a = np.unique(np.concatenate([rng.choice(vals, 1500, replace=False),
+                                  rng.integers(0, 40_000, 500)])).astype(np.int32)
+    for kw in (dict(block_a=64, block_b=192, k_tiles=1), dict(block_a=64, block_b=192, k_tiles=2),
+               dict(block_a=128, block_b=256), {}):
+        cases.append((f"runs of repeats in b, {kw or 'full scan'}", a, b, kw))
+    a, b = _unique(rng, 3000, 10**6), _unique(rng, 200_000, 10**6)  # a's spans fit uint16
+    cases.append(("3,000 draws over 200,000 in [0, 1e6), full scan", a, b, {}))
+    cases.append(("3,000 draws over 200,000, planned", a, b, dict(k_tiles=plan_k_tiles(a, b))))
+    low, top = -(2**31), 2**31 - 1  # whole 64-blocks of each, so no span wraps
+    b = np.concatenate([low + np.arange(0, 192, 3), top - np.arange(254, -1, -2)]).astype(np.int32)
+    a = np.concatenate([low + np.arange(64), top - np.arange(63, -1, -1)]).astype(np.int32)
+    # b's last block: full; INT_MAX, then 10 pads; values below INT_MAX, then 10 pads
+    for tag, bb in (("", b), (", INT_MAX then pads", np.delete(b, np.s_[64:74])),
+                    (", pads after values below INT_MAX", b[:-10])):
+        for kw in (dict(block_a=64, block_b=64), dict(block_a=64, block_b=64, k_tiles=1)):
+            cases.append((f"int32 extremes{tag}, {kw}", a, bb, kw))
     return cases
 
 
@@ -664,18 +710,21 @@ def bag_replays():
     return cases
 
 
-def card_table(table, dtype, dev, shifted: bool) -> torch.Tensor:
-    """The table on the card in ``dtype``; shifted, a contiguous view one
-    element into a larger buffer, so its base is off 16-byte alignment."""
-    t = torch.from_numpy(table).to(dev, dtype)
-    if not shifted:
-        return t
-    big = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` as a contiguous view one element into a larger
+    buffer, so its base is off 16-byte alignment."""
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     big[1:] = t.flatten()
     view = big[1:].view(t.shape)
     if view.data_ptr() % 16 == 0 or not view.is_contiguous():
-        raise AssertionError("the shifted table view is aligned or not contiguous")
+        raise AssertionError("the shifted view is aligned or not contiguous")
     return view
+
+
+def card_table(table, dtype, dev, shifted: bool) -> torch.Tensor:
+    """The table on the card in ``dtype``; shifted, :func:`misaligned`."""
+    t = torch.from_numpy(table).to(dev, dtype)
+    return misaligned(t) if shifted else t
 
 
 def assert_bag(got, want, dtype, what: str) -> float:
@@ -703,19 +752,28 @@ def window_bound(n_in_bytes: int, n_out_bytes: int, ops: float) -> dict:
 
 
 def a_block_windows(a, b, d: int, k_tiles: int, block_a: int = 512,
-                    block_b: int = 1024) -> np.ndarray:
+                    block_b: int = 1024, lens=None) -> np.ndarray:
     """b-values in the range that each block of the block-per-A-block
     kernels (csrc/sorted_window.cuh) needs: a block's tile of one A-block
     (512 elements, or 128 where 512 evenly spread ones would need more
-    than LIST_CAP values of b, as ``sparse_a`` chooses), the window from
-    the A-block's first element, [lb(min - d), lb(min(max + d, SENTINEL - 1)
-    + 1)) of its live elements clamped to it. Blocks whose tile holds no
-    live element are left out."""
+    than LIST_CAP values of b, as ``sparse_a`` chooses; the compressed
+    kernel also 256 where they would need more than half), the window from
+    the A-block's first element, [lb(min - d), lb(min(max + d, SENTINEL -
+    1) + 1)) of its live elements clamped to it. Blocks whose tile holds
+    no live element are left out. With ``lens``, the compressed kernel's
+    stream lengths ``(la, lb)`` (d = 0): what it stages instead, the whole
+    window where it holds at most LIST_CAP slots, else the 64-blocks from
+    the one before the first block starting at or above min to the first
+    starting at or above max + 1."""
     from repro_torch.kernels.common import SENTINEL, cdiv
 
     b64 = b.astype(np.int64)
     na, nb, last = a.size, b.size, cdiv(b.size, block_b) - 1
-    tile = 128 if 512 * nb > LIST_CAP * na else 512
+    tile_na, tile_nb = (na, nb) if lens is None else lens
+    tile = 128 if 512 * tile_nb > LIST_CAP * tile_na else 512
+    if lens is not None:  # the compressed kernel's 256-element tiles
+        tile = 256 if tile == 512 and 1024 * tile_nb > LIST_CAP * tile_na else tile
+        last, firsts = lens[1] // block_b - 1, b64[::64]
     sizes = []
     for a0 in range(0, na, block_a):
         start = int(np.searchsorted(b64, int(a[a0]) - d)) // block_b
@@ -725,6 +783,15 @@ def a_block_windows(a, b, d: int, k_tiles: int, block_a: int = 512,
             x = a[t0:min(t0 + tile, a0 + block_a, na)].astype(np.int64)
             live = x[x != SENTINEL]
             if live.size == 0:
+                continue
+            if lens is not None:
+                w_hi = (min(start + k_tiles - 1, last) + 1) * block_b  # in slots
+                if w_hi - w_lo <= LIST_CAP:
+                    sizes.append(w_hi - w_lo)
+                    continue
+                j0, row = w_lo // 64, firsts[w_lo // 64:w_hi // 64]
+                lo = 64 * max(j0 + int(np.searchsorted(row, live.min())) - 1, j0)
+                sizes.append(max(64 * (j0 + int(np.searchsorted(row, live.max() + 1))) - lo, 0))
                 continue
             lo = int(np.clip(np.searchsorted(b64, live.min() - d), w_lo, w_hi))
             top = min(int(live.max()) + d, SENTINEL - 1) + 1
@@ -743,12 +810,15 @@ def replay_phase(dev) -> dict:
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
     from repro_torch.kernels.intersect import (
         intersect_compressed_plain,
+        intersect_compressed_streams,
         intersect_plain,
         intersect_sorted,
         intersect_sorted_compressed,
+        pack_compressed,
+        pack_compressed_torch,
     )
     from repro_torch.kernels.intersect import plan_k_tiles as plan_int
-    from repro_torch.kernels.intersect.ops import device_streams, pack_compressed
+    from repro_torch.kernels.intersect.ops import device_streams
     from repro_torch.kernels.proximity import plan_k_tiles as plan_prox
     from repro_torch.kernels.proximity import proximity_join, proximity_plain
 
@@ -775,16 +845,27 @@ def replay_phase(dev) -> dict:
     cases = compressed_replays()
     for name, a, b, kw in cases:
         blocks = {k: v for k, v in kw.items() if k != "k_tiles"}
-        streams = pack_compressed(a, b, **blocks)
-        a_base, a_delta, b_base, b_delta, starts = device_streams(streams, dev)
-        block_a = blocks.get("block_a", 512)
-        block_b = blocks.get("block_b", 1024)
-        k = kw.get("k_tiles") or b_delta.shape[0] // block_b
-        want = intersect_compressed_plain(a_base, a_delta, b_base, b_delta, starts, a.size,
-                                          block_a=block_a, block_b=block_b, k_tiles=k)
-        assert_lanes([intersect_sorted_compressed(a, b, device=dev, **kw)], [want],
+        streams = device_streams(pack_compressed(a, b, **blocks), dev)
+        for got, want in zip(pack_compressed_torch(a, b, device=dev, **blocks), streams):
+            if not torch.equal(got, want):
+                raise AssertionError(f"compressed {name}: the card's packer differs from the host's")
+        k = kw.get("k_tiles") or streams[3].shape[0] // blocks.get("block_b", 1024)
+        a_base, a_delta, b_base, b_delta, starts = streams
+        want = intersect_compressed_plain(*streams, a_delta.shape[0], k_tiles=k,
+                                          block_a=blocks.get("block_a", 512),
+                                          block_b=blocks.get("block_b", 1024))
+        for what, deltas in (("int16", (a_delta, b_delta)),
+                             ("uint16", (a_delta.view(torch.uint16), b_delta.view(torch.uint16))),
+                             ("misaligned", (misaligned(a_delta), misaligned(b_delta)))):
+            got = intersect_compressed_streams(a_base, deltas[0], b_base, deltas[1], starts,
+                                               k_tiles=k, **blocks)
+            assert_lanes([got], [want], f"compressed streams {name}, {what} deltas")
+        assert_lanes([intersect_sorted_compressed(a, b, device=dev, **kw)], [want[:a.size]],
                      f"compressed intersect {name}")
-    log(f"kernel intersect.intersect_sorted_compressed: {len(cases)} replay cases exact")
+        if "k_tiles" not in kw and not np.array_equal(want[:a.size].cpu().numpy(), np.isin(a, b)):
+            raise AssertionError(f"compressed intersect {name}: full scan differs from np.isin")
+    log(f"kernel intersect.intersect_compressed_streams: {len(cases)} replay cases exact "
+        "(int16, uint16 and misaligned deltas; the card's packer equal to the host's)")
 
     worst = 0.0
     cases = bag_replays()
@@ -800,14 +881,25 @@ def replay_phase(dev) -> dict:
     return {"intersect": 0, "compressed": 0, "proximity": 0, "embedding_bag": worst}
 
 
+def max_span(x: np.ndarray) -> int:
+    """The largest in-block span of sorted ``x`` cut into 64-posting blocks."""
+    x = x.astype(np.int64)
+    last = x[np.minimum(np.arange(0, x.size, 64) + 63, x.size - 1)]
+    return int((last - x[::64]).max()) if x.size else 0
+
+
 def library_inputs(dev) -> dict:
     """Full-width inputs of the kernel library, made from seeds: the sorted
     lists of kernel_bench.py's full shape and of qt1_heavy's posting length
     (values unique in [0, 4 Nb), as kernel_bench.py draws them), a rarer
-    list against qt1_heavy's b (RARE_A), and the
+    list against qt1_heavy's b (RARE_A), each pair also as delta16 streams
+    on the card (every in-block span checked to fit uint16), and the
     two-tower-retrieval bag: a 10M x 256 float32 table made on the card,
     50-id histories padded with -1 after a random length, positive
     weights, at the serve_p99 batch and a larger one."""
+    from repro_torch.kernels.intersect import pack_compressed
+    from repro_torch.kernels.intersect.ops import PAD_DELTA, device_streams
+
     rng = np.random.default_rng(7)
     lists = {}
     for tag, n, m in FULL_SHAPES:
@@ -817,6 +909,11 @@ def library_inputs(dev) -> dict:
     m = FULL_SHAPES[-1][2]
     rare = np.unique(np.random.default_rng(8).integers(0, 4 * m, RARE_A[1])).astype(np.int32)
     lists[RARE_A[0]] = (rare, lists[FULL_SHAPES[-1][0]][1])
+    streams = {}
+    for tag, (a, b) in lists.items():
+        if max(max_span(a), max_span(b)) >= PAD_DELTA:
+            raise AssertionError(f"{tag}: an in-block span does not fit a uint16 delta")
+        streams[tag] = device_streams(pack_compressed(a, b), dev)
     V, D, S = BAG_WIDTHS["V"], BAG_WIDTHS["D"], BAG_WIDTHS["S"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -828,14 +925,16 @@ def library_inputs(dev) -> dict:
         ids[np.arange(S)[None, :] >= lengths[:, None]] = -1
         w = rng.random((B, S)).astype(np.float32)
         bags[B] = (torch.from_numpy(ids).to(dev), torch.from_numpy(w).to(dev))
-    return {"lists": lists, "table": table, "bags": bags}
+    return {"lists": lists, "streams": streams, "table": table, "bags": bags}
 
 
 def drive_library(dev, inputs) -> dict:
     """The slice's main path: each kernel-library entry point once per
-    full-width shape, as a user calls it."""
+    full-width shape, as a user calls it: the compressed intersect both
+    from host arrays and from streams already packed on the card."""
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.intersect import (
+        intersect_compressed_streams,
         intersect_sorted,
         intersect_sorted_compressed,
         plan_k_tiles,
@@ -848,9 +947,8 @@ def drive_library(dev, inputs) -> dict:
         k, kp = plan_k_tiles(a, b), plan_prox(a, b, PROX_D)
         ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
         outs["intersect", tag] = (intersect_sorted(ta, tb, k_tiles=k), k)
-        if tag != RARE_A[0]:
-            outs["compressed", tag] = (intersect_sorted_compressed(a, b, k_tiles=k, device=dev),
-                                       k)
+        outs["compressed", tag] = (intersect_sorted_compressed(a, b, k_tiles=k, device=dev), k)
+        outs["streams", tag] = (intersect_compressed_streams(*inputs["streams"][tag], k_tiles=k), k)
         outs["proximity", tag] = (proximity_join(ta, tb, PROX_D, k_tiles=kp), kp)
     for B, (ids, w) in inputs["bags"].items():
         outs["bag", B] = (embedding_bag(ids, inputs["table"], w, "sum"), None)
@@ -869,16 +967,12 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.kernels.intersect import (
         intersect_compressed_plain,
+        intersect_compressed_streams,
         intersect_plain,
         intersect_sorted,
         intersect_sorted_compressed,
     )
-    from repro_torch.kernels.intersect.ops import (
-        device_streams,
-        launch_intersect,
-        launch_intersect_compressed,
-        pack_compressed,
-    )
+    from repro_torch.kernels.intersect.ops import launch_intersect, launch_intersect_compressed
     from repro_torch.kernels.proximity import proximity_join, proximity_plain
     from repro_torch.kernels.proximity.ops import launch_proximity
     from repro_torch.kernels.proximity.ref import proximity_join_ref
@@ -891,8 +985,9 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
     outs = drive_library(dev, inputs)
     launches = read_counts()
     log(f"library: main path launches {launches}")
-    for name in ("intersect.intersect_sorted", "intersect.intersect_sorted_compressed",
-                 "proximity.proximity_join", "embedding_bag.embedding_bag"):
+    for name in ("intersect.intersect_sorted", "intersect.intersect_compressed_streams",
+                 "intersect.intersect_sorted_compressed", "proximity.proximity_join",
+                 "embedding_bag.embedding_bag"):
         if launches[name] <= 0:
             raise AssertionError(f"the kernel-library path never launched {name}")
 
@@ -924,25 +1019,34 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
             rec.update(turns(run_i(parent), run_i()))
         shapes["intersect"][tag] = rec
 
-        if tag != RARE_A[0]:  # the compressed intersect runs at FULL_SHAPES only
-            mask, k = outs["compressed", tag]
-            streams = pack_compressed(a, b)
-            dev_streams = device_streams(streams, dev)
-            want = intersect_compressed_plain(*dev_streams, na, block_a=512, block_b=1024, k_tiles=k)
-            assert_lanes([mask], [want], f"compressed intersect {tag}")
-            if not torch.equal(mask.cpu(), member):
-                raise AssertionError(f"compressed intersect {tag}: mask differs from np.isin")
-            c_out = torch.empty_like(mask)
-            rec = {"Na": na, "Nb": nb, "k_tiles": k,
-                   "ms": device_ms(lambda: launch_intersect_compressed(
-                       *dev_streams, c_out, block_a=512, block_b=1024, k_tiles=k)),
-                   "wrapper_ms": call_ms(lambda: intersect_sorted_compressed(
-                       a, b, k_tiles=k, device=dev)),
-                   "plain_ms": device_ms(lambda: intersect_compressed_plain(
-                       *dev_streams, na, block_a=512, block_b=1024, k_tiles=k)),
-                   "library_ms": None, "library": "none on the delta16 streams",
-                   **window_bound(sum(x.nbytes for x in streams), na, 3 * (na + nb))}
-            shapes["compressed"][tag] = rec
+        mask, k = outs["compressed", tag]
+        streams = inputs["streams"][tag]
+        la, lb = streams[1].shape[0], streams[3].shape[0]
+        want = intersect_compressed_plain(*streams, la, block_a=512, block_b=1024, k_tiles=k)
+        assert_lanes([outs["streams", tag][0]], [want], f"compressed streams {tag}")
+        assert_lanes([mask], [want[:na]], f"compressed intersect {tag}")
+        if not torch.equal(mask.cpu(), member):
+            raise AssertionError(f"compressed intersect {tag}: mask differs from np.isin")
+        c_out = torch.empty(la, dtype=torch.bool, device=dev)
+
+        def run_c(csrc=None, k=k, streams=streams):
+            return lambda: launch_intersect_compressed(*streams, c_out, block_a=512,
+                                                       block_b=1024, k_tiles=k, csrc=csrc)
+
+        rec = {"Na": na, "Nb": nb, "k_tiles": k, "matches": int(member.sum()),
+               "ms": device_ms(run_c()),
+               "wrapper_ms": call_ms(lambda: intersect_sorted_compressed(
+                   a, b, k_tiles=k, device=dev)),
+               "streams_ms": call_ms(lambda: intersect_compressed_streams(*streams, k_tiles=k)),
+               "plain_ms": device_ms(lambda: intersect_compressed_plain(
+                   *streams, la, block_a=512, block_b=1024, k_tiles=k)),
+               "library_ms": None, "library": "none on the delta16 streams",
+               **window_stats(a_block_windows(a, b, 0, k, lens=(la, lb))),
+               **window_bound(sum(t.numel() * t.element_size() for t in streams), la,
+                              3 * (na + nb))}
+        if parent is not None:
+            rec.update(turns(run_c(parent), run_c()))
+        shapes["compressed"][tag] = rec
 
         out, k = outs["proximity", tag]
         assert_lanes(out, proximity_plain(ta, tb, PROX_D, k_tiles=k), f"proximity {tag}")
@@ -964,16 +1068,17 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
             rec.update(turns(run_p(parent), run_p()))
         shapes["proximity"][tag] = rec
         for kind in ("intersect", "compressed", "proximity"):
-            r = shapes[kind].get(tag)
-            if r is None:
-                continue
+            r = shapes[kind][tag]
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             win = "" if "windows" not in r else (
                 f", A-block windows {r['windows']} ({r['windows_staged']} staged, "
                 f"median {r['window_median']:.0f} values)")
+            entry = "" if "streams_ms" not in r else (
+                f"; streams entry {r['streams_ms']:.4f} ms, "
+                f"streams entry - kernel {r['streams_ms'] - r['ms']:.4f} ms")
             log(f"kernel {kind} {tag} Na={na} Nb={nb} k_tiles={r['k_tiles']}: exact; "
                 f"kernel {r['ms']:.4f} ms (wrapper {r['wrapper_ms']:.4f} ms, "
-                f"wrapper - kernel {host_ms(r):.4f} ms), "
+                f"wrapper - kernel {host_ms(r):.4f} ms{entry}), "
                 f"plain {r['plain_ms']:.4f} ms, library {lib}, "
                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
                 f"({r['bytes'] / 1e6:.2f} MB){win}{in_turns(r)}")
@@ -1101,9 +1206,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", help="also write the full report as JSON here")
     parser.add_argument("--parent-csrc", type=Path,
-                        help="also time nearest_r.cu, embedding_bag.cu, intersect.cu and "
-                             "proximity.cu built from this directory, in turns with the "
-                             "current kernels")
+                        help="also time nearest_r.cu, embedding_bag.cu, intersect.cu (raw and "
+                             "compressed) and proximity.cu built from this directory, in turns "
+                             "with the current kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1130,11 +1235,12 @@ def main() -> int:
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
 
-    def others(kind, primary):
+    def others(kind, primary, wrapper="wrapper_ms"):
         return {"shape": {k: v for k, v in sh[kind][primary].items()
                           if k in ("Na", "Nb", "d", "k_tiles", "B", "S", "V", "D")},
-                "other_shapes": {tag: {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms",
-                                                         "bound_ms", "bound_by", "library_ms")}
+                "other_shapes": {tag: {"wrapper_ms": r[wrapper],
+                                       **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms")}}
                                  for tag, r in sh[kind].items() if tag != primary}}
 
     line = {"kernels": [
@@ -1157,6 +1263,11 @@ def main() -> int:
                      "src/repro/kernels/intersect/intersect.py:153",
                      n["intersect.intersect_sorted"], lib["max_abs_err"]["intersect"],
                      sh["intersect"][heavy], others("intersect", heavy)),
+        kernel_entry("intersect.intersect_compressed_streams", "intersect.cu",
+                     "src/repro/kernels/intersect/intersect.py:106",
+                     n["intersect.intersect_compressed_streams"], lib["max_abs_err"]["compressed"],
+                     dict(sh["compressed"][heavy], wrapper_ms=sh["compressed"][heavy]["streams_ms"]),
+                     others("compressed", heavy, "streams_ms")),
         kernel_entry("intersect.intersect_sorted_compressed", "intersect.cu",
                      "src/repro/kernels/intersect/intersect.py:106",
                      n["intersect.intersect_sorted_compressed"],

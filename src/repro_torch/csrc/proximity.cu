@@ -62,14 +62,15 @@ __global__ void __launch_bounds__(sw::kThreads, sw::kMinBlocks) proximity_kernel
       key[LANES + i] =
           static_cast<int>(min(static_cast<long long>(x[i]) + d, sw::kSentinel - 1LL) + 1);
     }
-    sw::range_bounds(r, b, key, at);
+    const sw::Ints row{b};
+    sw::range_bounds(r, row, key, at);
 #pragma unroll
     for (int i = 0; i < LANES; ++i) {
       const int l = at[i], h = at[LANES + i];
       hit[i] = x[i] != sw::kSentinel && h > l;
       if (hit[i]) {
-        lo[i] = r.value(b, l);
-        hi[i] = r.value(b, h - 1);
+        lo[i] = r.value(row, l);
+        hi[i] = r.value(row, h - 1);
       }
     }
   }

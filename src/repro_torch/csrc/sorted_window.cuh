@@ -46,6 +46,11 @@
 // its own search, with a chain per block of one load, four search rounds,
 // one staging copy and shared-memory work. The bytes read stay near one
 // pass over the b-values that the tiles need.
+//
+// The searches read b through a row type (Row::Key, Row::kTop and
+// row(j), the j-th value as a Key): Ints for the raw int32 lists here;
+// intersect.cu's compressed kernel passes its delta16 streams, decoded at
+// each probe, through the same warp searches and lane searches.
 
 #pragma once
 
@@ -76,14 +81,23 @@ struct Tile {
   long long a0, begin, end;
 };
 
+// A sorted int32 row in device memory.
+struct Ints {
+  using Key = int;
+  static constexpr int kTop = kSentinel;  // what a search reads past the end
+  const int* p;
+  __device__ __forceinline__ int operator()(int j) const { return __ldg(p + j); }
+};
+
 // The needed range [lo, lo + n) of b and what of it is staged: every
 // stride-th value, m of them, at s.
 struct Range {
   int lo, n, stride, m;
   const int* s;
   // value j of the range
-  __device__ __forceinline__ int value(const int* __restrict__ b, int j) const {
-    return stride == 1 ? s[j] : __ldg(b + lo + j);
+  template <class Row>
+  __device__ __forceinline__ typename Row::Key value(const Row& b, int j) const {
+    return stride == 1 ? s[j] : b(lo + j);
   }
 };
 
@@ -139,21 +153,23 @@ __device__ __forceinline__ void load_tile(const int* __restrict__ a, const Tile&
 }
 
 // This lane's kProbes of the kWays splitters row[lo + k * step - 1], k = 1..kWays,
-// of a warp's search round over row[lo, hi) (SENTINEL past hi). No index
+// of a warp's search round over row[lo, hi) (Row::kTop past hi). No index
 // overflows: kWays * step < hi - lo + kWays.
-__device__ __forceinline__ void load_splitters(const int* __restrict__ row, int lo, int hi,
-                                               int step, int (&v)[kProbes]) {
+template <class Row>
+__device__ __forceinline__ void load_splitters(const Row& row, int lo, int hi, int step,
+                                               typename Row::Key (&v)[kProbes]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < kProbes; ++q) {
     const int p = lo + (lane + 32 * q + 1) * step - 1;
-    v[q] = p < hi ? __ldg(row + p) : kSentinel;
+    v[q] = p < hi ? row(p) : Row::kTop;
   }
 }
 
 // How many of the round's splitters are below x (the warp's lanes vote).
-__device__ __forceinline__ int count_below(const int (&v)[kProbes], int lo, int hi, int step,
-                                           int x) {
+template <class Key>
+__device__ __forceinline__ int count_below(const Key (&v)[kProbes], int lo, int hi, int step,
+                                           Key x) {
   const int lane = threadIdx.x & 31;
   int c = 0;
 #pragma unroll
@@ -167,16 +183,49 @@ __device__ __forceinline__ int count_below(const int (&v)[kProbes], int lo, int 
 // The lower bound of x in row, known to lie in [lo, hi], found by one
 // warp: each round the range shrinks kWays-fold. All lanes of the warp
 // must call it with the same arguments.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ row, int lo, int hi,
-                                                int x) {
+template <class Row>
+__device__ __forceinline__ int warp_lower_bound(const Row& row, int lo, int hi,
+                                                typename Row::Key x) {
   while (hi > lo) {
     const int step = (hi - lo + kWays - 1) / kWays;
-    int v[kProbes];
+    typename Row::Key v[kProbes];
     load_splitters(row, lo, hi, step, v);
     lo += count_below(v, lo, hi, step, x) * step;
     hi = min(hi, lo + step - 1);
   }
   return lo;
+}
+
+// The block's least and greatest of its threads' mn and mx, in every
+// thread. Block-uniform; every thread of the block must call it.
+__device__ __forceinline__ void block_min_max(int& mn, int& mx, Shared& sh) {
+  const int warp = threadIdx.x >> 5;
+  mn = __reduce_min_sync(kFull, mn);
+  mx = __reduce_max_sync(kFull, mx);
+  if ((threadIdx.x & 31) == 0) {
+    sh.mn[warp] = mn;
+    sh.mx[warp] = mx;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    mn = min(mn, sh.mn[w]);
+    mx = max(mx, sh.mx[w]);
+  }
+}
+
+// [w_lo, w_hi): the elements of the b-blocks min(start + k, nbb - 1), k in
+// [0, k_tiles), of b's nb elements cut into nbb blocks of block_b, as the
+// TPU kernel's clamped index map visits them; 64-bit, so that start +
+// k_tiles cannot wrap. A start below 0 (never planned, but a caller may pass
+// one) cuts the window at 0, where every lower bound lies at or above.
+__device__ __forceinline__ void window_of(long long start, int nb, int block_b, int k_tiles,
+                                          int& w_lo, int& w_hi) {
+  const long long last = (nb + block_b - 1) / block_b - 1;
+  const long long lo = max(min(start, last) * block_b, 0LL);
+  w_hi = static_cast<int>(
+      max(min((min(start + k_tiles - 1, last) + 1) * block_b, static_cast<long long>(nb)), lo));
+  w_lo = static_cast<int>(lo);
 }
 
 // Stages the range that the tile's live elements x need, for d >= 0.
@@ -197,18 +246,7 @@ __device__ __forceinline__ bool stage_range(const int* __restrict__ a, const int
       mx = max(mx, x[i]);
     }
   }
-  mn = __reduce_min_sync(kFull, mn);
-  mx = __reduce_max_sync(kFull, mx);
-  if ((threadIdx.x & 31) == 0) {
-    sh.mn[warp] = mn;
-    sh.mx[warp] = mx;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    mn = min(mn, sh.mn[w]);
-    mx = max(mx, sh.mx[w]);
-  }
+  block_min_max(mn, mx, sh);
   if (mn > mx) return false;
 
   const int key[3] = {key32(static_cast<long long>(first) - d),
@@ -219,7 +257,7 @@ __device__ __forceinline__ bool stage_range(const int* __restrict__ a, const int
   if (warp == 0) {
     const int step = (nb + kWays - 1) / kWays;
     int v[kProbes];
-    load_splitters(b, 0, nb, step, v);
+    load_splitters(Ints{b}, 0, nb, step, v);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int lo = count_below(v, 0, nb, step, key[j]) * step;
@@ -232,16 +270,13 @@ __device__ __forceinline__ bool stage_range(const int* __restrict__ a, const int
   __syncthreads();
   const bool same_start = key[1] == key[0];  // a sorted tile that starts its A-block
   if (warp < 3 && !(warp == 1 && same_start)) {
-    const int p = warp_lower_bound(b, sh.lo[warp], sh.hi[warp], key[warp]);
+    const int p = warp_lower_bound(Ints{b}, sh.lo[warp], sh.hi[warp], key[warp]);
     if ((threadIdx.x & 31) == 0) sh.pos[warp] = p;
   }
   __syncthreads();
 
-  const long long last = (nb + block_b - 1) / block_b - 1;
-  const long long start = sh.pos[0] / block_b;
-  const int w_lo = static_cast<int>(min(start, last) * block_b);
-  const int w_hi = static_cast<int>(
-      min((min(start + k_tiles - 1, last) + 1) * block_b, static_cast<long long>(nb)));
+  int w_lo, w_hi;
+  window_of(sh.pos[0] / block_b, nb, block_b, k_tiles, w_lo, w_hi);
   const int lo = min(max(same_start ? sh.pos[0] : sh.pos[1], w_lo), w_hi);
   const int hi = max(min(max(sh.pos[2], w_lo), w_hi), lo);
 
@@ -277,9 +312,9 @@ __device__ __forceinline__ bool stage_range(const int* __restrict__ a, const int
 // sample first, then, for a sampled range, among the stride - 1 values
 // that the sample leaves open, in global memory. A thread's searches step
 // in lockstep over one length, so their loads are in flight together.
-template <int N>
-__device__ __forceinline__ void range_bounds(const Range& r, const int* __restrict__ b,
-                                             const int (&key)[N], int (&pos)[N]) {
+template <int N, class Row>
+__device__ __forceinline__ void range_bounds(const Range& r, const Row& b, const int (&key)[N],
+                                             int (&pos)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) pos[i] = 0;
   if (r.m == 0) return;
@@ -301,7 +336,6 @@ __device__ __forceinline__ void range_bounds(const Range& r, const int* __restri
   // sample index p: the bound lies in [(p - 1) * stride + 1, min(p * stride, n)];
   // p = 0: it is 0. Values at or past each lane's end read as +infinity.
   // p * stride < n + stride fits an int.
-  const int* row = b + r.lo;
   int end[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -315,13 +349,13 @@ __device__ __forceinline__ void range_bounds(const Range& r, const int* __restri
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int q = pos[i] + half;
-      if (q < end[i] && __ldg(row + q) < key[i]) pos[i] = q;
+      if (q < end[i] && b(r.lo + q) < key[i]) pos[i] = q;
     }
     len -= half;
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    if (pos[i] < end[i] && __ldg(row + pos[i]) < key[i]) ++pos[i];
+    if (pos[i] < end[i] && b(r.lo + pos[i]) < key[i]) ++pos[i];
   }
 }
 

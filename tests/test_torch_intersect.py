@@ -17,14 +17,17 @@ import torch
 from repro_torch.kernels.common import SENTINEL, pad_to_multiple
 from repro_torch.kernels.intersect import (
     intersect_compressed_plain,
+    intersect_compressed_streams,
     intersect_plain,
     intersect_sorted,
     intersect_sorted_compressed,
+    pack_compressed,
+    pack_compressed_torch,
     pack_delta_stream,
     plan_k_tiles,
     plan_starts,
 )
-from repro_torch.kernels.intersect.ops import pack_compressed
+from repro_torch.kernels.intersect.ops import device_streams
 from repro_torch.kernels.intersect.ref import intersect_idx_ref, intersect_mask_ref
 
 try:
@@ -32,6 +35,7 @@ try:
     from repro.kernels.common import pad_to_multiple as jax_pad
     from repro.kernels.intersect import ops as jops
     from repro.kernels.intersect import ref as jref
+    from repro.kernels.intersect.intersect import intersect_pallas_compressed
 except ImportError:  # a card host without JAX runs only the card tests
     jnp = None
 
@@ -315,6 +319,138 @@ def test_compressed_plain_decodes_raw_uint16_bits(ref):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+# ---------------- packed delta16 streams vs the Pallas kernel ---------------
+def _ref_streams(a, b, block_a, block_b):
+    """The reference's packing, as its ``intersect_sorted_compressed``
+    does it: its own ``pack_delta_stream`` and starts planned by
+    ``np.searchsorted`` on the unpadded b."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    la = -(-max(a.size, 1) // block_a) * block_a
+    lb = -(-max(b.size, 1) // block_b) * block_b
+    a_base, a_delta = jops.pack_delta_stream(a, la)
+    b_base, b_delta = jops.pack_delta_stream(b, lb)
+    starts = (np.searchsorted(b, a_base[::block_a // 64]) // block_b).astype(np.int32)
+    return a_base, a_delta, b_base, b_delta, starts
+
+
+def _stream_case(case):
+    """(a, b, block_a, block_b, k_tiles) of the packed-stream parity cases:
+    blocks 64/64 at truncated and full k_tiles, 128/256 and the defaults
+    (short inputs leave 64-blocks all padding, base 0), repeats whose
+    all-pad blocks decode below the real values, and one-element inputs."""
+    rng = np.random.default_rng(70)
+    a, b = _sorted_unique(rng, 400, 3000), _sorted_unique(rng, 900, 3000)
+    if case.startswith("64/64"):
+        return a, b, 64, 64, {"k1": 1, "k2": 2, "full": None}[case.split()[1]]
+    if case == "128/256":
+        return _sorted_unique(rng, 1000, 30000), _sorted_unique(rng, 2000, 30000), 128, 256, None
+    if case == "defaults":
+        return _sorted_unique(rng, 300, 4000), _sorted_unique(rng, 500, 4000), 512, 1024, 1
+    if case == "all-pad blocks, duplicates":
+        a = np.sort(rng.integers(60_000, 70_000, 70)).astype(np.int32)
+        b = np.sort(rng.integers(60_000, 70_000, 1500)).astype(np.int32)
+        return a, b, 512, 1024, None
+    x, y = {"one element, a hit": ([5], [5]), "one element, a miss": ([5], [6])}[case]
+    return np.array(x, np.int32), np.array(y, np.int32), 512, 1024, None
+
+
+@pytest.mark.parametrize("view", [np.int16, np.uint16])
+@pytest.mark.parametrize("case", ["64/64 k1", "64/64 k2", "64/64 full", "128/256", "defaults",
+                                  "all-pad blocks, duplicates", "one element, a hit",
+                                  "one element, a miss"])
+def test_compressed_streams_match_pallas(ref, case, view):
+    """The packed-stream entry point against ``intersect_pallas_compressed``
+    in interpret mode, on the reference's own streams: equal masks of the
+    padded length, from int16 and uint16 deltas."""
+    a, b, block_a, block_b, k = _stream_case(case)
+    streams = _ref_streams(a, b, block_a, block_b)
+    k_ref = streams[3].size // block_b if k is None else k
+    want = np.asarray(intersect_pallas_compressed(
+        *map(jnp.asarray, streams), block_a=block_a, block_b=block_b, k_tiles=k_ref,
+        interpret=True))
+    ts = [torch.from_numpy(x.view(view) if x.dtype == np.uint16 else x) for x in streams]
+    got = intersect_compressed_streams(*ts, block_a=block_a, block_b=block_b, k_tiles=k)
+    assert got.dtype == torch.bool and got.shape == want.shape == (streams[1].size,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if k is None:
+        np.testing.assert_array_equal(got.numpy()[:a.size], np.isin(a, b))
+
+
+@pytest.mark.parametrize("na,nb", [(0, 0), (0, 5), (5, 0), (130, 700), (512, 1024),
+                                   (1 << 20, 1 << 20)])
+def test_pack_compressed_torch_byte_identical(ref, na, nb):
+    """The torch packer's streams against the reference's
+    ``pack_delta_stream`` and the port's host ``pack_compressed``, byte for
+    byte: empty inputs, lengths off the block multiples and on them, and
+    1M postings; repeats and negative values included."""
+    rng = np.random.default_rng(na + nb)
+    a = np.sort(rng.integers(-5000, 20 * max(na, 1), na)).astype(np.int32)
+    b = np.sort(rng.integers(-5000, 20 * max(nb, 1), nb)).astype(np.int32)
+    for blocks in ((512, 1024), (64, 192)):
+        got = pack_compressed_torch(a, b, block_a=blocks[0], block_b=blocks[1], device="cpu")
+        for want in (_ref_streams(a, b, *blocks), pack_compressed(a, b, block_a=blocks[0],
+                                                                   block_b=blocks[1])):
+            for g, w in zip(got, want):
+                g = g.numpy().view(w.dtype)
+                assert g.shape == w.shape and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("x", [[0, 70_000], [-70_000], [5, 5 + 65_535], list(range(0, 640_000, 10_001))])
+def test_pack_compressed_torch_raises_as_reference(ref, x):
+    """An in-block span of 65535 or more raises in both packers, the pad
+    slots of the last block counted as the reference counts them."""
+    x = np.array(x, np.int64)
+    with pytest.raises(ValueError, match="uint16"):
+        jops.pack_delta_stream(x, 64 * (-(-x.size // 64)))
+    for a, b in ((x, [1]), ([1], x)):
+        with pytest.raises(ValueError, match="uint16"):
+            pack_compressed_torch(a, b, device="cpu")
+
+
+def _spoil(bad, ts, kw):
+    """Make one argument of a good call of the packed-stream entry point
+    wrong (streams of 384 and 2048 slots, blocks 128/256)."""
+    a_base, a_delta, b_base, b_delta, starts = ts
+    if bad == "a_base int64":
+        ts[0] = a_base.long()
+    elif bad == "b_delta int32":
+        ts[3] = b_delta.int()
+    elif bad == "starts int64":
+        ts[4] = starts.long()
+    elif bad == "a_delta 2-D":
+        ts[1] = a_delta.view(-1, 64)
+    elif bad == "a not whole blocks":
+        ts[0], ts[1] = a_base[:-1], a_delta[:-64]
+    elif bad == "b not whole blocks":
+        ts[2], ts[3] = b_base[:-1], b_delta[:-64]
+    elif bad == "a_base length":
+        ts[0] = a_base[:-1]
+    elif bad == "b_base length":
+        ts[2] = torch.cat([b_base, b_base[:1]])
+    elif bad == "starts length":
+        ts[4] = starts[:-1]
+    elif bad == "block_a 96":
+        kw["block_a"] = 96
+    elif bad == "empty streams":
+        ts[:] = [t[:0] for t in ts]
+    elif bad == "b_base on another device":
+        ts[2] = b_base.to("meta")
+
+
+@pytest.mark.parametrize("bad", ["a_base int64", "b_delta int32", "starts int64", "a_delta 2-D",
+                                 "a not whole blocks", "b not whole blocks", "a_base length",
+                                 "b_base length", "starts length", "block_a 96", "empty streams",
+                                 "b_base on another device"])
+def test_compressed_streams_checks_raise(bad):
+    ts = device_streams(pack_compressed(np.arange(0, 900, 3), np.arange(0, 2000, 2),
+                                        block_a=128, block_b=256), "cpu")
+    kw = dict(block_a=128, block_b=256, k_tiles=None)
+    assert intersect_compressed_streams(*ts, **kw).shape == (384,)
+    _spoil(bad, ts, kw)
+    with pytest.raises((ValueError, TypeError)):
+        intersect_compressed_streams(*ts, **kw)
+
+
 # ---------------- the CUDA kernels vs the plain versions, on a card ---------
 def _card_cases():
     rng = np.random.default_rng(21)
@@ -353,19 +489,85 @@ def test_compressed_kernel_matches_plain_cuda(cuda):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def _compressed_families():
+    """The compressed kernel's hazards as (name, a, b, kwargs): a full scan
+    at 1M (ranges past the shared-memory buffer), b's all-pad tail blocks
+    (base 0, pads decoding to 65535, which a holds) after high values,
+    runs of repeats in b (one longer than a 64-block), a sparse a over a
+    dense b, and 64-blocks at both ends of the int32 range."""
+    rng = np.random.default_rng(24)
+    yield "full scan at 1M", _sorted_unique(rng, 100_000, 4 << 20), _sorted_unique(
+        rng, 1 << 20, 4 << 20), {}
+    b = (2**31 - 2_000_000 + np.cumsum(rng.integers(1, 40, 3000))).astype(np.int32)
+    a = np.concatenate([np.arange(1, 64), [65535], np.sort(rng.choice(b, 400, replace=False)),
+                        b[-1] + np.arange(1, 50)]).astype(np.int32)
+    yield "all-pad tail blocks", a, b, {}
+    yield "all-pad tail blocks, k_tiles=1", a, b, dict(k_tiles=1)
+    vals = _sorted_unique(rng, 3000, 40_000)
+    b = np.sort(np.concatenate([np.repeat(vals, rng.integers(1, 40, vals.size)),
+                                np.full(200, vals[1500])])).astype(np.int32)
+    a = np.unique(np.concatenate([rng.choice(vals, 1500, replace=False),
+                                  rng.integers(0, 40_000, 500)])).astype(np.int32)
+    yield "runs of repeats", a, b, dict(block_a=64, block_b=192, k_tiles=2)
+    yield "runs of repeats, full scan", a, b, {}
+    yield "sparse a over dense b", _sorted_unique(rng, 3000, 10**6), _sorted_unique(
+        rng, 200_000, 10**6), {}
+    low, top = -(2**31), 2**31 - 1
+    b = np.concatenate([low + np.arange(0, 192, 3), top - np.arange(254, -1, -2)]).astype(np.int32)
+    a = np.concatenate([low + np.arange(64), top - np.arange(63, -1, -1)]).astype(np.int32)
+    yield "int32 extremes", a, b, dict(block_a=64, block_b=64)
+    yield "INT_MAX, then pads", a, np.delete(b, np.s_[64:74]), dict(block_a=64, block_b=64)
+    yield "pads after values below INT_MAX", a, b[:-10], dict(block_a=64, block_b=64)
+
+
+def _misaligned(t):
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    big[1:] = t
+    assert big[1:].data_ptr() % 16
+    return big[1:]
+
+
+@pytest.mark.cuda
+def test_compressed_streams_kernel_matches_plain_cuda(cuda):
+    """The packed-stream entry point's kernel against the plain version on
+    the hazard families, from int16, uint16 and misaligned deltas; the
+    card's packer against the host's, byte for byte."""
+    for name, a, b, kw in _compressed_families():
+        blocks = {k: v for k, v in kw.items() if k != "k_tiles"}
+        host = device_streams(pack_compressed(a, b, **blocks), "cpu")
+        for g, w in zip(pack_compressed_torch(a, b, device=cuda, **blocks), host):
+            assert torch.equal(g.cpu(), w), name
+        k = kw.get("k_tiles")
+        want = intersect_compressed_streams(*host, k_tiles=k, **blocks)
+        if k is None:
+            np.testing.assert_array_equal(want[:a.size].numpy(), np.isin(a, b), err_msg=name)
+        a_base, a_delta, b_base, b_delta, starts = (t.to(cuda) for t in host)
+        for deltas in ((a_delta, b_delta), (a_delta.view(torch.uint16), b_delta.view(torch.uint16)),
+                       (_misaligned(a_delta), _misaligned(b_delta))):
+            before = intersect_compressed_streams.launches
+            got = intersect_compressed_streams(a_base, deltas[0], b_base, deltas[1], starts,
+                                               k_tiles=k, **blocks)
+            torch.cuda.synchronize()
+            assert intersect_compressed_streams.launches == before + 1
+            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(), err_msg=name)
+
+
 @pytest.mark.cuda
 def test_wrappers_make_no_host_sync_cuda(cuda):
-    """Neither the intersect nor the proximity wrapper waits for the card:
-    both calls run under ``set_sync_debug_mode("error")``."""
+    """Neither the intersect, the packed-stream compressed intersect nor
+    the proximity wrapper waits for the card: the calls run under
+    ``set_sync_debug_mode("error")``."""
     from repro_torch.kernels.proximity import proximity_join, proximity_plain
 
     rng = np.random.default_rng(23)
     a, b = _sorted_unique(rng, 5000, 20000), _sorted_unique(rng, 3000, 20000)
     ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    streams = pack_compressed_torch(a, b, device=cuda)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got_i = intersect_sorted(ta, tb, k_tiles=2)
+        got_c = intersect_compressed_streams(*streams, k_tiles=2)
         got_p = proximity_join(ta, tb, 5, k_tiles=2)
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -373,5 +575,8 @@ def test_wrappers_make_no_host_sync_cuda(cuda):
     ca, cb = torch.from_numpy(a), torch.from_numpy(b)
     _assert_lanes([g.cpu().numpy() for g in got_i],
                   [w.numpy() for w in intersect_plain(ca, cb, k_tiles=2)])
+    np.testing.assert_array_equal(
+        got_c.cpu().numpy(), intersect_compressed_streams(*(t.cpu() for t in streams),
+                                                          k_tiles=2).numpy())
     _assert_lanes([g.cpu().numpy() for g in got_p],
                   [w.numpy() for w in proximity_plain(ca, cb, 5, k_tiles=2)])
