@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives two paths:
+``nvcc`` per source, all started together) and drives three paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -21,7 +21,17 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   default ServeConfig and two density-skewed shapes at the same width)
   and timed, then mixed QT1-QT5 traffic is served through
   ``SearchService`` on the card with the counts set to 0, and its records
-  must equal a CPU run of the same service.
+  must equal a CPU run of the same service;
+- the compressed serving path: the same traffic through
+  ``SearchService(ServeConfig(compressed=True))`` on the card, with the
+  counts set to 0, cold then warm, with the compressed-row cache and
+  without it (the records must equal the CPU raw run), then a corpus whose
+  64-posting blocks span more than uint16 (served as offsets); the warm
+  service under a closed loop and an open-loop Poisson trace at half its
+  capacity (``serving/load.py``); and each step family at the default
+  ladder's top bucket on the raw, delta and offsets payloads, whose
+  outputs must agree bit for bit with each other and with the CPU raw
+  step, timed with their host-to-device bytes.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -58,6 +68,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores; no int32 row is published beside it
 MAX_SEP, R_MAX = 5, 4  # ServeConfig defaults: max_distance=5, r_max=4
 N_DOCS, N_QUERIES = 20_000, 256
+LOAD_CLOSED, LOAD_SECONDS = 256, 2.0  # closed-loop requests; open-loop trace length
+COMPRESSED_BL = (64, 65536)  # the default ServeConfig's top batch and L bucket
+COMPRESSED_K = {"qt1": 2, "qt2": 3, "qt34": (4, 0), "qt5": (3, 3)}  # ServeConfig's k_*
 TIMING_RUNS = 25
 WIN_CAP = 4096  # key values a block of csrc/nearest_r.cu stages in shared memory (kCap)
 DENSE_ROWS = ((1, 6), (1 / 2, 1))  # gaps and fill (shares of L) of a frequent lemma's row
@@ -1129,11 +1142,11 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
 
 
 # -- the serving path ----------------------------------------------------------
-def serve_phase(dev) -> dict:
+def serve_world():
+    """The serving CLI's synthetic corpus at N_DOCS documents, its index
+    and N_QUERIES mixed QT1-QT5 queries."""
     from repro_torch.core.index_builder import build_index
     from repro_torch.data.corpus import generate_corpus, sample_mixed_queries
-    from repro_torch.kernels.nearest_r import window_join
-    from repro_torch.serving import SearchService, ServeConfig
 
     t0 = time.perf_counter()
     table, lex = generate_corpus(N_DOCS, mean_doc_len=160, vocab_size=40_000, seed=1)
@@ -1141,21 +1154,64 @@ def serve_phase(dev) -> dict:
     queries = sample_mixed_queries(table, lex, N_QUERIES, seed=2)
     log(f"serve: corpus {N_DOCS} docs / {int(table.doc_lengths.sum())} tokens, "
         f"index built, {len(queries)} queries in {time.perf_counter() - t0:.1f} s")
+    return index, queries
 
-    svc = SearchService(index, ServeConfig(), device=dev)
-    reset_counts()
+
+def check_records(drains, want, queries, what: str) -> int:
+    """Every drain's records equal the reference drain's, bit for bit;
+    returns the hits over all drains."""
+    hits = 0
+    for drain in drains:
+        assert len(drain) == len(want) == len(queries)
+        for qi, (g, w) in enumerate(zip(drain, want)):
+            for col in ("doc", "start", "end", "score"):
+                if not np.array_equal(g.results[col], w.results[col]):
+                    raise AssertionError(f"{what}: query {qi} {queries[qi]}: {col} differs "
+                                         "between the card and the cpu run")
+            assert np.isfinite(g.results["score"]).all()
+            hits += int(g.results["doc"].size)
+    return hits
+
+
+def drain_all(svc, queries, names, what: str) -> tuple[list, dict]:
+    """One drain of every query per name, each logged with its wall time;
+    returns the drains and the window-join launches of each."""
+    from repro_torch.kernels.nearest_r import window_join
+
     drains, per_drain = [], {}
-    for name in ("cold", "warm"):
+    for name in names:
         for q in queries:
             svc.submit(q)
         before = window_join.launches
         t = time.perf_counter()
         drains.append(svc.drain())
         per_drain[name] = window_join.launches - before
-        log(f"serve: {name} drain on {dev} {time.perf_counter() - t:.3f} s, "
+        log(f"{what}: {name} drain on {svc.device} {time.perf_counter() - t:.3f} s, "
             f"{per_drain[name]} window_join launches")
-    launches = window_join.launches
+    return drains, per_drain
 
+
+def serve_metrics(svc, what: str) -> dict:
+    """serve.step.* and serve.batch.* hold warm batches only (a shape's
+    first batch is its warm-up); serve.phase.* holds every request."""
+    metrics = {}
+    for prefix in ("serve.step.", "serve.batch.", "serve.phase."):
+        for name, h in sorted(svc.metrics_snapshot(prefix).items()):
+            metrics[name] = {"p50_us": h["p50"], "count": h["count"]}
+            log(f"{what}: {name} p50 {h['p50']:.1f} us (n={h['count']})")
+    return metrics
+
+
+def serve_phase(dev, index, queries) -> tuple[dict, list]:
+    """The raw payload on the card, cold then warm, against a CPU drain;
+    returns the report and the CPU drain's responses."""
+    from repro_torch.kernels.nearest_r import window_join
+    from repro_torch.serving import SearchService, ServeConfig
+
+    svc = SearchService(index, ServeConfig(), device=dev)
+    reset_counts()
+    drains, per_drain = drain_all(svc, queries, ("cold", "warm"), "serve")
+    launches = window_join.launches
     cpu = SearchService(index, ServeConfig(), device="cpu")
     for q in queries:
         cpu.submit(q)
@@ -1163,16 +1219,7 @@ def serve_phase(dev) -> dict:
     want = cpu.drain()
     log(f"serve: reference drain on cpu {time.perf_counter() - t:.3f} s")
 
-    hits = 0
-    for drain in drains:
-        assert len(drain) == len(want) == len(queries)
-        for qi, (g, w) in enumerate(zip(drain, want)):
-            for col in ("doc", "start", "end", "score"):
-                if not np.array_equal(g.results[col], w.results[col]):
-                    raise AssertionError(f"query {qi} {queries[qi]}: {col} differs "
-                                         "between the card and the cpu run")
-            assert np.isfinite(g.results["score"]).all()
-            hits += int(g.results["doc"].size)
+    hits = check_records(drains, want, queries, "serve")
     if launches <= 0:
         raise AssertionError("the serve path never launched the nearest_r kernel")
     stats = svc.stats_snapshot()
@@ -1180,17 +1227,286 @@ def serve_phase(dev) -> dict:
     log(f"serve: records equal the cpu run ({hits} hits over 2 drains); "
         f"window_join launches {launches}; routes {routes}; "
         f"fallbacks {stats['plans']['fallbacks']}")
-    # serve.step.* and serve.batch.* hold warm batches only (a shape's
-    # first batch is its warm-up); serve.phase.* holds every request
-    metrics = {}
-    for prefix in ("serve.step.", "serve.batch.", "serve.phase."):
-        for name, h in sorted(svc.metrics_snapshot(prefix).items()):
-            metrics[name] = {"p50_us": h["p50"], "count": h["count"]}
-            log(f"serve: {name} p50 {h['p50']:.1f} us (n={h['count']})")
     return {"launches": launches, "launches_per_drain": per_drain,
-            "routes": routes, "hits": hits, "metrics": metrics,
+            "routes": routes, "hits": hits, "metrics": serve_metrics(svc, "serve"),
             "executables": {f"{k}/B{b}/L{l}": n
-                            for (k, b, l), n in svc.compiled.executables.items()}}
+                            for (k, b, l), n in svc.compiled.executables.items()}}, want
+
+
+def payloads_served(drains) -> dict:
+    """Responses per (route, payload) over the drains."""
+    out: dict = {}
+    for drain in drains:
+        for r in drain:
+            key = f"{r.path}/{r.plan.payload if r.plan is not None else None}"
+            out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def overflow_world():
+    """A corpus whose hot keys recur in two documents 5,201 apart, so one
+    64-posting delta block of every posting row spans more than uint16:
+    the compressed service must serve each family as offsets."""
+    from repro_torch.core.index_builder import build_index
+    from repro_torch.core.lexicon import Lexicon
+    from repro_torch.data.corpus import TokenTable
+
+    sw_count, fu_count = 6, 6
+    fu, ordinary = sw_count, sw_count + fu_count
+    pattern = [0, 1, 2, fu, fu + 1, ordinary, ordinary + 1]
+    docs = [np.array(pattern)] + [np.array([ordinary + 2])] * 5200 + [np.array(pattern)]
+    counts = np.arange(ordinary + 3, 0, -1) * 100
+    lex = Lexicon.from_rank_counts(counts=counts, doc_freqs=np.minimum(counts, len(docs)),
+                                   n_docs=len(docs), sw_count=sw_count, fu_count=fu_count)
+    index = build_index(TokenTable.from_docs(docs), lex, max_distance=MAX_SEP)
+    return index, [[0, 1, 2], [fu, fu + 1], [0, fu, fu + 1], [fu, fu + 1, ordinary]]
+
+
+def compressed_serve_phase(dev, index, queries, want) -> tuple[dict, object]:
+    """ServeConfig(compressed=True) on the card, cold then warm, with the
+    compressed-row cache and without it; every drain's records equal the
+    CPU raw drain. Then the far-apart corpus, served as offsets. Returns
+    the report and the warm cached service."""
+    from repro_torch.serving import SearchService, ServeConfig
+
+    svc = SearchService(index, ServeConfig(compressed=True), device=dev)
+    reset_counts()
+    drains, per_drain = drain_all(svc, queries, ("cold", "warm"), "compressed")
+    launches = read_counts()
+    hits = check_records(drains, want, queries, "compressed")
+    if launches["nearest_r.window_join"] <= 0:
+        raise AssertionError("the compressed serve path never launched the nearest_r kernel")
+    stats = svc.stats_snapshot()
+    cc = stats["compressed_cache"]
+    hit_rate = cc["hits"] / max(1, cc["hits"] + cc["misses"])
+    rep = {"launches": launches, "launches_per_drain": per_drain, "hits": hits,
+           "payloads": payloads_served(drains),
+           "compressed_batches": stats["compressed_batches"],
+           "offset_fallbacks": stats["offset_fallbacks"],
+           "compressed_cache": cc, "compressed_cache_hit_rate": hit_rate}
+    log(f"compressed: records equal the cpu raw run ({hits} hits over 2 drains); "
+        f"launches {launches}; payloads {rep['payloads']}; compressed_batches "
+        f"{rep['compressed_batches']}, offset_fallbacks {rep['offset_fallbacks']}; "
+        f"cache.compressed hit rate {hit_rate:.3f} ({cc['hits']} hits, {cc['misses']} misses)")
+    rep["metrics"] = serve_metrics(svc, "compressed")
+
+    bare = SearchService(index, ServeConfig(compressed=True, use_compressed_cache=False),
+                         device=dev)
+    drains, _ = drain_all(bare, queries, ("cold", "warm"), "compressed, no cache")
+    hits = check_records(drains, want, queries, "compressed, no cache")
+    st = bare.stats_snapshot()
+    compress = bare.metrics_snapshot("serve.phase.compress")["serve.phase.compress"]
+    rep["no_cache"] = {"hits": hits, "payloads": payloads_served(drains[1:]),
+                       "compressed_batches": st["compressed_batches"],
+                       "offset_fallbacks": st["offset_fallbacks"],
+                       "compress_p50_us": compress["p50"]}
+    log(f"compressed, no cache: records equal the cpu raw run ({hits} hits over 2 drains); "
+        f"warm payloads {rep['no_cache']['payloads']}; compressed_batches "
+        f"{st['compressed_batches']}, offset_fallbacks {st['offset_fallbacks']}; "
+        f"serve.phase.compress p50 {compress['p50']:.1f} us")
+
+    oidx, oq = overflow_world()
+    knobs = dict(buckets=(256,), max_batch=4, top_k=64)
+    cpu = SearchService(oidx, ServeConfig(**knobs), device="cpu")
+    for q in oq:
+        cpu.submit(q)
+    owant = cpu.drain()
+    for use_cache in (True, False):
+        osvc = SearchService(oidx, ServeConfig(**knobs, compressed=True,
+                                               use_compressed_cache=use_cache), device=dev)
+        odrains, _ = drain_all(osvc, oq, ("cold", "warm"), "overflow")
+        ohits = check_records(odrains, owant, oq, "overflow")
+        served = payloads_served(odrains)
+        ost = osvc.stats_snapshot()
+        if {k.split("/")[1] for k in served} != {"offsets"} or ohits == 0:
+            raise AssertionError(f"far-apart corpus: served {served}, {ohits} hits; "
+                                 "every family must be served as offsets")
+        if not ost["offset_fallbacks"] == ost["compressed_batches"] >= len(oq):
+            raise AssertionError(f"far-apart corpus: {ost['offset_fallbacks']} offset "
+                                 f"fallbacks of {ost['compressed_batches']} batches")
+        rep[f"overflow_cache_{use_cache}"] = {"payloads": served,
+                                               "offset_fallbacks": ost["offset_fallbacks"]}
+        log(f"compressed, far-apart corpus (compressed cache {use_cache}): served {served}, "
+            f"records equal the cpu raw run ({ohits} hits), offset_fallbacks "
+            f"{ost['offset_fallbacks']} of {ost['compressed_batches']} batches")
+    return rep, svc
+
+
+class TicketLog:
+    """The service, recording every ticket submitted through it (so the
+    load phase can read latency percentiles the LoadReport omits)."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.tickets = []
+
+    @property
+    def _queue(self):
+        return self.svc._queue
+
+    def submit(self, *args, **kwargs):
+        ticket = self.svc.submit(*args, **kwargs)
+        self.tickets.append(ticket)
+        return ticket
+
+    def drain(self):
+        return self.svc.drain()
+
+
+def load_phase(svc, queries) -> dict:
+    """The warm compressed service under load: a closed loop of
+    LOAD_CLOSED requests gives its capacity; then, with every shape
+    warm, an open-loop Poisson trace at half that rate for LOAD_SECONDS
+    with the default 50 ms deadline. Nothing is asserted on speed."""
+    from repro_torch.serving import (
+        poisson_arrivals,
+        run_closed_loop,
+        run_open_loop,
+        warm_service,
+    )
+    from repro_torch.serving.load import SERVED_STATUSES
+
+    t = time.perf_counter()
+    n_steps = warm_service(svc, queries)
+    log(f"load: warm_service {time.perf_counter() - t:.2f} s, {n_steps} steps warm")
+    closed = run_closed_loop(svc, queries, LOAD_CLOSED)
+    log(f"load: closed loop {closed.n_offered} requests, {closed.achieved_qps:.1f} qps, "
+        f"e2e p50 {closed.e2e_p50_us:.1f} us p95 {closed.e2e_p95_us:.1f} us, "
+        f"met {closed.met_rate:.3f}")
+    arrivals = poisson_arrivals(0.5 * closed.achieved_qps, LOAD_SECONDS, seed=2)
+    rec = TicketLog(svc)
+    opened = run_open_loop(rec, queries, arrivals, offered_qps=len(arrivals) / LOAD_SECONDS)
+    e2e = sorted(t.result().e2e_s * 1e6 for t in rec.tickets
+                 if t.result().status in SERVED_STATUSES)
+    p99 = e2e[min(len(e2e) - 1, int(round(0.99 * (len(e2e) - 1))))] if e2e else 0.0
+    log(f"load: open loop offered {opened.offered_qps:.1f} qps for {LOAD_SECONDS:.1f} s "
+        f"({opened.n_offered} requests) -> achieved {opened.achieved_qps:.1f} qps, "
+        f"served {opened.n_served}; met {opened.met_rate:.3f} (of offered "
+        f"{opened.met_rate_offered:.3f}), shed {opened.shed_rate:.3f}, reject "
+        f"{opened.reject_rate:.3f}; e2e p50 {opened.e2e_p50_us:.1f} us p99 {p99:.1f} us; "
+        f"queue wait p50 {opened.queue_wait_p50_us:.1f} us")
+    return {"closed": closed.as_dict(), "open": dict(opened.as_dict(), e2e_p99_us=p99)}
+
+
+def step_batch(rng, family, B, L):
+    """A top-of-ladder batch of one step family from synthetic rows (the
+    window-join phase's gaps and fills): qt1 K=2 and qt2 K=3 rows with
+    fragment bounds / interval widths of 0..5, qt34 and qt5 from
+    ``ladder_case``."""
+    from repro_torch.core import torch_search as ts
+    from repro_torch.kernels.common import SENTINEL
+
+    idf = (rng.random(B) + 1).astype(np.float32)
+    adj = np.full(B, 2, np.float32)
+    if family in ("qt1", "qt2"):
+        K = COMPRESSED_K[family]
+        g = gap_rows(rng, B * K, L, (1, 6), (L // 2, L)).reshape(B, K, L)
+        pad = g == SENTINEL
+
+        def off():
+            return np.where(pad, SENTINEL, g + rng.integers(0, 6, g.shape, dtype=np.int32))
+
+        if family == "qt1":
+            lo = np.where(pad, SENTINEL, g - rng.integers(0, 6, g.shape, dtype=np.int32))
+            return ts.QT1Batch(g, lo, off(), idf, adj, 1)
+        return ts.QT2Batch(g, off(), np.full(B, K, np.int32), idf, adj, 1)
+    Kn, Ks = COMPRESSED_K[family]
+    arrays = ladder_case(rng, B, Kn, Ks, L)
+    if family == "qt34":
+        return ts.QT34Batch(*arrays, idf, adj, 1)
+    return ts.QT5Batch(*arrays, idf, adj, 1)
+
+
+def step_fns(family):
+    """The raw, delta and offsets steps of one family (top_k 16)."""
+    from repro_torch.core import torch_search as ts
+
+    if family == "qt1":
+        return {"raw": ts.make_qt1_serve_step(16),
+                "delta": ts.make_qt1_serve_step_compressed(16, delta_g=True),
+                "offsets": ts.make_qt1_serve_step_compressed(16, delta_g=False)}
+    return {p: ts.make_wv_serve_step(family, 16, payload=p, max_distance=MAX_SEP, r_max=R_MAX)
+            for p in ("raw", "delta", "offsets")}
+
+
+def same_outputs(got, want) -> bool:
+    """The four step outputs equal bit for bit (scores as int32 bits)."""
+    return all(torch.equal(g.cpu().view(torch.int32) if g.dtype == torch.float32 else g.cpu(),
+                           w.cpu().view(torch.int32) if w.dtype == torch.float32 else w.cpu())
+               for g, w in zip(got, want))
+
+
+def compressed_steps_phase(dev) -> dict:
+    """Each step family at the default ladder's top bucket (B=64,
+    L=65536) from synthetic rows: the raw, delta and offsets steps on the
+    card give the same four outputs bit for bit, equal to the CPU raw
+    step's; then one batch whose 64-block spans more than uint16 raises
+    the format's ValueError and its offsets step equals the raw one.
+    Device ms per step (CUDA events), host-to-device bytes and bytes per
+    posting slot per payload, and the time of the copy from host arrays."""
+    from repro_torch.core import torch_search as ts
+    from repro_torch.kernels.common import SENTINEL
+
+    B, L = COMPRESSED_BL
+    rng = np.random.default_rng(2030)
+    out = {}
+    for family in ("qt1", "qt2", "qt34", "qt5"):
+        batch = step_batch(rng, family, B, L)
+        compress = getattr(ts, f"compress_{family}_batch")
+        host = {"raw": tuple(t.numpy() for t in batch.device_args("cpu")),
+                "delta": compress(batch, delta_g=True),
+                "offsets": compress(batch, delta_g=False)}
+        steps = step_fns(family)
+        t = time.perf_counter()
+        want = steps["raw"](*batch.device_args("cpu"))
+        cpu_s = time.perf_counter() - t
+        valid = int((want[0] > -1e29).sum(dim=1).min())
+        if valid < 16:
+            raise AssertionError(f"compressed steps {family}: a row has {valid} valid lanes in "
+                                 "its top 16; the synthetic rows must fill every slot")
+        rows = COMPRESSED_K[family] if family in ("qt1", "qt2") else 1 + COMPRESSED_K[family][0]
+        slots = B * rows * L
+        rec = {"B": B, "L": L, "posting_slots": slots, "cpu_raw_s": cpu_s}
+        parts = []
+        for payload, arrays in host.items():
+            args = ts.to_device(arrays, dev)
+            got = steps[payload](*args)
+            torch.cuda.synchronize()
+            if not same_outputs(got, want):
+                raise AssertionError(f"compressed steps {family} {payload}: the card's outputs "
+                                     "differ from the cpu raw step's")
+            nbytes = sum(a.nbytes for a in arrays)
+            rec[payload] = {
+                "ms": device_ms(lambda: steps[payload](*args)),
+                "h2d_bytes": nbytes, "bytes_per_posting": nbytes / slots,
+                "h2d_ms": call_ms(lambda: ts.to_device(arrays, dev)),
+                "dtypes": sorted({str(a.dtype) for a in arrays})}
+            r = rec[payload]
+            parts.append(f"{payload} {r['ms']:.4f} ms, H2D {nbytes / 1e6:.2f} MB "
+                         f"({r['bytes_per_posting']:.3f} B/posting) in {r['h2d_ms']:.3f} ms")
+        out[family] = rec
+        log(f"compressed step {family} B={B} L={L} ({slots} posting slots): raw, delta and "
+            f"offsets equal bit for bit and equal the cpu raw step ({cpu_s:.2f} s); "
+            + "; ".join(parts))
+
+    batch = step_batch(rng, "qt34", B, L)
+    live = batch.a_g[0] != SENTINEL
+    batch.a_g[0, 1:][live[1:]] += 70_000  # block 0 of row 0 now spans > 2**16
+    try:
+        ts.compress_qt34_batch(batch, delta_g=True)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("compressed steps: a 64-block spanning > 2**16 did not raise")
+    steps = step_fns("qt34")
+    want = steps["raw"](*batch.device_args(dev))
+    got = steps["offsets"](*ts.to_device(ts.compress_qt34_batch(batch, delta_g=False), dev))
+    torch.cuda.synchronize()
+    if not same_outputs(got, want):
+        raise AssertionError("compressed steps: the overflow batch's offsets step differs from raw")
+    out["overflow"] = msg
+    log(f"compressed step qt34 overflow: delta16 raises ValueError ({msg}); offsets equals raw")
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
@@ -1230,7 +1546,12 @@ def main() -> int:
     kern = kernel_phase(dev, parent)
     errs = replay_phase(dev)
     lib = library_phase(dev, errs, parent)
-    serve = serve_phase(dev)
+    index, queries = serve_world()
+    serve, want = serve_phase(dev, index, queries)
+    comp, comp_svc = compressed_serve_phase(dev, index, queries, want)
+    load = load_phase(comp_svc, queries)
+    del comp_svc, index
+    steps = compressed_steps_phase(dev)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -1249,6 +1570,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/nearest_r.cu",
          "replaces": "src/repro/kernels/nearest_r/nearest_r.py:207",
          "launches": serve["launches"],
+         "launches_compressed": comp["launches"]["nearest_r.window_join"],
          "matches_plain": True,
          "max_abs_err": kern["max_abs_err"],
          "ms": qt5["ms"],
@@ -1285,7 +1607,8 @@ def main() -> int:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
-             "serve": serve}, indent=1, default=float))
+             "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps},
+            indent=1, default=float))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -11,13 +11,18 @@ Key re-design vs the CPU engine (DESIGN.md §3):
 * Equalize == sorted intersection: key list 0 is the anchor stream; lists
   1..K-1 are joined via batched ``torch.searchsorted`` membership;
 * the QT3/QT4/QT5 window join runs the hand-written CUDA kernel on a card
-  (``kernels.nearest_r.window_join``).
+  (``kernels.nearest_r.window_join``);
+* three payload formats: raw int32 rows, block-delta16 anchor streams
+  (one int32 base per 64 postings + uint16 in-block deltas, uint8 side
+  channels) and offsets (int32 streams + uint8 side channels, the
+  fallback when a block's span overflows uint16). Compressed payloads are
+  encoded on the host (``compress_*``, ``assemble_*_compressed``, numpy
+  arrays) and decoded elementwise in torch ops before the same joins.
 
 This module serves one document shard: the reference package's per-shard
 top-k all-gather over the model axis is the identity here, and the second
 top-k over the gathered candidates is too (a stable sort of an already
-sorted row keeps it as it is). Only the raw int32 payload is served; the
-block-delta16 and offsets payloads arrive with the compressed slice.
+sorted row keeps it as it is).
 """
 
 from __future__ import annotations
@@ -167,11 +172,24 @@ def qt5_join(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, max_sep: int, r_max: int):
 # --------------------------------------------------------------------------
 # serve steps
 # --------------------------------------------------------------------------
-def _raw_only(payload: str) -> None:
-    if payload != "raw":
-        raise NotImplementedError(
-            f"the {payload!r} payload arrives with the compressed-payload slice "
-            "of the port; this slice serves the raw int32 payload")
+BLK = 64  # delta-coding block: one int32 base per BLK postings
+
+
+def _widen_u16(x: torch.Tensor) -> torch.Tensor:
+    """uint16 deltas, or their int16 bits, as int32 values in [0, 65535].
+    The bits are read as int16 first: torch has no arithmetic on uint16,
+    and which of its conversions support uint16 differs between versions
+    and devices."""
+    if x.dtype == torch.uint16:
+        x = x.view(torch.int16)
+    return x.to(torch.int32) & 0xFFFF
+
+
+def _delta_decode(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """(…, L/BLK) int32 bases + (…, L) uint16 deltas -> (…, L) int32 keys,
+    each base repeated over its block as ``jnp.repeat`` does."""
+    rep = base.unsqueeze(-1).expand(*base.shape, BLK).reshape(delta.shape)
+    return rep + _widen_u16(delta)
 
 
 def make_qt1_serve_step(top_k: int = 16):
@@ -187,18 +205,61 @@ def make_qt1_serve_step(top_k: int = 16):
     return step
 
 
+def make_qt1_serve_step_compressed(top_k: int = 16, delta_g: bool = True):
+    """The QT1 serve step over a compressed payload:
+    ``step(key_base, key_delta, key_lo_off, key_hi_off, idf_sum,
+    span_adjust) -> (s, g, lo, hi)``.
+
+    * fragment bounds ride as uint8 offsets from the anchor (|off| <=
+      MaxDistance <= 254; ``lo_off == 255`` marks padding);
+    * with ``delta_g`` the keys are block-delta16 coded ((B, K, L/64)
+      int32 bases, (B, K, L) uint16 deltas); without it ``key_delta`` is
+      the raw int32 g row and ``key_base`` a dummy (B, K, 1).
+
+    Bytes per posting: 12 (raw) -> 6 (offsets) -> 4 (offsets + delta16).
+    The bounds are taken before the pads are set to SENTINEL, so a pad
+    lane keeps ``lo = key_g - 255`` and ``hi = key_g``, as in the
+    reference (top-k sees those lanes)."""
+
+    def step(key_base, key_delta, key_lo_off, key_hi_off, idf_sum, span_adjust):
+        key_g = _delta_decode(key_base, key_delta) if delta_g else key_delta
+        lo = key_g - key_lo_off.to(torch.int32)
+        hi = key_g + key_hi_off.to(torch.int32)
+        key_g = torch.where(key_lo_off == 255, SENTINEL, key_g)
+        valid, lo, hi = qt1_join(key_g, lo, hi)
+        score = qt1_score(valid, lo, hi, idf_sum, span_adjust)
+        return qt1_topk(score, key_g[:, 0], lo, hi, top_k)
+
+    return step
+
+
 def make_wv_serve_step(qtype: str, top_k: int = 16, payload: str = "raw",
                        max_distance: int = 5, r_max: int = 4):
     """The QT2/QT3/QT4/QT5 serve step on one document shard — the
     (w,v)-key / ordinary-window / NSW analogue of
     :func:`make_qt1_serve_step` (DESIGN.md §12-§13). ``"qt34"`` serves
     both QT3 and QT4: their evaluation is identical, only the lemma
-    classes differ. Arguments are the ``device_args`` of the matching
-    batch: qt2 ``(wv_lo, wv_hi, n_keys, idf_sum, span_adjust)``, qt34
-    ``(a_g, ns_g, ns_r, idf_sum, span_adjust)``, qt5 ``(a_g, ns_g, ns_r,
-    st_cnt, st_ext, st_r, idf_sum, span_adjust)``."""
+    classes differ. Arguments, by ``payload``:
+
+    * ``"raw"`` — the ``device_args`` of the matching batch: qt2
+      ``(wv_lo, wv_hi, n_keys, idf_sum, span_adjust)``, qt34 ``(a_g,
+      ns_g, ns_r, idf_sum, span_adjust)``, qt5 ``(a_g, ns_g, ns_r,
+      st_cnt, st_ext, st_r, idf_sum, span_adjust)``;
+    * ``"delta"`` — block-delta16 anchor streams (4 B/posting class):
+      qt2 ``(base, delta, width, n_keys, …)``, qt34 ``(a_base, a_delta,
+      a_pad, ns_base, ns_delta, ns_pad, ns_r, …)``, qt5 the same plus
+      ``(st_cnt, st_eneg, st_epos, st_r)`` after ``ns_r``;
+    * ``"offsets"`` — int32 streams with uint8 side channels, the
+      fallback when a 64-posting block's span overflows uint16: qt2
+      ``(lo, width, n_keys, …)``, qt5 ``(a_g, ns_g, ns_r, st_cnt,
+      st_eneg, st_epos, st_r, …)``; qt34's payload is g rows only, so it
+      equals ``"raw"``.
+
+    These are the tuples of ``compress_*_batch`` and
+    ``assemble_*_compressed``. The decode is elementwise; the joins do
+    not depend on the payload."""
     assert qtype in ("qt2", "qt34", "qt5")
-    _raw_only(payload)
+    assert payload in ("raw", "delta", "offsets")
 
     def finish(score, lo, hi):
         # the CPU engine derives the doc from lo, so lo doubles as g
@@ -207,25 +268,78 @@ def make_wv_serve_step(qtype: str, top_k: int = 16, payload: str = "raw",
     if qtype == "qt2":
         sep = 2 * max_distance
 
-        def step(wv_lo, wv_hi, n_keys, idf_sum, span_adjust):
+        def join_finish(wv_lo, wv_hi, n_keys, idf_sum, span_adjust):
             valid, lo, hi = qt2_join(wv_lo, wv_hi, n_keys, sep)
             return finish(qt1_score(valid, lo, hi, idf_sum, span_adjust), lo, hi)
-    elif qtype == "qt34":
-        def step(a_g, ns_g, ns_r, idf_sum, span_adjust):
+
+        def widths(lo, width):
+            # a pad lane's lo + 255 wraps in int32 before where() drops it
+            pad = width == 255
+            hi = torch.where(pad, SENTINEL, lo + width.to(torch.int32))
+            return torch.where(pad, SENTINEL, lo), hi
+
+        if payload == "raw":
+            return join_finish
+        if payload == "delta":
+            def step(base, delta, width, n_keys, idf_sum, span_adjust):
+                lo, hi = widths(_delta_decode(base, delta), width)
+                return join_finish(lo, hi, n_keys, idf_sum, span_adjust)
+        else:
+            def step(lo, width, n_keys, idf_sum, span_adjust):
+                lo, hi = widths(lo, width)
+                return join_finish(lo, hi, n_keys, idf_sum, span_adjust)
+        return step
+
+    def ord_rows(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad):
+        a_g = torch.where(a_pad == 1, SENTINEL, _delta_decode(a_base, a_delta))
+        ns_g = torch.where(ns_pad == 1, SENTINEL, _delta_decode(ns_base, ns_delta))
+        return a_g, ns_g
+
+    if qtype == "qt34":
+        def join_finish(a_g, ns_g, ns_r, idf_sum, span_adjust):
             valid, lo, hi = qt34_join(a_g, ns_g, ns_r, max_distance, r_max)
             return finish(qt1_score(valid, lo, hi, idf_sum, span_adjust), lo, hi)
+
+        if payload in ("raw", "offsets"):
+            return join_finish
+
+        def step(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad, ns_r,
+                 idf_sum, span_adjust):
+            a_g, ns_g = ord_rows(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad)
+            return join_finish(a_g, ns_g, ns_r, idf_sum, span_adjust)
+        return step
+
+    def join_finish(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, idf_sum, span_adjust):
+        valid, lo, hi = qt5_join(a_g, ns_g, ns_r, st_cnt, st_ext, st_r,
+                                 max_distance, r_max)
+        return finish(qt1_score(valid, lo, hi, idf_sum, span_adjust), lo, hi)
+
+    def nsw(st_cnt, st_eneg, st_epos):
+        # uint8 count and split-sign nearest offset -> int32 (cnt, ext)
+        return st_cnt.to(torch.int32), st_epos.to(torch.int32) - st_eneg.to(torch.int32)
+
+    if payload == "raw":
+        return join_finish
+    if payload == "delta":
+        def step(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad, ns_r,
+                 st_cnt, st_eneg, st_epos, st_r, idf_sum, span_adjust):
+            a_g, ns_g = ord_rows(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad)
+            return join_finish(a_g, ns_g, ns_r, *nsw(st_cnt, st_eneg, st_epos),
+                               st_r, idf_sum, span_adjust)
     else:
-        def step(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, idf_sum, span_adjust):
-            valid, lo, hi = qt5_join(a_g, ns_g, ns_r, st_cnt, st_ext, st_r,
-                                     max_distance, r_max)
-            return finish(qt1_score(valid, lo, hi, idf_sum, span_adjust), lo, hi)
+        def step(a_g, ns_g, ns_r, st_cnt, st_eneg, st_epos, st_r, idf_sum,
+                 span_adjust):
+            return join_finish(a_g, ns_g, ns_r, *nsw(st_cnt, st_eneg, st_epos),
+                               st_r, idf_sum, span_adjust)
     return step
 
 
 # --------------------------------------------------------------------------
 # host-side batch packing from a ProximityIndex
 # --------------------------------------------------------------------------
-def _to_device(arrays, device) -> tuple:
+def to_device(arrays, device) -> tuple:
+    """Host arrays (a batch's raw or compressed step args) as tensors on
+    ``device``: the batch's host-to-device copy."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
@@ -239,7 +353,7 @@ class QT1Batch:
     stride: int
 
     def device_args(self, device):
-        return _to_device((self.key_g, self.key_lo, self.key_hi,
+        return to_device((self.key_g, self.key_lo, self.key_hi,
                            self.idf_sum, self.span_adjust), device)
 
 
@@ -498,7 +612,7 @@ class QT2Batch:
     stride: int
 
     def device_args(self, device):
-        return _to_device((self.wv_lo, self.wv_hi, self.n_keys, self.idf_sum,
+        return to_device((self.wv_lo, self.wv_hi, self.n_keys, self.idf_sum,
                            self.span_adjust), device)
 
 
@@ -515,7 +629,7 @@ class QT5Batch:
     stride: int
 
     def device_args(self, device):
-        return _to_device((self.a_g, self.ns_g, self.ns_r, self.st_cnt,
+        return to_device((self.a_g, self.ns_g, self.ns_r, self.st_cnt,
                            self.st_ext, self.st_r, self.idf_sum,
                            self.span_adjust), device)
 
@@ -530,7 +644,7 @@ class QT34Batch:
     stride: int
 
     def device_args(self, device):
-        return _to_device((self.a_g, self.ns_g, self.ns_r, self.idf_sum,
+        return to_device((self.a_g, self.ns_g, self.ns_r, self.idf_sum,
                            self.span_adjust), device)
 
 
@@ -701,6 +815,478 @@ def pack_qt34_batch(
                                   out=(ns_g[qi, ki],))
         idf_sum[qi] = sum(lex.idf(l) for l in q)
     return QT34Batch(a_g, ns_g, ns_r, idf_sum, span_adj, stride)
+
+
+# --------------------------------------------------------------------------
+# compressed payload encoding (host side; numpy arrays, moved to the
+# device by the caller)
+# --------------------------------------------------------------------------
+def _delta16_blocks(g):
+    """Block-delta16 code an int64 key stream (…, L) with SENTINEL pads:
+    one int32 base per 64-posting block + uint16 in-block deltas. The
+    base is the min over *live* postings, not element 0: with doc_shards
+    > 1 a block can straddle a shard-segment boundary and start with
+    padding while holding live keys later — anchoring on the min keeps
+    every delta non-negative (and minimal). Returns (base, delta, ok);
+    ok False when any in-block span overflows uint16."""
+    L = g.shape[-1]
+    nb = L // BLK
+    gb = g.reshape(g.shape[:-1] + (nb, BLK))
+    is_pad = gb == np.int64(SENTINEL)
+    live_min = np.where(is_pad, np.int64(SENTINEL), gb).min(axis=-1)
+    base = np.where(live_min == np.int64(SENTINEL), 0, live_min)
+    delta = np.where(is_pad, 0, gb - base[..., None])
+    if delta.max(initial=0) >= 2**16:
+        return None, None, False
+    return (
+        base.astype(np.int32),
+        delta.reshape(g.shape[:-1] + (L,)).astype(np.uint16),
+        True,
+    )
+
+
+def compress_qt1_batch(batch: "QT1Batch", delta_g: bool = True):
+    """Pack a QT1Batch into the compressed format (the args of
+    make_qt1_serve_step_compressed, as numpy arrays). Raises if a 64-posting block's key
+    span exceeds uint16 (the serving packer then falls back to the
+    offsets-only format for that bucket)."""
+    g = batch.key_g.astype(np.int64)
+    B, K, L = g.shape
+    # pads are marked by lo_off == 255 in the compressed format
+    lo_off = np.where(batch.key_lo == SENTINEL, 255,
+                      np.clip(g - batch.key_lo, 0, 254))
+    hi_off = np.where(batch.key_hi == SENTINEL, 0,
+                      np.clip(batch.key_hi - g, 0, 254))
+    if not delta_g:
+        return (np.zeros((B, K, 1), np.int32), batch.key_g,
+                lo_off.astype(np.uint8), hi_off.astype(np.uint8),
+                batch.idf_sum, batch.span_adjust)
+    assert L % BLK == 0
+    base, delta, ok = _delta16_blocks(g)
+    if not ok:
+        raise ValueError("in-block key span exceeds uint16; use offsets format")
+    return (base, delta, lo_off.astype(np.uint8), hi_off.astype(np.uint8),
+            batch.idf_sum, batch.span_adjust)
+
+
+def compress_qt2_batch(batch: QT2Batch, delta_g: bool = True):
+    """QT2Batch -> compressed step args. Interval widths (hi - lo <=
+    MaxDistance <= 254) ride as uint8 (255 marks padding); with delta_g
+    the lo stream is block-delta16 coded. Raises on uint16 overflow (the
+    engine then falls back to the offsets format)."""
+    lo = batch.wv_lo.astype(np.int64)
+    pad = lo == np.int64(SENTINEL)
+    width = np.where(pad, 255,
+                     np.clip(batch.wv_hi.astype(np.int64) - lo, 0, 254)).astype(np.uint8)
+    tail = (width, batch.n_keys, batch.idf_sum, batch.span_adjust)
+    if not delta_g:
+        return (batch.wv_lo,) + tail
+    assert lo.shape[-1] % BLK == 0
+    base, delta, ok = _delta16_blocks(lo)
+    if not ok:
+        raise ValueError("in-block key span exceeds uint16; use offsets format")
+    return (base, delta) + tail
+
+
+def compress_qt34_batch(batch: QT34Batch, delta_g: bool = True):
+    """QT34Batch -> compressed step args: with delta_g the anchor and
+    other ordinary streams are block-delta16 coded behind uint8 pad
+    masks (4 B/posting class); without it the int32 rows ship as-is
+    (the "offsets" format — QT3/QT4 has no uint8 side channels, so the
+    fallback is simply uncompressed). Raises on uint16 overflow (the
+    engine then falls back to the offsets format)."""
+    tail = (batch.ns_r, batch.idf_sum, batch.span_adjust)
+    if not delta_g:
+        return (batch.a_g, batch.ns_g) + tail
+    a = batch.a_g.astype(np.int64)
+    ns = batch.ns_g.astype(np.int64)
+    assert a.shape[-1] % BLK == 0
+    a_base, a_delta, ok_a = _delta16_blocks(a)
+    ns_base, ns_delta, ok_n = _delta16_blocks(ns)
+    if not (ok_a and ok_n):
+        raise ValueError("in-block key span exceeds uint16; use offsets format")
+    a_pad = (a == np.int64(SENTINEL)).astype(np.uint8)
+    ns_pad = (ns == np.int64(SENTINEL)).astype(np.uint8)
+    return (a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad) + tail
+
+
+def compress_qt5_batch(batch: QT5Batch, delta_g: bool = True):
+    """QT5Batch -> compressed step args: uint8 NSW counts (clipped at
+    255 — multiplicities are far smaller) and split-sign uint8 nearest
+    offsets (|ext| <= MaxDistance <= 254); with delta_g the anchor and
+    non-stop streams are block-delta16 coded behind uint8 pad masks."""
+    cnt8 = np.clip(batch.st_cnt, 0, 255).astype(np.uint8)
+    eneg = np.clip(-np.minimum(batch.st_ext, 0), 0, 255).astype(np.uint8)
+    epos = np.clip(np.maximum(batch.st_ext, 0), 0, 255).astype(np.uint8)
+    tail = (batch.ns_r, cnt8, eneg, epos, batch.st_r, batch.idf_sum,
+            batch.span_adjust)
+    if not delta_g:
+        return (batch.a_g, batch.ns_g) + tail
+    a = batch.a_g.astype(np.int64)
+    ns = batch.ns_g.astype(np.int64)
+    assert a.shape[-1] % BLK == 0
+    a_base, a_delta, ok_a = _delta16_blocks(a)
+    ns_base, ns_delta, ok_n = _delta16_blocks(ns)
+    if not (ok_a and ok_n):
+        raise ValueError("in-block key span exceeds uint16; use offsets format")
+    a_pad = (a == np.int64(SENTINEL)).astype(np.uint8)
+    ns_pad = (ns == np.int64(SENTINEL)).astype(np.uint8)
+    return (a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad) + tail
+
+
+# --------------------------------------------------------------------------
+# per-key compressed rows (the compressed-row cache's unit, DESIGN.md §12)
+# --------------------------------------------------------------------------
+def compress_fst_rows(rows):
+    """(g, lo, hi, present) -> (base, delta16, lo_off, hi_off, delta_ok,
+    present). base/delta are None when the key's in-block span overflows
+    uint16 — the batch assembler then falls back to the offsets format,
+    which reuses lo_off/hi_off with the raw g row."""
+    g, lo, hi, present = rows
+    g64 = g.astype(np.int64)
+    lo_off = np.where(lo == SENTINEL, 255, np.clip(g64 - lo, 0, 254)).astype(np.uint8)
+    hi_off = np.where(hi == SENTINEL, 0, np.clip(hi - g64, 0, 254)).astype(np.uint8)
+    if g64.shape[-1] % BLK:
+        return (None, None, lo_off, hi_off, False, present)
+    base, delta, ok = _delta16_blocks(g64)
+    return (base, delta, lo_off, hi_off, ok, present)
+
+
+def compress_wv_rows(rows):
+    """(lo, hi, present) -> (base, delta16, width, delta_ok, present)."""
+    lo, hi, present = rows
+    lo64 = lo.astype(np.int64)
+    pad = lo64 == np.int64(SENTINEL)
+    width = np.where(pad, 255, np.clip(hi.astype(np.int64) - lo64, 0, 254)).astype(np.uint8)
+    if lo64.shape[-1] % BLK:
+        return (None, None, width, False, present)
+    base, delta, ok = _delta16_blocks(lo64)
+    return (base, delta, width, ok, present)
+
+
+def compress_ord_rows(rows):
+    """(g, present) -> (base, delta16, pad, delta_ok, present)."""
+    g, present = rows
+    g64 = g.astype(np.int64)
+    pad = (g64 == np.int64(SENTINEL)).astype(np.uint8)
+    if g64.shape[-1] % BLK:
+        return (None, None, pad, False, present)
+    base, delta, ok = _delta16_blocks(g64)
+    return (base, delta, pad, ok, present)
+
+
+def compress_nsw_rows(rows):
+    """(cnt, ext, present) -> (cnt8, ext_neg, ext_pos, True, present)."""
+    cnt, ext, present = rows
+    cnt8 = np.clip(cnt, 0, 255).astype(np.uint8)
+    eneg = np.clip(-np.minimum(ext, 0), 0, 255).astype(np.uint8)
+    epos = np.clip(np.maximum(ext, 0), 0, 255).astype(np.uint8)
+    return (cnt8, eneg, epos, True, present)
+
+
+# --------------------------------------------------------------------------
+# compressed batch assembly from per-key cached rows
+# --------------------------------------------------------------------------
+def assemble_qt1_compressed(index, queries, L, K=2, doc_shards=1,
+                            ccache=None, cache=None, plans=None):
+    """Build compressed QT1 step args (numpy) from per-key *cached* compressed
+    rows: warm drains become B*K row copies instead of an O(B·K·L) host
+    re-encode. Returns (kind, args, batch_stub) with kind "delta" or
+    "offsets" (chosen per batch: offsets when any key's in-block span
+    overflows uint16 or the bucket is block/shard-misaligned)."""
+    B = len(queries)
+    stride = qt1_stride(index)
+    lex = index.lexicon
+    delta_fmt = L % (BLK * doc_shards) == 0
+    lo_off = np.full((B, K, L), 255, np.uint8)
+    hi_off = np.zeros((B, K, L), np.uint8)
+    idf_sum = np.zeros(B, np.float32)
+    span_adj = np.zeros(B, np.float32)
+    ents: list = [None] * B
+    for qi, q in enumerate(queries):
+        if not q:
+            continue
+        keys = plans[qi] if plans is not None and plans[qi] is not None \
+            else select_fst_keys(list(q))[1]
+        keys = (keys + [keys[-1]] * K)[:K]
+        span_adj[qi] = len(q) - 1
+        row_ents = []
+        any_present = False
+        for ki, key in enumerate(keys):
+            base, delta, lo_o, hi_o, ok, present = ccache.get(
+                index, "fst_c", key, L, doc_shards, stride)
+            delta_fmt &= ok
+            if present:
+                lo_off[qi, ki] = lo_o
+                hi_off[qi, ki] = hi_o
+                any_present = True
+            row_ents.append((key, base, delta, present))
+        if any_present:
+            idf_sum[qi] = sum(lex.idf(l) for l in q)
+        ents[qi] = row_ents
+    stub = QT1Batch(None, None, None, idf_sum, span_adj, stride)
+    tail = (lo_off, hi_off, idf_sum, span_adj)
+    if delta_fmt:
+        key_base = np.zeros((B, K, L // BLK), np.int32)
+        key_delta = np.zeros((B, K, L), np.uint16)
+        for qi, row_ents in enumerate(ents):
+            if row_ents is None:
+                continue
+            for ki, (_, base, delta, present) in enumerate(row_ents):
+                if present:
+                    key_base[qi, ki] = base
+                    key_delta[qi, ki] = delta
+        return "delta", (key_base, key_delta) + tail, stub
+    key_g = np.full((B, K, L), SENTINEL, np.int32)
+    for qi, row_ents in enumerate(ents):
+        if row_ents is None:
+            continue
+        for ki, (key, _, _, present) in enumerate(row_ents):
+            if not present:
+                continue
+            if cache is not None:
+                g_row, _, _, pres = cache.get_rows(index, key, L, doc_shards, stride)
+            else:
+                g_row, _, _, pres = pack_fst_key_rows(index, key, L, doc_shards, stride)
+            if pres:
+                key_g[qi, ki] = g_row
+    args = (np.zeros((B, K, 1), np.int32), key_g) + tail
+    return "offsets", args, stub
+
+
+def assemble_qt2_compressed(index, queries, L, K=3, doc_shards=1,
+                            ccache=None, cache=None, plans=None):
+    """Compressed QT2 step args from per-key cached rows (kind "wv_c").
+    Returns (kind, args, batch_stub), kind "qt2_delta" / "qt2_offsets"."""
+    B = len(queries)
+    stride = qt1_stride(index)
+    lex = index.lexicon
+    delta_fmt = L % (BLK * doc_shards) == 0
+    width = np.full((B, K, L), 255, np.uint8)
+    n_keys = np.zeros(B, np.int32)
+    idf_sum = np.zeros(B, np.float32)
+    span_adj = np.zeros(B, np.float32)
+    ents: list = [None] * B
+    for qi, q in enumerate(queries):
+        if not q:
+            continue
+        keys = (plans[qi] if plans is not None and plans[qi] is not None
+                else qt2_plan(index, q)[0])[:K]
+        n_keys[qi] = len(keys)
+        span_adj[qi] = len(q) - 1
+        row_ents = []
+        any_present = False
+        for ki, key in enumerate(keys):
+            base, delta, w, ok, present = ccache.get(
+                index, "wv_c", key, L, doc_shards, stride)
+            delta_fmt &= ok
+            if present:
+                width[qi, ki] = w
+                any_present = True
+            row_ents.append((key, base, delta, present))
+        if any_present:
+            idf_sum[qi] = sum(lex.idf(l) for l in q)
+        ents[qi] = row_ents
+    stub = QT2Batch(None, None, n_keys, idf_sum, span_adj, stride)
+    tail = (width, n_keys, idf_sum, span_adj)
+    if delta_fmt:
+        lo_base = np.zeros((B, K, L // BLK), np.int32)
+        lo_delta = np.zeros((B, K, L), np.uint16)
+        for qi, row_ents in enumerate(ents):
+            if row_ents is None:
+                continue
+            for ki, (_, base, delta, present) in enumerate(row_ents):
+                if present:
+                    lo_base[qi, ki] = base
+                    lo_delta[qi, ki] = delta
+        return "qt2_delta", (lo_base, lo_delta) + tail, stub
+    wv_lo = np.full((B, K, L), SENTINEL, np.int32)
+    for qi, row_ents in enumerate(ents):
+        if row_ents is None:
+            continue
+        for ki, (key, _, _, present) in enumerate(row_ents):
+            if not present:
+                continue
+            if cache is not None:
+                lo_row, _, pres = cache.get(index, "wv", key, L, doc_shards, stride)
+            else:
+                lo_row, _, pres = pack_wv_key_rows(index, key, L, doc_shards, stride)
+            if pres:
+                wv_lo[qi, ki] = lo_row
+    return "qt2_offsets", (wv_lo,) + tail, stub
+
+
+def assemble_qt34_compressed(index, queries, L, Kn=4, doc_shards=1,
+                             ccache=None, cache=None, plans=None):
+    """Compressed QT3/QT4 step args from per-key cached rows (kind
+    "ord_c" — shared with the QT5 anchor/non-stop streams, so a key hot
+    on either path warms both). Returns (kind, args, batch_stub), kind
+    "qt34_delta" / "qt34_offsets"."""
+    B = len(queries)
+    stride = qt1_stride(index)
+    lex = index.lexicon
+    delta_fmt = L % (BLK * doc_shards) == 0
+    a_pad = np.ones((B, L), np.uint8)
+    ns_pad = np.ones((B, Kn, L), np.uint8)
+    ns_r = np.zeros((B, Kn), np.int32)
+    idf_sum = np.zeros(B, np.float32)
+    span_adj = np.zeros(B, np.float32)
+    a_ents: list = [None] * B
+    ns_ents: list = [None] * B
+    for qi, q in enumerate(queries):
+        if not q:
+            continue
+        plan = (plans[qi] if plans is not None and plans[qi] is not None
+                else qt34_plan(index, q))
+        anchor, others, _ = plan
+        span_adj[qi] = len(q) - 1
+        base, delta, pad, ok, present = ccache.get(
+            index, "ord_c", anchor, L, doc_shards, stride)
+        delta_fmt &= ok
+        if present:
+            a_pad[qi] = pad
+        a_ents[qi] = (anchor, base, delta, present)
+        row_ents = []
+        for ki, (lemma, r) in enumerate(others[:Kn]):
+            b2, d2, p2, ok2, pr2 = ccache.get(
+                index, "ord_c", lemma, L, doc_shards, stride)
+            delta_fmt &= ok2
+            ns_r[qi, ki] = r
+            if pr2:
+                ns_pad[qi, ki] = p2
+            row_ents.append((lemma, b2, d2, pr2))
+        ns_ents[qi] = row_ents
+        idf_sum[qi] = sum(lex.idf(l) for l in q)
+    stub = QT34Batch(None, None, ns_r, idf_sum, span_adj, stride)
+    tail = (ns_r, idf_sum, span_adj)
+    if delta_fmt:
+        nb = L // BLK
+        a_base = np.zeros((B, nb), np.int32)
+        a_delta = np.zeros((B, L), np.uint16)
+        ns_base = np.zeros((B, Kn, nb), np.int32)
+        ns_delta = np.zeros((B, Kn, L), np.uint16)
+        for qi in range(B):
+            if a_ents[qi] is not None and a_ents[qi][3]:
+                a_base[qi] = a_ents[qi][1]
+                a_delta[qi] = a_ents[qi][2]
+            for ki, (_, b2, d2, pr2) in enumerate(ns_ents[qi] or ()):
+                if pr2:
+                    ns_base[qi, ki] = b2
+                    ns_delta[qi, ki] = d2
+        args = (a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad) + tail
+        return "qt34_delta", args, stub
+
+    def raw_row(lemma):
+        if cache is not None:
+            return cache.get(index, "ord", lemma, L, doc_shards, stride)
+        return pack_ord_key_rows(index, lemma, L, doc_shards, stride)
+
+    a_g = np.full((B, L), SENTINEL, np.int32)
+    ns_g = np.full((B, Kn, L), SENTINEL, np.int32)
+    for qi in range(B):
+        if a_ents[qi] is not None and a_ents[qi][3]:
+            g_row, pres = raw_row(a_ents[qi][0])
+            if pres:
+                a_g[qi] = g_row
+        for ki, (lemma, _, _, pr2) in enumerate(ns_ents[qi] or ()):
+            if pr2:
+                g_row, pres = raw_row(lemma)
+                if pres:
+                    ns_g[qi, ki] = g_row
+    return "qt34_offsets", (a_g, ns_g) + tail, stub
+
+
+def assemble_qt5_compressed(index, queries, L, Kn=3, Ks=3, doc_shards=1,
+                            ccache=None, cache=None, plans=None):
+    """Compressed QT5 step args from per-key cached rows (kinds "ord_c"
+    for anchor/non-stop streams, "nsw_c" for the uint8 NSW aggregates).
+    Returns (kind, args, batch_stub), kind "qt5_delta" / "qt5_offsets"."""
+    B = len(queries)
+    stride = qt1_stride(index)
+    lex = index.lexicon
+    delta_fmt = L % (BLK * doc_shards) == 0
+    a_pad = np.ones((B, L), np.uint8)
+    ns_pad = np.ones((B, Kn, L), np.uint8)
+    ns_r = np.zeros((B, Kn), np.int32)
+    st_r = np.zeros((B, Ks), np.int32)
+    cnt8 = np.zeros((B, Ks, L), np.uint8)
+    eneg = np.zeros((B, Ks, L), np.uint8)
+    epos = np.zeros((B, Ks, L), np.uint8)
+    idf_sum = np.zeros(B, np.float32)
+    span_adj = np.zeros(B, np.float32)
+    a_ents: list = [None] * B
+    ns_ents: list = [None] * B
+    for qi, q in enumerate(queries):
+        if not q:
+            continue
+        plan = (plans[qi] if plans is not None and plans[qi] is not None
+                else qt5_plan(index, q))
+        if plan is None:
+            continue  # degenerate; routed to the CPU by the engine
+        anchor, others, stops, _ = plan
+        span_adj[qi] = len(q) - 1
+        base, delta, pad, ok, present = ccache.get(
+            index, "ord_c", anchor, L, doc_shards, stride)
+        delta_fmt &= ok
+        if present:
+            a_pad[qi] = pad
+        a_ents[qi] = (anchor, base, delta, present)
+        row_ents = []
+        for ki, (lemma, r) in enumerate(others[:Kn]):
+            b2, d2, p2, ok2, pr2 = ccache.get(
+                index, "ord_c", lemma, L, doc_shards, stride)
+            delta_fmt &= ok2
+            ns_r[qi, ki] = r
+            if pr2:
+                ns_pad[qi, ki] = p2
+            row_ents.append((lemma, b2, d2, pr2))
+        ns_ents[qi] = row_ents
+        for ki, (sid, r) in enumerate(stops[:Ks]):
+            c8, en, ep, _, pr = ccache.get(
+                index, "nsw_c", (anchor, sid), L, doc_shards, stride)
+            st_r[qi, ki] = r
+            if pr:
+                cnt8[qi, ki] = c8
+                eneg[qi, ki] = en
+                epos[qi, ki] = ep
+        idf_sum[qi] = sum(lex.idf(l) for l in q)
+    stub = QT5Batch(None, None, ns_r, None, None, st_r, idf_sum, span_adj, stride)
+    tail = (ns_r, cnt8, eneg, epos, st_r, idf_sum, span_adj)
+    if delta_fmt:
+        nb = L // BLK
+        a_base = np.zeros((B, nb), np.int32)
+        a_delta = np.zeros((B, L), np.uint16)
+        ns_base = np.zeros((B, Kn, nb), np.int32)
+        ns_delta = np.zeros((B, Kn, L), np.uint16)
+        for qi in range(B):
+            if a_ents[qi] is not None and a_ents[qi][3]:
+                a_base[qi] = a_ents[qi][1]
+                a_delta[qi] = a_ents[qi][2]
+            for ki, (_, b2, d2, pr2) in enumerate(ns_ents[qi] or ()):
+                if pr2:
+                    ns_base[qi, ki] = b2
+                    ns_delta[qi, ki] = d2
+        args = (a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad) + tail
+        return "qt5_delta", args, stub
+
+    def raw_row(lemma):
+        if cache is not None:
+            return cache.get(index, "ord", lemma, L, doc_shards, stride)
+        return pack_ord_key_rows(index, lemma, L, doc_shards, stride)
+
+    a_g = np.full((B, L), SENTINEL, np.int32)
+    ns_g = np.full((B, Kn, L), SENTINEL, np.int32)
+    for qi in range(B):
+        if a_ents[qi] is not None and a_ents[qi][3]:
+            g_row, pres = raw_row(a_ents[qi][0])
+            if pres:
+                a_g[qi] = g_row
+        for ki, (lemma, _, _, pr2) in enumerate(ns_ents[qi] or ()):
+            if pr2:
+                g_row, pres = raw_row(lemma)
+                if pres:
+                    ns_g[qi, ki] = g_row
+    return "qt5_offsets", (a_g, ns_g) + tail, stub
 
 
 def _host(x) -> np.ndarray:

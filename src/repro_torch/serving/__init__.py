@@ -26,13 +26,26 @@ Public API
 * :class:`AdmissionController` / :class:`AdmissionVerdict` — the §17
   deadline control loop consulted by ``submit()`` on an
   ``admission=True`` engine (fast-reject, degrade, shed).
-* :class:`PackedPostingCache` — LRU memo of the padded per-key rows,
-  invalidated by snapshot identity (DESIGN.md §11).
+* :class:`LoadReport` / :func:`run_open_loop` / :func:`run_closed_loop`
+  / :func:`poisson_arrivals` / :func:`bursty_arrivals` /
+  :func:`warm_service` — the open-loop load harness that exercises the
+  control loop at a fixed offered rate.
+* :class:`PackedPostingCache` — LRU memo of the padded per-key rows
+  (and their block-delta16 compressed twins), invalidated by snapshot
+  identity (DESIGN.md §11).
 """
 
 from repro_torch.serving.admission import (  # noqa: F401
     AdmissionController,
     AdmissionVerdict,
+)
+from repro_torch.serving.load import (  # noqa: F401
+    LoadReport,
+    bursty_arrivals,
+    poisson_arrivals,
+    run_closed_loop,
+    run_open_loop,
+    warm_service,
 )
 from repro_torch.serving.pack_cache import PackedPostingCache  # noqa: F401
 from repro_torch.serving.planner import QueryPlan  # noqa: F401
@@ -46,10 +59,16 @@ from repro_torch.serving.service import (  # noqa: F401
 __all__ = [
     "AdmissionController",
     "AdmissionVerdict",
+    "LoadReport",
     "PackedPostingCache",
     "QueryPlan",
     "SearchResponse",
     "SearchService",
     "SearchTicket",
     "ServeConfig",
+    "bursty_arrivals",
+    "poisson_arrivals",
+    "run_closed_loop",
+    "run_open_loop",
+    "warm_service",
 ]

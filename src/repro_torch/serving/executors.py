@@ -42,17 +42,32 @@ import numpy as np
 import torch
 
 from repro_torch.core.torch_search import (
+    assemble_qt1_compressed,
+    assemble_qt2_compressed,
+    assemble_qt34_compressed,
+    assemble_qt5_compressed,
     batch_size_bucket,
+    compress_qt1_batch,
+    compress_qt2_batch,
+    compress_qt34_batch,
+    compress_qt5_batch,
     decode_results,
     make_qt1_serve_step,
+    make_qt1_serve_step_compressed,
     make_wv_serve_step,
     pack_qt1_batch,
     pack_qt2_batch,
     pack_qt34_batch,
     pack_qt5_batch,
+    to_device,
 )
 from repro_torch.obs import MetricsRegistry, Tracer
-from repro_torch.serving.planner import PAYLOAD_RAW
+from repro_torch.serving.planner import (
+    PAYLOAD_DELTA16,
+    PAYLOAD_OFFSETS,
+    PAYLOAD_RAW,
+    delta16_aligned,
+)
 
 # the batch-level phases every ExecResult reports; the service prepends
 # "queue" and "plan" (tests assert this exact vocabulary)
@@ -66,13 +81,14 @@ def zero_phases() -> dict:
 @dataclass
 class ExecResult:
     """Per-request execution record: the decoded results plus the
-    executed shape — ``payload`` is the format actually served,
-    ``latency_s`` the wall-clock of the whole batch the request rode in,
-    ``started_at``/``finished_at`` the perf_counter timestamps of *that
-    batch* (not the whole group: the service derives queue waits and
-    deadline verdicts per batch), and ``phases`` the batch's per-phase
-    durations in seconds — contiguous sub-intervals tiling
-    [started_at, finished_at]."""
+    executed shape — ``payload`` is the format actually served (a
+    planner delta16 prediction downgrades to offsets when a key's
+    in-block span overflows uint16), ``latency_s`` the wall-clock of the
+    whole batch the request rode in, ``started_at``/``finished_at`` the
+    perf_counter timestamps of *that batch* (not the whole group: the
+    service derives queue waits and deadline verdicts per batch), and
+    ``phases`` the batch's per-phase durations in seconds — contiguous
+    sub-intervals tiling [started_at, finished_at]."""
 
     results: dict
     latency_s: float
@@ -93,6 +109,15 @@ class Executor(Protocol):
                 shared: list | None = None) -> list[ExecResult]: ...
 
 
+# kind suffix -> planner payload name
+_PAYLOAD_OF_KIND = {"base": PAYLOAD_RAW, "raw": PAYLOAD_RAW,
+                    "delta": PAYLOAD_DELTA16, "offsets": PAYLOAD_OFFSETS}
+
+
+def _payload_of_kind(kind: str) -> str:
+    return _PAYLOAD_OF_KIND[kind.rsplit("_", 1)[-1] if "_" in kind else kind]
+
+
 def _sync(device: torch.device) -> None:
     """Wait for the device to finish queued work; a no-op on the CPU,
     where every op has finished when it returns."""
@@ -101,8 +126,8 @@ def _sync(device: torch.device) -> None:
 
 
 class CompiledExecutor:
-    """Packs and executes padded batches on the per-(step kind, B-bucket,
-    L-bucket) serve steps, on one device.
+    """Packs, compresses and executes padded batches on the per-(step
+    kind, B-bucket, L-bucket) serve steps, on one device.
 
     ``executables`` maps every (kind, B, L) triple ever executed to its
     batch count — the engine-stats surface tests assert B-bucket
@@ -113,12 +138,17 @@ class CompiledExecutor:
     metrics registry as ``serve.step.<family>.B<B>.L<L>`` histograms
     (µs)."""
 
-    def __init__(self, device, config, pack_cache=None,
+    def __init__(self, device, config, pack_cache=None, compressed_cache=None,
                  metrics: MetricsRegistry | None = None,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None, costs=None):
         self.device = torch.device(device)
         self.config = config
         self.pack_cache = pack_cache
+        self.compressed_cache = compressed_cache
+        # optional PayloadCostModel (owned by the service): warm batch
+        # times stream into it per (family, bucket, payload arm), and
+        # the planner consults it for the group's payload choice
+        self.costs = costs
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         # one step per step kind; shapes are fixed per call, and
@@ -134,6 +164,12 @@ class CompiledExecutor:
         self.stats = {"batches": 0, "compressed_batches": 0,
                       "offset_fallbacks": 0, "shared_batches": 0,
                       "compiles": 0}
+        # delta-format eligibility on the cache-less compressed path is
+        # static per (family, bucket) and goes sticky-False after a
+        # uint16 span overflow so persistent-overflow corpora don't pay
+        # a failed delta encoding per batch (with the compressed cache
+        # the verdict is per key instead)
+        self._delta_ok: dict[tuple, bool] = {}
 
     @property
     def n_executables(self) -> int:
@@ -145,7 +181,10 @@ class CompiledExecutor:
             cfg = self.config
             if kind == "base":
                 step = make_qt1_serve_step(top_k=cfg.top_k)
-            else:  # "qt2_raw" / "qt34_raw" / "qt5_raw"
+            elif kind in ("delta", "offsets"):
+                step = make_qt1_serve_step_compressed(
+                    top_k=cfg.top_k, delta_g=(kind == "delta"))
+            else:  # "qt2_raw" ... "qt5_offsets"
                 qtype, payload = kind.split("_", 1)
                 step = make_wv_serve_step(
                     qtype, top_k=cfg.top_k, payload=payload,
@@ -155,25 +194,32 @@ class CompiledExecutor:
         return step
 
     def _family_fns(self, family: str):
-        """(pack_fn, K kwargs) for one step family — the only place the
-        four families differ."""
+        """(assemble_fn, pack_fn, compress_fn, kind prefix, K kwargs)
+        for one step family — the only place the four families differ."""
         cfg = self.config
         if family == "qt1":
-            return pack_qt1_batch, {"K": cfg.k_fst}
+            return (assemble_qt1_compressed, pack_qt1_batch,
+                    compress_qt1_batch, "", {"K": cfg.k_fst})
         if family == "qt2":
-            return pack_qt2_batch, {"K": cfg.k_wv}
+            return (assemble_qt2_compressed, pack_qt2_batch,
+                    compress_qt2_batch, "qt2_", {"K": cfg.k_wv})
         if family == "qt34":
-            return pack_qt34_batch, {"Kn": cfg.k_ord}
-        return pack_qt5_batch, {"Kn": cfg.k_ns, "Ks": cfg.k_st}
+            return (assemble_qt34_compressed, pack_qt34_batch,
+                    compress_qt34_batch, "qt34_", {"Kn": cfg.k_ord})
+        return (assemble_qt5_compressed, pack_qt5_batch,
+                compress_qt5_batch, "qt5_", {"Kn": cfg.k_ns, "Ks": cfg.k_st})
 
     def execute(self, index, queries, selections, *, step_family, bucket,
-                shared=None):
+                shared=None, payload=None):
         """Serve one (step family, L-bucket) group: chunked to
         ``config.max_batch``, each chunk padded to the power-of-two
         batch ladder and executed on the (kind, B, L) step.
         ``shared`` (aligned with ``queries``) flags requests riding a
         foreign step family — qt34 plans converted to zero-stop qt5
-        plans by the caller; a batch containing any counts as shared."""
+        plans by the caller; a batch containing any counts as shared.
+        ``payload`` is the group's planner-chosen format: ``raw`` on a
+        compressed engine forces the raw pack path (the cost model's
+        raw arm); None keeps the config-static behavior."""
         cfg = self.config
         out: list[ExecResult] = []
         for lo in range(0, len(queries), cfg.max_batch):
@@ -187,6 +233,7 @@ class CompiledExecutor:
                 kind, stub, args, t_pack, t_comp = self._prepare(
                     index, step_family, bucket,
                     chunk_q + [[]] * pad, chunk_s + [None] * pad, t0,
+                    payload=payload,
                 )
                 key = (kind, B_pad, bucket)
                 step = self._step(kind, index.max_distance)
@@ -220,8 +267,8 @@ class CompiledExecutor:
                     f"serve.step.{step_family}.B{B_pad}.L{bucket}",
                     (t_exec - t_compile) * 1e6,
                 )
-                # whole warm batch wall-clock (host pack/decode included,
-                # warm-up excluded): what one more batch of the shape
+                # whole warm batch wall-clock (host pack/compress/decode
+                # included, warm-up excluded): what one more batch of the shape
                 # actually costs the serving loop — the admission
                 # predictor's primitive
                 self.metrics.observe(
@@ -229,10 +276,20 @@ class CompiledExecutor:
                     ((t1 - t0) - phases["compile"]) * 1e6,
                 )
                 self.measured_keys.add((step_family, B_pad, bucket))
+                if self.costs is not None:
+                    # payload arbitration sees the whole warm batch cost
+                    # (pack/compress/decode included — host encode work
+                    # counts against the arm that incurs it), per padded
+                    # query; warm-up is excluded like the step metric
+                    warm_s = (t1 - t0) - phases["compile"]
+                    self.costs.observe(step_family, bucket,
+                                       _payload_of_kind(kind),
+                                       warm_s * 1e6 / B_pad)
+            payload = _payload_of_kind(kind)
             out.extend(
                 ExecResult(results=decoded[bi], latency_s=t1 - t0,
                            bucket=bucket, batch_size=len(chunk_q),
-                           payload=PAYLOAD_RAW, started_at=t0, finished_at=t1,
+                           payload=payload, started_at=t0, finished_at=t1,
                            phases=dict(phases))
                 for bi in range(len(chunk_q))
             )
@@ -372,28 +429,87 @@ class CompiledExecutor:
         return out
 
     # -- batch preparation --------------------------------------------------
-    def _prepare(self, index, family, bucket, queries, selections, t0):
-        """Pack one padded batch and move it to the device; returns
-        ``(kind, decode stub, device args, t_pack_end, t_compress_end)``
-        so the caller can tile the phase timeline without gaps (the raw
-        payload has no compress phase: it reads 0)."""
-        pack_fn, kw = self._family_fns(family)
-        kind = "base" if family == "qt1" else f"{family}_raw"
+    def _prepare(self, index, family, bucket, queries, selections, t0,
+                 payload=None):
+        """Pack (and compress) one padded batch and move it to the device;
+        returns ``(kind, decode stub, device args, t_pack_end,
+        t_compress_end)`` so the caller can tile the phase timeline
+        without gaps. ``payload=PAYLOAD_RAW`` forces the raw pack path
+        even on a compressed engine — the cost model's raw arm; the raw
+        and compressed steps of a family are bit-identical in results, so
+        the choice only moves time."""
+        assemble_fn, pack_fn, compress_fn, prefix, kw = self._family_fns(family)
+        cfg = self.config
+        ccache = self.compressed_cache
+        serve_compressed = cfg.compressed and payload != PAYLOAD_RAW
+        if serve_compressed and ccache is not None:
+            # the per-key compressed-row cache derives raw + compressed
+            # rows in one pass, so pack and compress are one phase here
+            # (attributed to pack; compress reads 0)
+            with self.tracer.span("pack", family=family, cached=True):
+                kind, args, stub = assemble_fn(
+                    index, queries, L=bucket, doc_shards=cfg.doc_shards,
+                    ccache=ccache, cache=self.pack_cache, plans=selections,
+                    **kw,
+                )
+                args = to_device(args, self.device)
+            self._count_compressed(kind)
+            t_pack = time.perf_counter()
+            return kind, stub, args, t_pack, t_pack
+        if not serve_compressed:
+            kind = "base" if family == "qt1" else f"{family}_raw"
+            with self.tracer.span("pack", family=family):
+                batch = pack_fn(
+                    index, queries, L=bucket, doc_shards=cfg.doc_shards,
+                    cache=self.pack_cache, plans=selections, **kw,
+                )
+                # the host->device transfer of the packed rows belongs
+                # to pack, not to whatever phase is timed next
+                args = batch.device_args(self.device)
+            t_pack = time.perf_counter()
+            return kind, batch, args, t_pack, t_pack
         with self.tracer.span("pack", family=family):
             batch = pack_fn(
-                index, queries, L=bucket, doc_shards=self.config.doc_shards,
+                index, queries, L=bucket, doc_shards=cfg.doc_shards,
                 cache=self.pack_cache, plans=selections, **kw,
             )
-            # the host->device transfer of the packed rows belongs
-            # to pack, not to whatever phase is timed next
-            args = batch.device_args(self.device)
         t_pack = time.perf_counter()
-        return kind, batch, args, t_pack, t_pack
+        with self.tracer.span("compress", family=family):
+            kind, args = self._compress_batch(bucket, batch, compress_fn,
+                                              prefix)
+            args = to_device(args, self.device)
+        return kind, batch, args, t_pack, time.perf_counter()
+
+    def _compress_batch(self, bucket, batch, compress_fn, prefix=""):
+        """Cache-less compressed path: whole-batch re-encode with the
+        per-(family, bucket) sticky delta verdict (the
+        use_compressed_cache=False path, kept for benchmarking)."""
+        ck = (prefix, bucket)
+        ok = self._delta_ok.get(ck)
+        if ok is None:
+            ok = delta16_aligned(bucket, self.config)
+            self._delta_ok[ck] = ok
+        kind = "offsets"
+        if ok:
+            try:
+                args = compress_fn(batch, delta_g=True)
+                kind = "delta"
+            except ValueError:  # in-block key span overflows uint16
+                self._delta_ok[ck] = False
+        if kind == "offsets":
+            args = compress_fn(batch, delta_g=False)
+        self._count_compressed(kind)
+        return prefix + kind, args
+
+    def _count_compressed(self, kind: str) -> None:
+        self.stats["compressed_batches"] += 1
+        if kind.endswith("offsets"):
+            self.stats["offset_fallbacks"] += 1
 
 
 def _kind_family(kind: str) -> str:
-    """Step-kind -> step-family name ("base" is the qt1 raw kind;
-    everything else is "<family>_<payload>")."""
+    """Step-kind -> step-family name ("base"/"delta"/"offsets" are the
+    qt1 payload kinds; everything else is "<family>_<payload>")."""
     return kind.split("_", 1)[0] if "_" in kind else "qt1"
 
 

@@ -16,10 +16,12 @@ Row kinds (one cache instance can hold any mix; entries are keyed by
 * ``"ord"`` — the g row of one lemma's ordinary postings, shared by the
   QT3/QT4 ordinary-window path and the QT5 anchor/non-stop streams: a
   lemma hot on either path warms both (DESIGN.md §13);
-* ``"nsw"`` — (cnt, ext) NSW aggregates of one (anchor, stop) pair (QT5).
-
-The block-delta16-compressed kinds arrive with the compressed-payload
-slice of the port.
+* ``"nsw"`` — (cnt, ext) NSW aggregates of one (anchor, stop) pair (QT5);
+* ``"fst_c" / "wv_c" / "ord_c" / "nsw_c"`` — the block-delta16-compressed
+  form of the same rows (base, delta16, uint8 side channels, delta_ok).
+  Compressed kinds derive from the base kind's rows — via ``source``
+  (typically the engine's raw-row cache) so a warm raw cache makes
+  compressed misses cheap.
 
 Invalidation rule: entries are valid only for the snapshot they were
 packed against. The cache tracks a single current ``snapshot_token``
@@ -57,6 +59,10 @@ from collections import OrderedDict
 import numpy as np
 
 from repro_torch.core.torch_search import (
+    compress_fst_rows,
+    compress_nsw_rows,
+    compress_ord_rows,
+    compress_wv_rows,
     pack_fst_key_rows,
     pack_nsw_key_rows,
     pack_ord_key_rows,
@@ -73,6 +79,16 @@ _DERIVERS = {
     "ord": pack_ord_key_rows,
     "nsw": pack_nsw_key_rows,
 }
+_COMPRESSORS = {
+    "fst_c": compress_fst_rows,
+    "wv_c": compress_wv_rows,
+    "ord_c": compress_ord_rows,
+    "nsw_c": compress_nsw_rows,
+}
+
+
+def _base_kind(kind: str) -> str:
+    return kind[:-2] if kind.endswith("_c") else kind
 
 
 def _key_in_segment(kind: str, key, seg_index) -> bool:
@@ -80,11 +96,12 @@ def _key_in_segment(kind: str, key, seg_index) -> bool:
     (the add-only retention test). NSW aggregates are keyed by the anchor
     lemma: new anchor postings change both the row length and the
     renumbering, while a segment without the anchor cannot add records."""
-    if kind == "fst":
+    base = _base_kind(kind)
+    if base == "fst":
         store = seg_index.fst
-    elif kind == "wv":
+    elif base == "wv":
         store = seg_index.wv
-    elif kind == "ord":
+    elif base == "ord":
         store = seg_index.ordinary
     else:  # "nsw": key = (anchor, sid)
         store = seg_index.ordinary
@@ -96,11 +113,13 @@ class PackedPostingCache:
     """LRU cache of padded per-key device rows for one snapshot."""
 
     def __init__(self, max_entries: int = 4096, max_bytes: int = 256 << 20,
+                 source: "PackedPostingCache | None" = None,
                  metrics=None, scope: str = "cache"):
         if max_entries < 1:
             raise ValueError("max_entries must be >= 1")
         self.max_entries = max_entries
         self.max_bytes = max_bytes
+        self.source = source  # raw-row cache compressed kinds derive from
         self._metrics = metrics  # optional repro_torch.obs.MetricsRegistry
         self._scope = scope
         self._entries: OrderedDict = OrderedDict()  # positive: ck -> (rows, nbytes)
@@ -130,7 +149,7 @@ class PackedPostingCache:
             stride: int | None = None):
         """Rows for `key` at bucket (L, doc_shards), packed against
         `index`'s current snapshot. The returned tuple matches the kind's
-        packer contract and ends with a present flag; arrays
+        packer/compressor contract and ends with a present flag; arrays
         are read-only (shared across batches; absent keys alias one
         padding row set per (kind, L)). `stride` (snapshot-constant)
         avoids an O(n_docs) re-derivation per miss when the caller
@@ -210,19 +229,32 @@ class PackedPostingCache:
         return rows
 
     def _derive(self, index, kind, key, L, doc_shards, stride):
-        return _DERIVERS[kind](index, key, L, doc_shards, stride)
+        packer = _DERIVERS.get(kind)
+        if packer is not None:
+            return packer(index, key, L, doc_shards, stride)
+        compressor = _COMPRESSORS[kind]
+        src = self.source if self.source is not None else self
+        raw = src.get(index, _base_kind(kind), key, L, doc_shards, stride)
+        return compressor(raw)
 
     def _shared_sentinel(self, kind: str, L: int):
         rows = self._sentinel_rows.get((kind, L))
         if rows is None:
             pad = np.full(L, SENTINEL, np.int32)
             zero = np.zeros(L, np.int32)
-            if kind == "nsw":
+            if kind in ("fst", "wv", "ord"):
+                n = {"fst": 3, "wv": 2, "ord": 1}[kind]
+                rows = (pad,) * n + (False,)
+            elif kind == "nsw":
                 rows = (zero, zero, False)
-            else:
-                rows = (pad,) * {"fst": 3, "wv": 2, "ord": 1}[kind] + (False,)
+            else:  # compressed kinds: run the compressor on padding rows
+                base = _base_kind(kind)
+                raw = self._shared_sentinel(base, L)
+                rows = _COMPRESSORS[kind](raw)
+                rows = rows[:-1] + (False,)
             for a in rows[:-1]:
-                a.setflags(write=False)
+                if isinstance(a, np.ndarray):
+                    a.setflags(write=False)
             self._sentinel_rows[(kind, L)] = rows
         return rows
 

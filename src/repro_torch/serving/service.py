@@ -52,7 +52,11 @@ from repro_torch.serving.executors import (
     empty_results,
     zero_phases,
 )
-from repro_torch.serving.costs import RecallCostModel, StepCostPredictor
+from repro_torch.serving.costs import (
+    PayloadCostModel,
+    RecallCostModel,
+    StepCostPredictor,
+)
 from repro_torch.serving.pack_cache import PackedPostingCache
 from repro_torch.serving.planner import QueryPlan
 
@@ -66,12 +70,11 @@ class ServeConfig:
     * ``max_batch`` / ``top_k`` / ``doc_shards`` — batch cap, results
       per query, model-axis doc shards;
     * ``compressed`` — serve the block-delta16 device payload
-      (DESIGN.md §11-§12); arrives with the compressed-payload slice of
-      the port and raises ``NotImplementedError`` until then, as does
-      ``doc_shards > 1`` (the doc-sharding slice);
+      (DESIGN.md §11-§12) with per-batch offsets fallback;
+      ``doc_shards > 1`` arrives with the doc-sharding slice of the port
+      and raises ``NotImplementedError`` until then;
     * ``use_pack_cache`` / ``use_compressed_cache`` / ``cache_entries``
-      / ``cache_bytes`` — the packed-posting row caches (the compressed
-      one with the compressed slice);
+      / ``cache_bytes`` — the packed-posting row caches;
     * ``k_fst``/``k_wv``/``k_ns``/``k_st``/``k_ord``/``r_max`` — static
       key/constraint capacities of the compiled steps (the dispatch
       matrix's fallback thresholds, DESIGN.md §13);
@@ -299,9 +302,9 @@ class SearchService:
     exact. :meth:`explain` returns the plan without executing.
 
     Hot-path machinery under the facade follows DESIGN.md §11-§13: the
-    packed-posting row cache (snapshot-identity invalidation) and the
-    per-(kind, B, L) executable table owned by
-    :class:`CompiledExecutor`."""
+    packed-posting row caches (snapshot-identity invalidation), the
+    per-key compressed-row cache, and the per-(kind, B, L) executable
+    table owned by :class:`CompiledExecutor`."""
 
     def __init__(self, index, config: ServeConfig | None = None,
                  device=None):
@@ -311,14 +314,17 @@ class SearchService:
             raise NotImplementedError(
                 "segmented index sources arrive with the SegmentedIndex / "
                 "ingest-tier slice of the port; serve a static ProximityIndex")
-        if cfg.compressed:
-            raise NotImplementedError(
-                "compressed=True arrives with the compressed-payload slice of "
-                "the port (delta16/offsets steps and the intersect kernels)")
         if cfg.doc_shards != 1:
             raise NotImplementedError(
                 "doc_shards > 1 arrives with the doc-sharding slice of the "
                 "port (torch.distributed)")
+        if cfg.compressed and getattr(index, "max_distance", 0) > 254:
+            # all compressed formats carry fragment bounds / NSW offsets
+            # as uint8 distances; beyond 254 they would silently clip
+            raise ValueError(
+                "compressed serving requires max_distance <= 254 "
+                f"(got {index.max_distance})"
+            )
         self.device = resolve_device(device)
         self.index = index
         # §15 observability tier: one registry + tracer per service,
@@ -334,9 +340,29 @@ class SearchService:
             if cfg.use_pack_cache
             else None
         )
+        # per-key compressed rows derive from (and sit beside) the raw
+        # row cache; without it every warm compressed drain re-runs the
+        # O(B·K·L) host delta encoding
+        self.compressed_cache = (
+            PackedPostingCache(max_entries=cfg.cache_entries,
+                               max_bytes=cfg.cache_bytes,
+                               source=self.pack_cache,
+                               metrics=self.metrics,
+                               scope="cache.compressed")
+            if cfg.compressed and cfg.use_compressed_cache
+            else None
+        )
+        # measured payload arbitration (DESIGN.md §16): only meaningful
+        # when two payload arms exist, i.e. on a compressed engine
+        self.payload_costs = (
+            PayloadCostModel()
+            if cfg.compressed and cfg.payload_cost_driven else None
+        )
         self.compiled = CompiledExecutor(
             self.device, cfg, pack_cache=self.pack_cache,
+            compressed_cache=self.compressed_cache,
             metrics=self.metrics, tracer=self.tracer,
+            costs=self.payload_costs,
         )
         self.scalar = ScalarExecutor(cfg, metrics=self.metrics,
                                      tracer=self.tracer)
@@ -372,6 +398,7 @@ class SearchService:
         self._plan_memo: dict[tuple, QueryPlan] = {}
         self._plan_memo_view = None
         self._plan_memo_cap = 65536
+        self._plan_memo_gen = 0
         self.stats = {
             "batches": 0, "requests": 0, "refreshes": 0,
             "compressed_batches": 0, "offset_fallbacks": 0,
@@ -403,16 +430,22 @@ class SearchService:
 
     # -- planning ----------------------------------------------------------
     def _plan(self, index, lemma_ids) -> QueryPlan:
-        # validity is the snapshot identity
-        if index is not self._plan_memo_view:
+        # validity is (snapshot identity, cost-model generation): a
+        # payload-choice flip bumps the generation, so memoized plans
+        # can never pin a stale payload
+        gen = (self.payload_costs.generation
+               if self.payload_costs is not None else 0)
+        if index is not self._plan_memo_view or gen != self._plan_memo_gen:
             # the scalar executor tracks snapshot identity itself
             self._plan_memo = {}
             self._plan_memo_view = index
+            self._plan_memo_gen = gen
         memo_key = tuple(lemma_ids)
         p = self._plan_memo.get(memo_key)
         if p is not None:
             return p
-        p = _planner.plan(list(lemma_ids), index, self.config)
+        p = _planner.plan(list(lemma_ids), index, self.config,
+                          costs=self.payload_costs)
         if len(self._plan_memo) >= self._plan_memo_cap:
             self._plan_memo.clear()
         self._plan_memo[memo_key] = p
@@ -721,7 +754,8 @@ class SearchService:
                     if (t.degraded_bucket is not None and p.is_compiled
                             and t.degraded_bucket < p.bucket):
                         p = _planner.degrade(p, t.degraded_bucket,
-                                             self.config)
+                                             self.config,
+                                             costs=self.payload_costs)
                     plans.append(p)
                     plan_s.append(time.perf_counter() - tp0)
             with self.tracer.span("group"):
@@ -813,9 +847,12 @@ class SearchService:
                 else:
                     sels = [self._selection_for(plans[i], family) for i in idxs]
                     shared = [plans[i].route != family for i in idxs]
+                    # one payload per (family, bucket) group: all its
+                    # plans were routed under the same cost-model state
                     execs = self.compiled.execute(index, queries, sels,
                                                   step_family=family,
-                                                  bucket=bucket, shared=shared)
+                                                  bucket=bucket, shared=shared,
+                                                  payload=plans[idxs[0]].payload)
                     if bucket in self.stats["bucket_hist"]:
                         mb = self.config.max_batch
                         with self._stats_lock:
@@ -987,6 +1024,8 @@ class SearchService:
         est_vs_measured = ex.est_vs_measured(_planner._streams)
         pack_stats = (self.pack_cache.stats
                       if self.pack_cache is not None else None)
+        comp_stats = (self.compressed_cache.stats
+                      if self.compressed_cache is not None else None)
         with self._stats_lock:
             st = self.stats
             st["requests"] += len(plans)
@@ -1003,8 +1042,12 @@ class SearchService:
             st["plans"]["executables"] = ex.n_executables
             st["plans"]["shared_batches"] = ex.stats["shared_batches"]
             st["plans"]["est_vs_measured"] = est_vs_measured
+            if self.payload_costs is not None:
+                st["plans"]["payload_costs"] = self.payload_costs.table()
             if pack_stats is not None:
                 st["pack_cache"] = pack_stats
+            if comp_stats is not None:
+                st["compressed_cache"] = comp_stats
             if self.admission is not None:
                 st["admission"]["margin"] = self.admission.margin_stats()
             if self.recall_costs is not None:
@@ -1026,6 +1069,8 @@ class SearchService:
         # between drains
         if self.pack_cache is not None:
             snap["pack_cache"] = self.pack_cache.stats
+        if self.compressed_cache is not None:
+            snap["compressed_cache"] = self.compressed_cache.stats
         if self.admission is not None:
             snap["admission"]["margin"] = self.admission.margin_stats()
         if self.recall_costs is not None:

@@ -135,6 +135,40 @@ def test_proximity_negative_d_matches_pallas(ref, d):
     assert not got[0].any()
 
 
+def _true_distance(a, b, d):
+    """(mask, lo, hi) with distances in Python integers: the matched b
+    within d of each a (both bounds a where none matches)."""
+    out = [[], [], []]
+    for x in a.tolist():
+        near = [y for y in b.tolist() if abs(x - y) <= d]
+        out[0].append(bool(near))
+        out[1].append(min(near) if near else x)
+        out[2].append(max(near) if near else x)
+    return np.array(out[0]), np.array(out[1], np.int32), np.array(out[2], np.int32)
+
+
+@pytest.mark.parametrize("case", ["opposite signs, no match", "near the bottom, a match"])
+def test_proximity_takes_64_bit_distances(ref, case):
+    """The port's one stated departure: it takes |a - b| in 64 bits, where
+    the Pallas kernel subtracts in int32 (``proximity.py:40``). Inputs of
+    opposite signs more than 2**31 - d apart wrap there: on the first case
+    the Pallas path reports a match 4,294,964,000 apart. The port holds to
+    the true distance on both cases; on the second it agrees with Pallas."""
+    a, b, d = {"opposite signs, no match": ([-2147483000], [2147481000], 4000),
+               "near the bottom, a match": ([-2147483640], [-2147483641, 7], 20)}[case]
+    a, b = np.array(a, np.int32), np.array(b, np.int32)
+    kw = dict(block_a=8, block_b=8)
+    got = _port(a, b, d, **kw)
+    want = _true_distance(a, b, d)
+    _assert_lanes(got, want)
+    pallas = _jax(a, b, d, **kw)
+    if case == "opposite signs, no match":
+        assert not want[0][0] and pallas[0][0] and pallas[1][0] == pallas[2][0] == b[0]
+    else:
+        assert want[0][0]
+        _assert_lanes(got, pallas)
+
+
 @pytest.mark.parametrize("a,b", [([], []), ([], [5]), ([5], [])])
 def test_proximity_empty_raises_as_reference(ref, a, b):
     a = np.array(a, np.int32)

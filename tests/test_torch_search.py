@@ -133,8 +133,3 @@ def test_topk_ties_keep_lower_lane_first(k):
     np.testing.assert_array_equal(g.numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(s.numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(g.numpy()[:, :k], np.arange(5, 5 + k)[None].repeat(6, 0))
-
-
-def test_compressed_payload_not_in_this_slice():
-    with pytest.raises(NotImplementedError, match="compressed"):
-        port.make_wv_serve_step("qt5", payload="delta")
