@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives three paths:
+``nvcc`` per source, all started together) and drives four paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -31,7 +31,14 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   capacity (``serving/load.py``); and each step family at the default
   ladder's top bucket on the raw, delta and offsets payloads, whose
   outputs must agree bit for bit with each other and with the CPU raw
-  step, timed with their host-to-device bytes.
+  step, timed with their host-to-device bytes;
+- the segmented path: the same corpus streamed into a background
+  ``SegmentedIndex`` and churned (adds, deletes, seals, size-tiered merges
+  on the executor's thread, refreshes and a quiesce), served on the card
+  raw and compressed after each refresh, then with ``serve_memtable``
+  over unsealed adds, then saved, loaded and served again; every drain's
+  records must equal a CPU service's over the same source refreshed at
+  the same point.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -56,6 +63,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -69,6 +77,11 @@ INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores; no int3
 MAX_SEP, R_MAX = 5, 4  # ServeConfig defaults: max_distance=5, r_max=4
 N_DOCS, N_QUERIES = 20_000, 256
 LOAD_CLOSED, LOAD_SECONDS = 256, 2.0  # closed-loop requests; open-loop trace length
+SEG_MEMTABLE, SEG_FANOUT = 512, 4  # SegmentedIndex's default memtable_docs, tier_fanout=4
+SEG_SEED, SEG_DELETE, SEG_ROUNDS = 0.8, 0.15, 4  # seeded share, deleted share, churn rounds
+SEG_LIVE_ADDS = 64  # unsealed documents the live-memtable drains see (< SEG_MEMTABLE)
+SEG_LIVE_QUERIES = 64  # mixed queries sampled from those documents, added to the drains
+SEG_WAIT_S = 900.0  # the longest a quiesce may take
 COMPRESSED_BL = (64, 65536)  # the default ServeConfig's top batch and L bucket
 COMPRESSED_K = {"qt1": 2, "qt2": 3, "qt34": (4, 0), "qt5": (3, 3)}  # ServeConfig's k_*
 TIMING_RUNS = 25
@@ -1143,8 +1156,8 @@ def library_phase(dev, errs: dict, parent=None) -> dict:
 
 # -- the serving path ----------------------------------------------------------
 def serve_world():
-    """The serving CLI's synthetic corpus at N_DOCS documents, its index
-    and N_QUERIES mixed QT1-QT5 queries."""
+    """The serving CLI's synthetic corpus at N_DOCS documents, its index,
+    N_QUERIES mixed QT1-QT5 queries, and the corpus (table, lexicon)."""
     from repro_torch.core.index_builder import build_index
     from repro_torch.data.corpus import generate_corpus, sample_mixed_queries
 
@@ -1154,7 +1167,7 @@ def serve_world():
     queries = sample_mixed_queries(table, lex, N_QUERIES, seed=2)
     log(f"serve: corpus {N_DOCS} docs / {int(table.doc_lengths.sum())} tokens, "
         f"index built, {len(queries)} queries in {time.perf_counter() - t0:.1f} s")
-    return index, queries
+    return index, queries, table, lex
 
 
 def check_records(drains, want, queries, what: str) -> int:
@@ -1388,6 +1401,193 @@ def load_phase(svc, queries) -> dict:
     return {"closed": closed.as_dict(), "open": dict(opened.as_dict(), e2e_p99_us=p99)}
 
 
+# -- the segmented path: the ingest tier under churn -----------------------------
+def drain_timed(svc, queries) -> tuple[list, float]:
+    for q in queries:
+        svc.submit(q)
+    t = time.perf_counter()
+    out = svc.drain()
+    return out, time.perf_counter() - t
+
+
+def cache_counts(svc) -> dict:
+    """The row caches' hits and retained entries, cumulative."""
+    st = svc.stats_snapshot()
+    return {name: {k: st[name][k] for k in ("hits", "misses", "retained", "invalidations")}
+            for name in ("pack_cache", "compressed_cache") if st[name]}
+
+
+def segmented_phase(dev, table, lex, queries) -> dict:
+    """The serving CLI's corpus streamed into a background
+    ``SegmentedIndex`` (``SEG_SEED`` of the documents), then
+    ``SEG_ROUNDS`` churn rounds as ``benchmarks/churn_bench.py`` defines
+    churn: each adds a chunk of the held-back documents, deletes live ones
+    up to ``SEG_DELETE`` of the corpus, refreshes (``wait=False``; the
+    last round quiesces with ``wait=True``) and drains the queries on the
+    card, raw and compressed, cold then warm, each drain's records equal
+    to a CPU service over the same source refreshed at the same point.
+    The compressed service keeps the compressed payloads (no measured
+    arbitration, which settles on raw at this size). Then
+    ``SEG_LIVE_ADDS`` unsealed documents and two unrefreshed deletes,
+    served with ``serve_memtable`` (``scalar_memtable`` on and off, raw and
+    compressed) to the queries plus ``SEG_LIVE_QUERIES`` sampled from the
+    unsealed documents, against CPU services of the same settings; every
+    setting must serve some unsealed document; then a save,
+    a load and a drain of the loaded index on the card, equal to the
+    source's. The window join must launch in the phase."""
+    from repro_torch.data.corpus import TokenTable, sample_mixed_queries
+    from repro_torch.index import SegmentedIndex
+    from repro_torch.kernels.nearest_r import window_join
+    from repro_torch.serving import SearchService, ServeConfig
+    from repro_torch.serving.planner import FB_LIVE_MEMTABLE
+
+    docs = table.to_doc_lists()
+    n_seed = int(SEG_SEED * len(docs))
+    chunk = (len(docs) - n_seed - SEG_LIVE_ADDS) // SEG_ROUNDS
+    n_delete = int(SEG_DELETE * len(docs)) // SEG_ROUNDS
+    rng = np.random.default_rng(3)
+    reset_counts()
+    seg = SegmentedIndex(lex, max_distance=MAX_SEP, memtable_docs=SEG_MEMTABLE,
+                         tier_fanout=SEG_FANOUT, background=True)
+    rep: dict = {"memtable_docs": SEG_MEMTABLE, "tier_fanout": SEG_FANOUT, "rounds": []}
+    try:
+        t = time.perf_counter()
+        for d in docs[:n_seed]:
+            seg.add_document(d)
+        ingest_s = time.perf_counter() - t
+        t = time.perf_counter()
+        view = seg.refresh(wait=False)
+        rep["seed"] = {"docs": n_seed, "ingest_s": ingest_s, "docs_per_s": n_seed / ingest_s,
+                       "refresh_ms": (time.perf_counter() - t) * 1e3}
+        log(f"segmented: seeded {n_seed} docs in {ingest_s:.1f} s "
+            f"({n_seed / ingest_s:.1f} docs/s, memtable_docs {SEG_MEMTABLE}, tier_fanout "
+            f"{SEG_FANOUT}, background merges), refresh(wait=False) "
+            f"{rep['seed']['refresh_ms']:.1f} ms, {len(view.segments)} segments")
+        card = {"raw": SearchService(seg, ServeConfig(), device=dev),
+                "compressed": SearchService(
+                    seg, ServeConfig(compressed=True, payload_cost_driven=False), device=dev)}
+        cpu = SearchService(seg, ServeConfig(), device="cpu")
+        alive, nxt = list(range(n_seed)), n_seed
+        for r in range(SEG_ROUNDS + 1):  # round 0 serves the seeded index
+            rnd: dict = {"round": r}
+            if r:
+                t = time.perf_counter()
+                for d in docs[nxt:nxt + chunk]:
+                    alive.append(seg.add_document(d))
+                rnd["added"], nxt = chunk, nxt + chunk
+                rnd["add_docs_per_s"] = chunk / (time.perf_counter() - t)
+                for i in sorted(rng.choice(len(alive), n_delete, replace=False), reverse=True):
+                    seg.delete_document(alive.pop(i))
+                rnd["deleted"] = n_delete
+                quiesce = r == SEG_ROUNDS
+                t = time.perf_counter()
+                view = seg.refresh(wait=quiesce, timeout=SEG_WAIT_S)
+                rnd["quiesce_ms" if quiesce else "refresh_ms"] = (time.perf_counter() - t) * 1e3
+            for svc in (*card.values(), cpu):
+                svc.refresh()
+            want, rnd["cpu_drain_s"] = drain_timed(cpu, queries)
+            for name, svc in card.items():
+                before = cache_counts(svc)
+                cold, cold_s = drain_timed(svc, queries)
+                warm, warm_s = drain_timed(svc, queries)
+                hits = check_records([cold, warm], want, queries, f"segmented round {r} {name}")
+                after = cache_counts(svc)
+                rnd[name] = {"cold_s": cold_s, "warm_s": warm_s, "hits": hits, "caches": {
+                    c: {k: after[c][k] - before.get(c, {}).get(k, 0) for k in after[c]}
+                    for c in after}, "payloads": payloads_served([warm])}
+            view = seg.snapshot()
+            rnd.update(segments=len(view.segments), tombstones=int(view.tombstones.size),
+                       live_docs=int(view.live_doc_ids().size), merges=seg.stats["merges"],
+                       seals=seg.stats["seals"],
+                       executor={k: seg.executor.stats[k]
+                                 for k in ("merged", "superseded", "noop", "failed")})
+            rep["rounds"].append(rnd)
+            log(f"segmented round {r}: +{rnd.get('added', 0)} -{rnd.get('deleted', 0)} docs"
+                + (f" at {rnd['add_docs_per_s']:.1f} docs/s" if r else "")
+                + "".join(f", {k.replace('_ms', '')} {rnd[k]:.1f} ms"
+                          for k in ("refresh_ms", "quiesce_ms") if k in rnd)
+                + f"; {rnd['live_docs']} live docs, {rnd['segments']} segments, "
+                f"{rnd['tombstones']} tombstones, {rnd['seals']} seals, {rnd['merges']} merges, "
+                f"executor {rnd['executor']}; cpu drain {rnd['cpu_drain_s']:.3f} s; "
+                + "; ".join(f"{n} cold {rnd[n]['cold_s']:.3f} s warm {rnd[n]['warm_s']:.3f} s "
+                            f"caches {rnd[n]['caches']} payloads {rnd[n]['payloads']}"
+                            for n in card)
+                + f"; records equal the cpu run ({rnd['raw']['hits']} hits over 2 drains)")
+
+        # live memtable: unsealed adds and deletes, served before any refresh
+        live_docs = docs[nxt:nxt + SEG_LIVE_ADDS]
+        live_ids = [seg.add_document(d) for d in live_docs]
+        seg.delete_document(alive[0])
+        seg.delete_document(live_ids[0])
+        live_queries = queries + sample_mixed_queries(
+            TokenTable.from_docs([np.asarray(d, np.int32) for d in live_docs]), lex,
+            SEG_LIVE_QUERIES, window=MAX_SEP, seed=4)
+        rep["live"] = {}
+        for scalar in (True, False):
+            knobs = dict(serve_memtable=True, scalar_memtable=scalar)
+            oracle = SearchService(seg, ServeConfig(**knobs), device="cpu")
+            oracle.refresh()
+            if oracle.index.mem_overlay is None:
+                raise AssertionError("segmented live: the live view has no memtable overlay")
+            want, cpu_s = drain_timed(oracle, live_queries)
+            for comp in (False, True):
+                name = f"{'compressed' if comp else 'raw'} scalar_memtable={scalar}"
+                svc = SearchService(seg, ServeConfig(compressed=comp, **knobs), device=dev)
+                svc.refresh()
+                got, s_ = drain_timed(svc, live_queries)
+                hits = check_records([got], want, live_queries, f"segmented live {name}")
+                served = {int(x) for r_ in got for x in r_.results["doc"]}
+                if served & {alive[0], live_ids[0]}:
+                    raise AssertionError(f"segmented live {name}: served a deleted document")
+                if not served & set(live_ids):
+                    raise AssertionError(f"segmented live {name}: no unsealed document served")
+                st = svc.stats_snapshot()
+                n_live = st["plans"]["fallbacks"].get(FB_LIVE_MEMTABLE, 0)
+                if (n_live > 0) != scalar:
+                    raise AssertionError(f"segmented live {name}: {n_live} live-memtable "
+                                         "fallbacks")
+                rep["live"][name] = {"drain_s": s_, "cpu_drain_s": cpu_s, "hits": hits,
+                                     "live_memtable_fallbacks": n_live,
+                                     "unsealed_docs_served": len(served & set(live_ids)),
+                                     "routes": st["plans"]["routes"]}
+                log(f"segmented live ({SEG_LIVE_ADDS} unsealed docs, 2 unrefreshed deletes, "
+                    f"{len(live_queries)} queries) "
+                    f"{name}: drain {s_:.3f} s (cpu {cpu_s:.3f} s), records equal the cpu run "
+                    f"({hits} hits, {len(served & set(live_ids))} unsealed docs served), "
+                    f"{n_live} live-memtable fallbacks, routes {st['plans']['routes']}")
+
+        # persistence: save (sealing the memtable), load, serve the loaded index
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_segmented_") as tmp:
+            t = time.perf_counter()
+            seg.save(tmp)
+            save_s = time.perf_counter() - t
+            keys = {kind: sum(getattr(g.index, kind).n_keys() for g in seg._segments)
+                    for kind in ("ordinary", "wv", "fst")}
+            t = time.perf_counter()
+            loaded = SegmentedIndex.load(tmp)
+            load_s = time.perf_counter() - t
+        loaded.refresh(wait=False)  # publish the saved segments as they are
+        seg.refresh(wait=False)  # and the source's: save sealed its memtable
+        cpu.refresh()
+        want, _ = drain_timed(cpu, queries)
+        svc = SearchService(loaded, ServeConfig(), device=dev)
+        got, s_ = drain_timed(svc, queries)
+        hits = check_records([got], want, queries, "segmented save/load")
+        rep["persist"] = {"save_s": save_s, "load_s": load_s, "drain_s": s_, "hits": hits,
+                          "segments": loaded.n_segments, "keys": keys}
+        log(f"segmented save/load: save {save_s:.1f} s, load {load_s:.1f} s "
+            f"({loaded.n_segments} segments, keys {keys}), drain of the loaded index {s_:.3f} s, "
+            f"records equal the source's cpu run ({hits} hits)")
+    finally:
+        seg.close()
+    rep["launches"] = window_join.launches
+    rep["executor"] = dict(seg.executor.stats)
+    log(f"segmented: window_join launches {rep['launches']}; executor {rep['executor']}")
+    if rep["launches"] <= 0:
+        raise AssertionError("the segmented serve path never launched the nearest_r kernel")
+    return rep
+
+
 def step_batch(rng, family, B, L):
     """A top-of-ladder batch of one step family from synthetic rows (the
     window-join phase's gaps and fills): qt1 K=2 and qt2 K=3 rows with
@@ -1546,12 +1746,13 @@ def main() -> int:
     kern = kernel_phase(dev, parent)
     errs = replay_phase(dev)
     lib = library_phase(dev, errs, parent)
-    index, queries = serve_world()
+    index, queries, table, lex = serve_world()
     serve, want = serve_phase(dev, index, queries)
     comp, comp_svc = compressed_serve_phase(dev, index, queries, want)
     load = load_phase(comp_svc, queries)
     del comp_svc, index
     steps = compressed_steps_phase(dev)
+    segmented = segmented_phase(dev, table, lex, queries)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -1571,6 +1772,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/nearest_r/nearest_r.py:207",
          "launches": serve["launches"],
          "launches_compressed": comp["launches"]["nearest_r.window_join"],
+         "launches_segmented": segmented["launches"],
          "matches_plain": True,
          "max_abs_err": kern["max_abs_err"],
          "ms": qt5["ms"],
@@ -1607,7 +1809,8 @@ def main() -> int:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
-             "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps},
+             "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
+             "segmented": segmented},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

@@ -171,19 +171,24 @@ def build_index(
 ) -> ProximityIndex:
     """Single-shot build == one sealed segment of the incremental path.
 
-    The numeric construction lives in :func:`build_segment_index`. The
-    segmented index is not part of this package yet, so the table is
-    normalized here exactly as a memtable seal normalizes it (int32
-    columns, doc ids unchanged), which keeps the result array-identical
-    to the segment-routed build of the reference package."""
-    if table.n_docs:
-        table = TokenTable(
-            table.doc_ids.astype(np.int32),
-            table.positions.astype(np.int32),
-            table.lemma_ids.astype(np.int32),
-            np.asarray(table.doc_lengths, np.int32),
-        )
-    return build_segment_index(table, lexicon, max_distance, build_wv, build_fst, build_nsw)
+    The numeric construction lives in :func:`build_segment_index`; this
+    canonical entry point routes through ``repro_torch.index.MemSegment`` so
+    the static build and the segmented/LSM build (repro_torch.index) share
+    one code path and cannot drift apart."""
+    from repro_torch.index.segment import MemSegment
+
+    mem = MemSegment(
+        lexicon,
+        max_distance=max_distance,
+        build_wv=build_wv,
+        build_fst=build_fst,
+        build_nsw=build_nsw,
+    )
+    mem.add_table(table)
+    seg = mem.seal(segment_id=0)
+    if seg is None:  # empty corpus: degenerate empty index
+        return build_segment_index(table, lexicon, max_distance, build_wv, build_fst, build_nsw)
+    return seg.index
 
 
 def build_segment_index(

@@ -1,10 +1,14 @@
-"""Array (de)serialization of the index, and carrying an index across.
+"""On-disk (de)serialization of the index, and carrying an index across.
 
 Every ``PostingStore`` flattens to its *encoded* blobs (one concatenated
 byte stream + offsets + keys + counts), so a round trip keeps the exact
 representation the ByteMeter accounts for and loading does no
-re-encoding work. Layout: a flat dict of numpy arrays with a ``kind_``
-prefix per structure, plus a small meta dict.
+re-encoding work. Layout: a flat dict of numpy arrays (npz-friendly) with
+a ``kind_`` prefix per structure, plus a small JSON meta carried by the
+caller (``Segment.save`` / ``save_index``). The files are those of the
+reference package, byte for byte in layout: ``lexicon.json``,
+``meta.json`` and ``index.npz`` for a plain index; ``manifest.json`` and
+``seg_NNNNNN/{segment.npz,meta.json}`` for a segmented one.
 
 :func:`carry_index` is this system's counterpart of carrying weights
 across frameworks: the index is the state both packages compute on, and
@@ -15,9 +19,14 @@ importing that package.
 
 from __future__ import annotations
 
+import json
+import os
+from pathlib import Path
+
 import numpy as np
 
 from repro_torch.core.index_builder import NSWStreams, ProximityIndex
+from repro_torch.core.codecs import varbyte_encode, zigzag_encode
 from repro_torch.core.lexicon import Lexicon
 from repro_torch.core.postings import PostingStore
 
@@ -25,8 +34,85 @@ _KDIM = {"ordinary": 1, "wv": 2, "fst": 3}
 _NCOL = {"ordinary": 2, "wv": 3, "fst": 4}
 
 
+def write_json_atomic(path: str | Path, obj) -> None:
+    """Crash-safe JSON swap: write a sibling tmp file, then ``os.replace``
+    it over the target. Readers observe either the old or the new file,
+    never a truncated one — the manifest-swap primitive the crash-recovery
+    contract of ``SegmentedIndex.save`` rests on (DESIGN.md §18)."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(json.dumps(obj))
+    os.replace(tmp, path)
+
+
+_ENCODE_ROWS = 1 << 21  # posting rows varbyte-encoded per numpy pass
+
+
+def _arena_blobs(keys2d, starts, ends, cols) -> tuple[np.ndarray, np.ndarray]:
+    """``encode_postings`` of every key of one bulk arena at once: the
+    concatenated blob and the (K + 1,) byte offsets of each key's blob,
+    byte for byte what the per-key encoder gives (doc gaps restart at a
+    key, position gaps at a key or a doc; varbyte has no state across
+    values, so one stream over all keys is the concatenation of theirs).
+    Keys are taken in chunks of about ``_ENCODE_ROWS`` rows to bound the
+    encoder's temporaries."""
+    ncol = len(cols)
+    n = int(cols[0].shape[0])
+    bounds = np.unique(np.concatenate([
+        np.searchsorted(starts, np.arange(0, n, _ENCODE_ROWS), side="left"),
+        [starts.size]]))
+    parts, row_bytes = [], []
+    for k0, k1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        r0, r1 = int(starts[k0]), (int(starts[k1]) if k1 < starts.size else n)
+        if r1 == r0:
+            continue
+        docs = np.asarray(cols[0][r0:r1]).astype(np.int64)
+        first = np.zeros(r1 - r0, bool)
+        first[starts[k0:k1][starts[k0:k1] < r1] - r0] = True
+        gap = np.empty_like(docs)
+        gap[0] = docs[0]
+        np.subtract(docs[1:], docs[:-1], out=gap[1:])
+        gap[first] = docs[first]
+        pos = np.asarray(cols[1][r0:r1]).astype(np.int64)
+        restart = first.copy()
+        restart[1:] |= docs[1:] != docs[:-1]
+        pg = np.empty_like(pos)
+        pg[0] = pos[0]
+        np.subtract(pos[1:], pos[:-1], out=pg[1:])
+        pg[restart] = pos[restart]
+        inter = np.empty((r1 - r0) * ncol, np.uint64)
+        inter[0::ncol] = gap.astype(np.uint64)
+        inter[1::ncol] = zigzag_encode(pg)
+        for ci in range(2, ncol):
+            inter[ci::ncol] = np.asarray(cols[ci][r0:r1]).astype(np.uint64)
+        nb = np.ones(inter.size, np.int64)
+        for k in range(1, 10):
+            nb += inter >= np.uint64(1) << np.uint64(7 * k)
+        row_bytes.append(nb.reshape(-1, ncol).sum(axis=1))
+        parts.append(np.frombuffer(varbyte_encode(inter), np.uint8))
+    row_off = np.zeros(n + 1, np.int64)
+    if row_bytes:
+        np.cumsum(np.concatenate(row_bytes), out=row_off[1:])
+    offsets = np.concatenate([row_off[starts], row_off[ends[-1:]]]) if starts.size \
+        else np.zeros(1, np.int64)
+    blob = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return blob, offsets
+
+
 def store_to_arrays(store, kind: str) -> dict[str, np.ndarray]:
-    """Force-encode a PostingStore and flatten it into arrays."""
+    """Force-encode a PostingStore and flatten it into arrays. A store
+    backed by one bulk arena (a seal's or a merge's output) is encoded in
+    a few numpy passes; others key by key."""
+    bulk = store.bulk_rows()
+    if bulk is not None:
+        keys2d, starts, ends, cols = bulk
+        blob, offsets = _arena_blobs(keys2d, starts, ends, cols)
+        return {
+            f"{kind}_keys": np.asarray(keys2d, np.int64).reshape(-1, _KDIM[kind]),
+            f"{kind}_counts": (ends - starts).astype(np.int64),
+            f"{kind}_offsets": offsets,
+            f"{kind}_blob": blob,
+        }
     keys = sorted(store.counts)
     kdim = _KDIM[kind]
     if kdim == 1:
@@ -137,20 +223,103 @@ def lexicon_from_arrays(arrays: dict) -> Lexicon:
     )
 
 
-def carry_index(index) -> ProximityIndex:
-    """This package's ``ProximityIndex`` holding the same state as
-    ``index`` — any object with the reference index's attributes (a
-    static index built by either package). Segmented sources arrive with
-    a later slice of the port."""
-    if hasattr(index, "snapshot") or hasattr(index, "segments"):
-        raise NotImplementedError(
-            "carrying a segmented index arrives with the SegmentedIndex slice "
-            "of the port; carry a static index")
-    meta = {
+def save_index(index: ProximityIndex, path: str | Path) -> None:
+    """Persist a plain (single-shot) ProximityIndex, lexicon included."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    index.lexicon.save(path / "lexicon.json")
+    (path / "meta.json").write_text(json.dumps(_index_meta(index)))
+    np.savez(path / "index.npz", **index_to_arrays(index))
+
+
+def load_index(path: str | Path) -> ProximityIndex:
+    path = Path(path)
+    lexicon = Lexicon.load(path / "lexicon.json")
+    meta = json.loads((path / "meta.json").read_text())
+    with np.load(path / "index.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    return index_from_arrays(arrays, lexicon, meta)
+
+
+def _index_meta(index) -> dict:
+    return {
         "max_distance": index.max_distance,
         "has_wv": index.wv is not None,
         "has_fst": index.fst is not None,
         "has_nsw": index.nsw is not None,
     }
+
+
+def _carry_static(index, lexicon: Lexicon) -> ProximityIndex:
+    return index_from_arrays(index_to_arrays(index), lexicon, _index_meta(index))
+
+
+def _carry_segment(seg, lexicon: Lexicon):
+    from repro_torch.index.segment import Segment
+
+    return Segment(
+        segment_id=int(seg.segment_id),
+        index=_carry_static(seg.index, lexicon),
+        doc_map=np.asarray(seg.doc_map, np.int64).copy(),
+        derived_from=tuple(int(i) for i in seg.derived_from),
+        is_live=bool(getattr(seg, "is_live", False)),
+    )
+
+
+def carry_index(index):
+    """This package's counterpart of ``index``, holding the same state.
+
+    ``index`` is any object with the reference package's attributes:
+
+    * a static ``ProximityIndex`` (built by either package) gives a
+      ``ProximityIndex``;
+    * a ``SegmentedView`` gives a ``SegmentedView`` over the same segments
+      (arrays, ``doc_map``, ``segment_id``, ``derived_from``), tombstones,
+      document count and epoch, its live memtable overlay included;
+    * a ``SegmentedIndex`` gives a ``SegmentedIndex`` with the same
+      segments and tombstones, ``next_doc`` and ``next_seg``, build flags,
+      ``memtable_docs``, ``tier_fanout``, ``policy`` and ``background``
+      mode (a fresh executor of its own; jobs queued in the source's are
+      not carried). Nothing is published yet: the first ``snapshot()``
+      publishes. A source whose memtable holds unsealed documents is
+      **refused** with ``ValueError``: call its ``refresh()`` first, so
+      that every document crosses as part of a sealed segment. The
+      source's state is read under its lock, so a background swap-in
+      cannot tear it.
+
+    All segments share one carried lexicon."""
+    from repro_torch.index.segmented import SegmentedIndex, SegmentedView
+
     lexicon = lexicon_from_arrays(lexicon_to_arrays(index.lexicon))
-    return index_from_arrays(index_to_arrays(index), lexicon, meta)
+    if hasattr(index, "segments") and hasattr(index, "tombstones"):  # a view
+        overlay = getattr(index, "mem_overlay", None)
+        return SegmentedView(
+            tuple(_carry_segment(s, lexicon) for s in index.segments if s is not overlay),
+            np.asarray(index.tombstones, np.int64).copy(),
+            lexicon,
+            index.max_distance,
+            index.n_total_docs,
+            epoch=index.epoch,
+            mem_overlay=None if overlay is None else _carry_segment(overlay, lexicon),
+        )
+    if hasattr(index, "snapshot"):  # a mutable segmented index
+        with index._lock:
+            if index._mem.n_docs:
+                raise ValueError(
+                    f"the source's memtable holds {index._mem.n_docs} unsealed "
+                    "documents; call its refresh() before carrying it")
+            out = SegmentedIndex(
+                lexicon,
+                max_distance=index.max_distance,
+                memtable_docs=index.memtable_docs,
+                tier_fanout=index.tier_fanout,
+                background=index.background,
+                policy=index.policy,
+                **index._flags,
+            )
+            out._segments = [_carry_segment(s, lexicon) for s in index._segments]
+            out._tombstones = {int(t) for t in index._tombstones}
+            out._next_doc = int(index._next_doc)
+            out._next_seg = int(index._next_seg)
+        return out
+    return _carry_static(index, lexicon)

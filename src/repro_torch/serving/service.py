@@ -7,7 +7,7 @@ The serving tier is three explicit layers — this module is the top one:
 * :mod:`repro_torch.serving.executors` — ``CompiledExecutor`` (serve-step
   factories + the shared per-(kind, B, L) executable table) and
   ``ScalarExecutor`` behind one protocol;
-* :class:`SearchService` — submit/drain/explain over one
+* :class:`SearchService` — submit/drain/refresh/explain over one
   :class:`ServeConfig`, on one device: the card unless the caller passes
   ``device="cpu"``.
 
@@ -124,9 +124,16 @@ class ServeConfig:
     * ``unit_us_per_kslot`` / ``unit_scalar_us`` — the cold-start cost
       fallbacks used before any measured ``serve.step.*`` samples
       exist;
-    * ``serve_memtable`` / ``scalar_memtable`` — live-memtable serving
-      over a segmented source (DESIGN.md §18); they take effect with the
-      segmented-index slice of the port;
+    * ``serve_memtable`` — refresh() picks up the source's
+      ``live_view()`` (sealed segments + the unsealed memtable as an
+      overlay pseudo-segment, DESIGN.md §18) instead of the last
+      *published* snapshot, making adds/deletes visible to drains
+      without waiting for an index refresh;
+    * ``scalar_memtable`` — route queries whose lemmas the live overlay
+      could contribute postings to through the scalar engine
+      (``FB_LIVE_MEMTABLE``) rather than packing the compiled ladder
+      against an ephemeral view; overlay-untouched queries keep their
+      compiled route either way;
     * ``trace_enabled`` / ``trace_capacity`` — the §15 span tracer (a
       bounded ring of completed spans; disabling reduces the obs
       overhead to the per-phase timestamps);
@@ -287,13 +294,16 @@ def _route_to_path(route: str) -> str:
 
 class SearchService:
     """Deadline-aware, bucketed, batched proximity-search serving over
-    a static ``ProximityIndex`` on one device (``device=None`` means the
-    card, and raises when there is none; the tests pass ``"cpu"``).
-    Snapshot-able incremental sources (segmented indexes) arrive with a
-    later slice of the port and raise ``NotImplementedError``.
+    a static ``ProximityIndex`` or a snapshot-able incremental index
+    (``repro_torch.index.SegmentedIndex``), on one device
+    (``device=None`` means the card, and raises when there is none; the
+    tests pass ``"cpu"``).
 
-    A drain pins the index once, so in-flight batches see a consistent
-    view. Each request is routed by the pure planner per the
+    Serving always runs against an *immutable* searcher snapshot: a
+    drain pins the snapshot once, so in-flight batches see a consistent
+    view even while the indexer seals memtables and runs background
+    merges; :meth:`refresh` picks up the indexer's latest published
+    snapshot. Each request is routed by the pure planner per the
     DESIGN.md §13 dispatch matrix, grouped per (step family, L-bucket)
     — with ``share_buckets``, qt34 and qt5 traffic batch together on
     the qt5 executables — padded to the power-of-two batch ladder, and
@@ -302,31 +312,29 @@ class SearchService:
     exact. :meth:`explain` returns the plan without executing.
 
     Hot-path machinery under the facade follows DESIGN.md §11-§13: the
-    packed-posting row caches (snapshot-identity invalidation), the
-    per-key compressed-row cache, and the per-(kind, B, L) executable
-    table owned by :class:`CompiledExecutor`."""
+    packed-posting row caches (snapshot-identity invalidation, add-only
+    and merge-aware retention), the per-key compressed-row cache, and
+    the per-(kind, B, L) executable table owned by
+    :class:`CompiledExecutor`."""
 
     def __init__(self, index, config: ServeConfig | None = None,
                  device=None):
         self.config = config if config is not None else ServeConfig()
         cfg = self.config
-        if hasattr(index, "snapshot"):
-            raise NotImplementedError(
-                "segmented index sources arrive with the SegmentedIndex / "
-                "ingest-tier slice of the port; serve a static ProximityIndex")
         if cfg.doc_shards != 1:
             raise NotImplementedError(
                 "doc_shards > 1 arrives with the doc-sharding slice of the "
                 "port (torch.distributed)")
-        if cfg.compressed and getattr(index, "max_distance", 0) > 254:
+        self._source = index if hasattr(index, "snapshot") else None
+        self.index = index.snapshot() if self._source is not None else index
+        if cfg.compressed and getattr(self.index, "max_distance", 0) > 254:
             # all compressed formats carry fragment bounds / NSW offsets
             # as uint8 distances; beyond 254 they would silently clip
             raise ValueError(
                 "compressed serving requires max_distance <= 254 "
-                f"(got {index.max_distance})"
+                f"(got {self.index.max_distance})"
             )
         self.device = resolve_device(device)
-        self.index = index
         # §15 observability tier: one registry + tracer per service,
         # shared by the executors and both row caches so every layer's
         # timings land in the same place
@@ -391,9 +399,11 @@ class SearchService:
         self._queue_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         # per-snapshot lemma ids -> QueryPlan; validity is tied to the
-        # pinned view's identity. Bounded: a high-cardinality query
-        # stream over a static index would grow it forever, so the memo
-        # is cleared wholesale at the cap (rebuilding an entry is one
+        # *pinned view's identity* (not to refresh() clearing it: a
+        # drain racing a refresh could otherwise re-insert a stale
+        # entry after the clear). Bounded: a high-cardinality query
+        # stream over a static index never refreshes, so the memo is
+        # cleared wholesale at the cap (rebuilding an entry is one
         # n_postings scan per key)
         self._plan_memo: dict[tuple, QueryPlan] = {}
         self._plan_memo_view = None
@@ -483,6 +493,34 @@ class SearchService:
                     )
                 measured = {"est_step_cost": est, "executables": table}
         return dataclasses.replace(p, measured=measured)
+
+    # -- lifecycle ---------------------------------------------------------
+    def refresh(self) -> None:
+        """Pick up the indexer's latest published snapshot.
+
+        A no-op when serving a static ``ProximityIndex``; for a
+        ``repro_torch.index.SegmentedIndex`` source this swaps in the
+        newest immutable ``SegmentedView``, making documents added or
+        deleted since the previous refresh visible to subsequent drains.
+        Already in-flight drains keep the snapshot they pinned. The
+        executable table is reused across refreshes (only the host-side
+        packing sees the new postings); plans are re-derived lazily, and
+        the row caches invalidate themselves on the first lookup against
+        the new snapshot — entries are keyed by snapshot identity, and
+        benign transitions (add-only refreshes, pure background
+        compactions) retain untouched keys (DESIGN.md §12, §18).
+
+        With ``serve_memtable`` the service instead picks the source's
+        ``live_view()`` — sealed segments plus the unsealed memtable as
+        an overlay — so documents are searchable the moment they are
+        added (DESIGN.md §18); the planner routes overlay-touching
+        queries to the scalar engine when ``scalar_memtable`` is set."""
+        if self._source is not None:
+            if self.config.serve_memtable and hasattr(self._source, "live_view"):
+                self.index = self._source.live_view()
+            else:
+                self.index = self._source.snapshot()
+            self.stats["refreshes"] += 1
 
     # -- serving -----------------------------------------------------------
     def submit(self, lemma_ids, deadline_s: float | None = None,

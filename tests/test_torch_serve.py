@@ -24,7 +24,6 @@ from repro.core.lexicon import Lexicon
 from repro.data.corpus import TokenTable
 from repro.data.corpus import generate_corpus as jax_generate_corpus
 from repro.data.corpus import sample_mixed_queries
-from repro.index import SegmentedIndex
 from repro.launch.mesh import make_mesh
 from repro.serving import SearchService as JaxService
 from repro.serving import ServeConfig as JaxConfig
@@ -142,13 +141,6 @@ def test_later_slices_raise(world, knob):
     _, pidx, _ = world
     with pytest.raises(NotImplementedError, match="slice"):
         SearchService(pidx, ServeConfig(**KNOBS, **knob), device="cpu")
-
-
-def test_segmented_source_raises(world):
-    jidx, _, _ = world
-    seg = SegmentedIndex(jidx.lexicon, max_distance=D)
-    with pytest.raises(NotImplementedError, match="SegmentedIndex"):
-        SearchService(seg, ServeConfig(**KNOBS), device="cpu")
 
 
 # -- compressed payloads ----------------------------------------------------------
