@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives four paths:
+``nvcc`` per source, all started together) and drives six paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -38,7 +38,17 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   raw and compressed after each refresh, then with ``serve_memtable``
   over unsealed adds, then saved, loaded and served again; every drain's
   records must equal a CPU service's over the same source refreshed at
-  the same point.
+  the same point;
+- the doc-sharded path: the serve corpus and queries through
+  ``SearchService`` over (1, 4) and (1, 2) meshes (raw) and (1, 4)
+  (compressed), the shards on this card (and on four cards when four are
+  visible), cold then warm; every drain equals the port's sharded CPU
+  service and, as sets, the unsharded drain, and the window join is
+  launched once per shard per qt34/qt5 step call; then the sharded step
+  at the top bucket against the unsharded one, timed;
+- the tuner: a two-by-two sweep (``repro_torch.tune``) on the serving
+  CLI's default corpus, whose winning artifact
+  ``python -m repro_torch.launch.serve --config`` then serves on the card.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -60,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -78,12 +89,15 @@ MAX_SEP, R_MAX = 5, 4  # ServeConfig defaults: max_distance=5, r_max=4
 N_DOCS, N_QUERIES = 20_000, 256
 LOAD_CLOSED, LOAD_SECONDS = 256, 2.0  # closed-loop requests; open-loop trace length
 SEG_MEMTABLE, SEG_FANOUT = 512, 4  # SegmentedIndex's default memtable_docs, tier_fanout=4
-SEG_SEED, SEG_DELETE, SEG_ROUNDS = 0.8, 0.15, 4  # seeded share, deleted share, churn rounds
+SEG_SEED, SEG_DELETE, SEG_ROUNDS = 0.8, 0.15, 2  # seeded share, deleted share, churn rounds
 SEG_LIVE_ADDS = 64  # unsealed documents the live-memtable drains see (< SEG_MEMTABLE)
 SEG_LIVE_QUERIES = 64  # mixed queries sampled from those documents, added to the drains
 SEG_WAIT_S = 900.0  # the longest a quiesce may take
 COMPRESSED_BL = (64, 65536)  # the default ServeConfig's top batch and L bucket
 COMPRESSED_K = {"qt1": 2, "qt2": 3, "qt34": (4, 0), "qt5": (3, 3)}  # ServeConfig's k_*
+# the tune phase: the serving CLI's default corpus (--n-docs), two
+# MaxDistance values by two max_batch values, a mixed workload
+TUNE_DOCS, TUNE_DISTANCES, TUNE_BATCHES, TUNE_QUERIES = 3000, (5, 7), (32, 64), 128
 TIMING_RUNS = 25
 WIN_CAP = 4096  # key values a block of csrc/nearest_r.cu stages in shared memory (kCap)
 DENSE_ROWS = ((1, 6), (1 / 2, 1))  # gaps and fill (shares of L) of a frequent lemma's row
@@ -1636,6 +1650,15 @@ def same_outputs(got, want) -> bool:
                for g, w in zip(got, want))
 
 
+def same_on_valid_lanes(got, want) -> bool:
+    """Scores equal bit for bit, and (g, lo, hi) on every lane whose score
+    is a hit: the window join leaves an invalid lane's lo/hi unspecified."""
+    valid = want[0].cpu() > -1e29
+    return (torch.equal(got[0].cpu().view(torch.int32), want[0].cpu().view(torch.int32))
+            and all(torch.equal(g.cpu()[valid], w.cpu()[valid])
+                    for g, w in zip(got[1:], want[1:])))
+
+
 def compressed_steps_phase(dev) -> dict:
     """Each step family at the default ladder's top bucket (B=64,
     L=65536) from synthetic rows: the raw, delta and offsets steps on the
@@ -1709,6 +1732,205 @@ def compressed_steps_phase(dev) -> dict:
     return out
 
 
+def step_calls(svc, families=("qt34", "qt5")) -> int:
+    """Calls of the service's steps of ``families`` so far: every batch,
+    plus the warm-up run of each (kind, B, L) on its first batch."""
+    fam = lambda kind: kind.split("_", 1)[0]  # noqa: E731
+    ex = svc.compiled
+    return (sum(n for (kind, _, _), n in ex.executables.items() if fam(kind) in families)
+            + sum(1 for (kind, _, _) in ex.compile_times if fam(kind) in families))
+
+
+def check_as_sets(drain, want, queries, what: str) -> dict:
+    """A sharded drain against the unsharded one: on the same route, the
+    same (doc, start, end, score) set, scores bitwise; a query the sharded
+    planner sends to the scalar engine (``sharded_qt2_window``, or a row
+    that outgrows the ladder once multiplied by the shard count) comes
+    back with that engine's float64 scores: the same matches, the scores
+    equal to float32 rounding (rtol 1e-6). Returns the counts of each."""
+    counts = {"same_route": 0, "rerouted": 0}
+    for qi, (g, w) in enumerate(zip(drain, want)):
+        cols = [g.results[c] for c in ("doc", "start", "end")]
+        wcols = [w.results[c] for c in ("doc", "start", "end")]
+        if g.path == w.path:
+            got = set(zip(*(c.tolist() for c in cols), g.results["score"].view(np.int32).tolist()))
+            exp = set(zip(*(c.tolist() for c in wcols), w.results["score"].view(np.int32).tolist()))
+            ok = got == exp
+            counts["same_route"] += 1
+        else:
+            got = sorted(zip(*(c.tolist() for c in cols), g.results["score"].tolist()))
+            exp = sorted(zip(*(c.tolist() for c in wcols), w.results["score"].tolist()))
+            ok = (g.path == "cpu" and [r[:3] for r in got] == [r[:3] for r in exp]
+                  and np.allclose([r[3] for r in got], [r[3] for r in exp], rtol=1e-6, atol=0))
+            counts["rerouted"] += 1
+        if not ok:
+            raise AssertionError(f"{what}: query {qi} {queries[qi]} ({g.path} vs {w.path}): the "
+                                 "sharded records differ from the unsharded drain's as sets")
+    return counts
+
+
+def sharded_phase(dev, index, queries, unsharded) -> dict:
+    """Doc-sharded serving over (1, S) meshes on the serve phase's corpus
+    and queries: a raw service on (1, 4) and on (1, 2), with every shard
+    on this card (or, with four cards visible, raw (1, 4) on four cards
+    too), and a compressed one on (1, 4) with the compressed-row cache,
+    each drained cold then warm with the counts set to 0. Every drain
+    equals the port's sharded CPU service on the same mesh shape (ordered,
+    scores bitwise) and, as sets, the unsharded drain; the window join is
+    launched S times per qt34/qt5 step call. Then the sharded step at the
+    top bucket on (1, 4) against the unsharded step on the same rows."""
+    from repro_torch.core import torch_search as ts
+    from repro_torch.kernels.nearest_r import window_join
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import SearchService, ServeConfig
+
+    def mesh(devices):
+        return make_mesh((1, len(devices)), ("data", "model"), devices=devices)
+
+    n_cards = torch.cuda.device_count()
+    log(f"sharded: torch.cuda.device_count() = {n_cards}")
+    cases = [("raw (1, 4)", False, [dev] * 4), ("raw (1, 2)", False, [dev] * 2),
+             ("compressed (1, 4)", True, [dev] * 4)]
+    if n_cards >= 4:
+        cases.append(("raw (1, 4) on four cards", False,
+                      [torch.device("cuda", i) for i in range(4)]))
+    else:
+        log("sharded: fewer than four cards visible; the shards share one card and the "
+            "cross-card copy of the top-k gather was not exercised")
+    rep = {"device_count": n_cards, "cross_card": n_cards >= 4, "services": {}, "cpu_s": {}}
+    want = {}
+    for S in sorted({len(d) for _, _, d in cases}):
+        cpu = SearchService(index, ServeConfig(doc_shards=S), mesh=mesh(["cpu"] * S))
+        for q in queries:
+            cpu.submit(q)
+        t = time.perf_counter()
+        want[S] = cpu.drain()
+        rep["cpu_s"][S] = time.perf_counter() - t
+        log(f"sharded: cpu (1, {S}) drain {rep['cpu_s'][S]:.3f} s")
+
+    reset_counts()
+    launches = 0
+    for name, comp, devices in cases:
+        S = len(devices)
+        svc = SearchService(index, ServeConfig(doc_shards=S, compressed=comp),
+                            mesh=mesh(devices))
+        before = window_join.launches
+        drains, per_drain = drain_all(svc, queries, ("cold", "warm"), f"sharded {name}")
+        n = window_join.launches - before
+        launches += n
+        calls = step_calls(svc)
+        if n != S * calls or calls == 0:
+            raise AssertionError(f"sharded {name}: {n} window_join launches for {calls} "
+                                 f"qt34/qt5 step calls over {S} shards")
+        hits = check_records(drains, want[S], queries, f"sharded {name}")
+        sets = check_as_sets(drains[-1], unsharded, queries, f"sharded {name}")
+        stats = svc.stats_snapshot()
+        rec = {"S": S, "devices": [str(d) for d in devices], "compressed": comp,
+               "launches": n, "qt34_qt5_step_calls": calls,
+               "launches_per_drain": per_drain, "routes": stats["plans"]["routes"],
+               "fallbacks": stats["plans"]["fallbacks"], "hits": hits, "as_sets": sets,
+               "compressed_batches": stats["compressed_batches"],
+               "offset_fallbacks": stats["offset_fallbacks"],
+               "metrics": serve_metrics(svc, f"sharded {name}")}
+        rep["services"][name] = rec
+        log(f"sharded {name}: records equal the cpu (1, {S}) service ({hits} hits over 2 "
+            f"drains) and, as sets, the unsharded drain ({sets}); window_join launches {n} "
+            f"= {S} x {calls} qt34/qt5 step calls; routes {rec['routes']}; fallbacks "
+            f"{rec['fallbacks']}; compressed batches {rec['compressed_batches']} "
+            f"({rec['offset_fallbacks']} offsets)")
+    rep["launches"] = launches
+    if launches <= 0:
+        raise AssertionError("the sharded serve path never launched the nearest_r kernel")
+
+    B, L = COMPRESSED_BL
+    rng = np.random.default_rng(2031)
+    rep["steps"] = {}
+    for family in ("qt34", "qt5"):
+        batch = step_batch(rng, family, B, L)
+        host = batch.host_args()
+        single = step_fns(family)["raw"]
+        make = lambda m: ts.make_wv_serve_step(family, 16, payload="raw",  # noqa: E731
+                                               max_distance=MAX_SEP, r_max=R_MAX, mesh=m)
+        sharded = make(mesh([dev] * 4))
+        want_cpu = make(mesh(["cpu"] * 4))(*host)
+        placed = sharded.place(host)
+        args = ts.to_device(host, dev)
+        got = sharded.run(placed)
+        torch.cuda.synchronize()
+        if not same_on_valid_lanes(got, want_cpu):
+            raise AssertionError(f"sharded step {family}: the card's outputs differ from the "
+                                 "cpu sharded step's")
+        r = {"B": B, "L": L, "S": 4, "Ls": L // 4,
+             "sharded_ms": device_ms(lambda: sharded.run(placed)),
+             "unsharded_ms": device_ms(lambda: single(*args)),
+             "place_ms": call_ms(lambda: sharded.place(host)),
+             "to_device_ms": call_ms(lambda: ts.to_device(host, dev))}
+        rep["steps"][family] = r
+        log(f"sharded step {family} B={B} L={L} on (1, 4), Ls={L // 4}: equals the cpu "
+            f"sharded step; device {r['sharded_ms']:.4f} ms (4 window-join launches, the "
+            f"gather and the second top-k) vs unsharded {r['unsharded_ms']:.4f} ms on the "
+            f"same rows; host-to-shards copy {r['place_ms']:.3f} ms vs whole "
+            f"{r['to_device_ms']:.3f} ms")
+    return rep
+
+
+def tune_phase(dev) -> dict:
+    """A two-by-two sweep (MaxDistance by max_batch) on the serving CLI's
+    default corpus, its estimate rung and one measured closed-loop rung on
+    the card; the winner's artifact is then served on the card by
+    ``python -m repro_torch.launch.serve --config``."""
+    from repro_torch import tune
+    from repro_torch.core.index_builder import build_index
+    from repro_torch.data.corpus import generate_corpus
+
+    t0 = time.perf_counter()
+    table, lex = generate_corpus(TUNE_DOCS, mean_doc_len=160, vocab_size=40_000, seed=1)
+    indexes = {d: build_index(table, lex, max_distance=d) for d in TUNE_DISTANCES}
+    wl = tune.make_workload("mixed", table, lex, TUNE_QUERIES, window=MAX_SEP, seed=3)
+    build_s = time.perf_counter() - t0
+    cands = tune.grid(TUNE_DISTANCES, {"max_batch": list(TUNE_BATCHES)})
+    t = time.perf_counter()
+    out = tune.sweep(indexes, None, cands, wl, objective=tune.Objective(deadline_s=0.05),
+                     device=dev)
+    sweep_s = time.perf_counter() - t
+    winner = out.winner
+    log(f"tune: {TUNE_DOCS} docs, indexes at MaxDistance {TUNE_DISTANCES} and "
+        f"{len(wl)} mixed queries in {build_s:.1f} s; sweep of {len(cands)} in "
+        f"{sweep_s:.1f} s; rungs " + " | ".join(
+            ", ".join(f"{r['config_id']} {r['score']:.1f}" for r in rung)
+            for rung in out.history))
+    for v in out.verdicts:
+        m = out.measurements[v["config_id"]]
+        log(f"tune: measured {v['config_id']}: e2e p50 {m['p50_us']:.1f} us, p95 "
+            f"{m['p95_us']:.1f} us, met {m['met_rate']:.3f}, {m['achieved_qps']:.1f} QPS, "
+            f"score {v['score']:.1f}")
+    by_id = {c.config_id: c for c in cands}
+    table_ = tune.sensitivity_table([(by_id[r["config_id"]], r["score"])
+                                     for r in out.history[0]])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        path = Path(tmp) / "tuned_serve_config.json"
+        tune.emit_serve_config(str(path), winner.max_distance,
+                               winner.serve_config(),
+                               meta={"workload": wl.name, "verdict": out.winner_verdict})
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--config",
+                              str(path), "--n-docs", str(TUNE_DOCS), "--requests", "256"],
+                             cwd=Path(__file__).resolve().parent, env=env,
+                             capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t
+    if run.returncode != 0 or "served 256 requests" not in run.stdout \
+            or "loaded tuned config" not in run.stderr:
+        raise AssertionError(f"tune: serving the artifact failed:\n{run.stdout}\n{run.stderr}")
+    served = run.stdout.strip().splitlines()
+    log(f"tune: winner {winner.config_id}; --config served on the card in {cli_s:.1f} s: "
+        + " / ".join(served[:2]))
+    return {"winner": winner.config_id, "verdict": out.winner_verdict,
+            "history": out.history, "measurements": out.measurements,
+            "sensitivity": table_, "build_s": build_s, "sweep_s": sweep_s,
+            "cli_s": cli_s, "cli_stdout": served}
+
+
 def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
     """One kernel of the kernels line, from its primary shape's record."""
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -1750,9 +1972,12 @@ def main() -> int:
     serve, want = serve_phase(dev, index, queries)
     comp, comp_svc = compressed_serve_phase(dev, index, queries, want)
     load = load_phase(comp_svc, queries)
-    del comp_svc, index
+    del comp_svc
+    sharded = sharded_phase(dev, index, queries, want)
+    del index
     steps = compressed_steps_phase(dev)
     segmented = segmented_phase(dev, table, lex, queries)
+    tuned = tune_phase(dev)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -1773,6 +1998,7 @@ def main() -> int:
          "launches": serve["launches"],
          "launches_compressed": comp["launches"]["nearest_r.window_join"],
          "launches_segmented": segmented["launches"],
+         "launches_sharded": sharded["launches"],
          "matches_plain": True,
          "max_abs_err": kern["max_abs_err"],
          "ms": qt5["ms"],
@@ -1810,7 +2036,7 @@ def main() -> int:
         Path(args.report).write_text(json.dumps(
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
-             "segmented": segmented},
+             "segmented": segmented, "sharded": sharded, "tune": tuned},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

@@ -26,6 +26,60 @@ from repro_torch.core.codecs import (
 )
 
 
+_ENCODE_ROWS = 1 << 21  # posting rows varbyte-encoded per numpy pass
+
+
+def arena_blobs(keys2d, starts, ends, cols) -> tuple[np.ndarray, np.ndarray]:
+    """``encode_postings`` of every key of one bulk arena at once: the
+    concatenated blob and the (K + 1,) byte offsets of each key's blob,
+    byte for byte what the per-key encoder gives (doc gaps restart at a
+    key, position gaps at a key or a doc; varbyte has no state across
+    values, so one stream over all keys is the concatenation of theirs).
+    Keys are taken in chunks of about ``_ENCODE_ROWS`` rows to bound the
+    encoder's temporaries."""
+    ncol = len(cols)
+    n = int(cols[0].shape[0])
+    bounds = np.unique(np.concatenate([
+        np.searchsorted(starts, np.arange(0, n, _ENCODE_ROWS), side="left"),
+        [starts.size]]))
+    parts, row_bytes = [], []
+    for k0, k1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        r0, r1 = int(starts[k0]), (int(starts[k1]) if k1 < starts.size else n)
+        if r1 == r0:
+            continue
+        docs = np.asarray(cols[0][r0:r1]).astype(np.int64)
+        first = np.zeros(r1 - r0, bool)
+        first[starts[k0:k1][starts[k0:k1] < r1] - r0] = True
+        gap = np.empty_like(docs)
+        gap[0] = docs[0]
+        np.subtract(docs[1:], docs[:-1], out=gap[1:])
+        gap[first] = docs[first]
+        pos = np.asarray(cols[1][r0:r1]).astype(np.int64)
+        restart = first.copy()
+        restart[1:] |= docs[1:] != docs[:-1]
+        pg = np.empty_like(pos)
+        pg[0] = pos[0]
+        np.subtract(pos[1:], pos[:-1], out=pg[1:])
+        pg[restart] = pos[restart]
+        inter = np.empty((r1 - r0) * ncol, np.uint64)
+        inter[0::ncol] = gap.astype(np.uint64)
+        inter[1::ncol] = zigzag_encode(pg)
+        for ci in range(2, ncol):
+            inter[ci::ncol] = np.asarray(cols[ci][r0:r1]).astype(np.uint64)
+        nb = np.ones(inter.size, np.int64)
+        for k in range(1, 10):
+            nb += inter >= np.uint64(1) << np.uint64(7 * k)
+        row_bytes.append(nb.reshape(-1, ncol).sum(axis=1))
+        parts.append(np.frombuffer(varbyte_encode(inter), np.uint8))
+    row_off = np.zeros(n + 1, np.int64)
+    if row_bytes:
+        np.cumsum(np.concatenate(row_bytes), out=row_off[1:])
+    offsets = np.concatenate([row_off[starts], row_off[ends[-1:]]]) if starts.size \
+        else np.zeros(1, np.int64)
+    blob = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+    return blob, offsets
+
+
 @dataclass
 class ByteMeter:
     bytes_read: int = 0
@@ -277,7 +331,13 @@ class PostingStore:
         return decode_postings(self._blob(key), self.n_columns)
 
     def total_bytes(self) -> int:
-        # force-encode everything (used by index-size reports, not queries)
+        """Encoded bytes of every key (index-size reports, not queries). A
+        store backed by one bulk arena is measured in a few numpy passes
+        (the same bytes as the per-key encoder's); others are encoded key
+        by key."""
+        bulk = self.bulk_rows()
+        if bulk is not None:
+            return int(arena_blobs(*bulk)[1][-1])
         return sum(len(self._blob(k)) for k in self.counts)
 
 

@@ -19,10 +19,18 @@ Key re-design vs the CPU engine (DESIGN.md §3):
   encoded on the host (``compress_*``, ``assemble_*_compressed``, numpy
   arrays) and decoded elementwise in torch ops before the same joins.
 
-This module serves one document shard: the reference package's per-shard
-top-k all-gather over the model axis is the identity here, and the second
-top-k over the gathered candidates is too (a stable sort of an already
-sorted row keeps it as it is).
+The index is range-partitioned by document over a mesh's ``model`` axis
+(each of S shards holds a contiguous doc range of every posting row, in a
+segment of L/S slots), and queries are split over its ``pod``/``data``
+axes. Each serve-step factory takes ``mesh=None``: with no mesh or a
+(1, 1) mesh it returns the single-shard step, which runs on the device
+its arguments lie on. With a (D, S) mesh it returns a
+:class:`ShardedStep`: each shard joins its own segment on its own device
+(the QT3-QT5 window join is launched once per shard), takes its local
+top-k, and the S top-k lists of a data row are copied onto the row's
+lead device in model-axis order — what ``all_gather(..., tiled=True)``
+concatenates — and reduced by a second top-k. One process drives every
+device of the mesh; there is no process group.
 """
 
 from __future__ import annotations
@@ -83,6 +91,11 @@ def qt1_topk(score, g_anchor, lo, hi, k: int):
     """Top-k lanes by score; among equal scores the lower lane index
     comes first (a stable descending sort — ``torch.topk`` promises no
     tie order on a card)."""
+    if k > score.shape[1]:
+        # lax.top_k refuses k larger than the row; a sort would quietly
+        # return fewer columns
+        raise ValueError(f"top_k={k} is larger than the {score.shape[1]} "
+                         "lanes of a shard's row")
     order = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :k]
     take = lambda x: torch.gather(x, 1, order)  # noqa: E731
     return take(score), take(g_anchor), take(lo), take(hi)
@@ -192,20 +205,137 @@ def _delta_decode(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return rep + _widen_u16(delta)
 
 
-def make_qt1_serve_step(top_k: int = 16):
-    """The QT1 serve step on one document shard:
+# argument specs of the sharded steps, as the reference's PartitionSpecs:
+# every argument's batch axis is split over the mesh's pod/data axes, and
+# the posting-length (last) axis of ROW and AROW arguments over model
+ROW = "row"    # (B, K, L) posting rows, (B, K, L/64) delta bases
+AROW = "arow"  # (B, L) anchor rows, (B, L/64) anchor bases
+KVEC = "kvec"  # (B, K) per-key scalars, replicated over model
+VEC = "vec"    # (B,) per-query scalars
+REP = "rep"    # qt1's offsets-only dummy (B, K, 1) base, replicated
+_SPLIT_L = (ROW, AROW)
+
+
+def _shard(a, spec: str, d: int, m: int, Bd: int, S: int) -> torch.Tensor:
+    """Shard (d, m)'s block of one host argument (numpy array or tensor):
+    rows ``[d*Bd, (d+1)*Bd)``, and for split specs the m-th of S equal
+    slices of the last axis."""
+    piece = a[d * Bd:(d + 1) * Bd]
+    if spec in _SPLIT_L:
+        n = a.shape[-1]
+        if n % S:
+            raise ValueError(f"the last axis ({n}) of a {spec} argument does "
+                             f"not split over {S} model shards")
+        w = n // S
+        piece = piece[..., m * w:(m + 1) * w]
+    if isinstance(piece, torch.Tensor):
+        return piece.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(piece))
+
+
+class ShardedStep:
+    """A serve step over a (D, S) device mesh, the port of the
+    reference's ``shard_map`` step: ``local`` is the single-shard step
+    (join, score, local top-k), ``specs`` its arguments' split specs.
+
+    :meth:`place` copies each shard's block of the host arguments
+    straight to that shard's device; :meth:`run` runs ``local`` on every
+    shard, copies the S ``(B/D, top_k)`` results of each data row onto
+    the row's lead device in model-axis order, reduces them with a
+    second :func:`qt1_topk`, and returns the four ``(B, top_k)`` outputs
+    on the mesh's first device. Calling the step does both."""
+
+    def __init__(self, local, specs: tuple, mesh, top_k: int):
+        self.local = local
+        self.specs = tuple(specs)
+        self.grid = mesh.grid()
+        self.top_k = top_k
+
+    @property
+    def lead(self) -> torch.device:
+        return self.grid[0, 0]
+
+    def place(self, args) -> list:
+        """Host arguments -> ``[d][m]`` tuples of tensors on device
+        ``grid[d, m]``. Raises ValueError when D does not divide the
+        batch or S a split axis, as ``shard_map`` refuses them."""
+        if len(args) != len(self.specs):
+            raise TypeError(f"the step takes {len(self.specs)} arguments, "
+                            f"got {len(args)}")
+        D, S = self.grid.shape
+        B = args[0].shape[0]
+        if B % D:
+            raise ValueError(f"a batch of {B} does not split over {D} data shards")
+        Bd = B // D
+        return [[tuple(_shard(a, spec, d, m, Bd, S).to(self.grid[d, m])
+                       for a, spec in zip(args, self.specs))
+                 for m in range(S)]
+                for d in range(D)]
+
+    def run(self, placed) -> tuple:
+        rows = []
+        for d, shards in enumerate(placed):
+            lead = self.grid[d, 0]
+            parts = [self.local(*args) for args in shards]
+            gathered = [torch.cat([p[i].to(lead) for p in parts], dim=1)
+                        for i in range(4)]
+            rows.append(qt1_topk(*gathered, self.top_k))
+        if len(rows) == 1:
+            return rows[0]
+        return tuple(torch.cat([r[i].to(self.lead) for r in rows], dim=0)
+                     for i in range(4))
+
+    def __call__(self, *args) -> tuple:
+        return self.run(self.place(args))
+
+
+class LocalStep:
+    """The single-shard step on a one-device mesh, with the
+    :class:`ShardedStep` interface: :meth:`place` copies the host
+    arguments whole to the device, :meth:`run` calls the step on them.
+    Calling it calls the step."""
+
+    def __init__(self, step, device):
+        self.step = step
+        self.device = device
+
+    def place(self, args) -> tuple:
+        return to_device(args, self.device)
+
+    def run(self, placed) -> tuple:
+        return self.step(*placed)
+
+    def __call__(self, *args) -> tuple:
+        return self.step(*args)
+
+
+def _over(mesh, step, specs: tuple, top_k: int):
+    """``step`` itself without a mesh (the single-shard path), its
+    :class:`LocalStep` on a one-device mesh, else its
+    :class:`ShardedStep`."""
+    if mesh is None:
+        return step
+    if mesh.size == 1:
+        return LocalStep(step, mesh.devices.flat[0])
+    return ShardedStep(step, specs, mesh, top_k)
+
+
+def make_qt1_serve_step(top_k: int = 16, mesh=None):
+    """The QT1 serve step:
     ``step(key_g, key_lo, key_hi, idf_sum, span_adjust) -> (s, g, lo, hi)``,
-    each (B, top_k)."""
+    each (B, top_k); sharded over ``mesh`` when it has more than one
+    device (module docstring)."""
 
     def step(key_g, key_lo, key_hi, idf_sum, span_adjust):
         valid, lo, hi = qt1_join(key_g, key_lo, key_hi)
         score = qt1_score(valid, lo, hi, idf_sum, span_adjust)
         return qt1_topk(score, key_g[:, 0], lo, hi, top_k)
 
-    return step
+    return _over(mesh, step, (ROW, ROW, ROW, VEC, VEC), top_k)
 
 
-def make_qt1_serve_step_compressed(top_k: int = 16, delta_g: bool = True):
+def make_qt1_serve_step_compressed(top_k: int = 16, delta_g: bool = True,
+                                   mesh=None):
     """The QT1 serve step over a compressed payload:
     ``step(key_base, key_delta, key_lo_off, key_hi_off, idf_sum,
     span_adjust) -> (s, g, lo, hi)``.
@@ -214,7 +344,8 @@ def make_qt1_serve_step_compressed(top_k: int = 16, delta_g: bool = True):
       MaxDistance <= 254; ``lo_off == 255`` marks padding);
     * with ``delta_g`` the keys are block-delta16 coded ((B, K, L/64)
       int32 bases, (B, K, L) uint16 deltas); without it ``key_delta`` is
-      the raw int32 g row and ``key_base`` a dummy (B, K, 1).
+      the raw int32 g row and ``key_base`` a dummy (B, K, 1), which a
+      mesh replicates rather than splits.
 
     Bytes per posting: 12 (raw) -> 6 (offsets) -> 4 (offsets + delta16).
     The bounds are taken before the pads are set to SENTINEL, so a pad
@@ -230,16 +361,17 @@ def make_qt1_serve_step_compressed(top_k: int = 16, delta_g: bool = True):
         score = qt1_score(valid, lo, hi, idf_sum, span_adjust)
         return qt1_topk(score, key_g[:, 0], lo, hi, top_k)
 
-    return step
+    specs = (ROW if delta_g else REP, ROW, ROW, ROW, VEC, VEC)
+    return _over(mesh, step, specs, top_k)
 
 
 def make_wv_serve_step(qtype: str, top_k: int = 16, payload: str = "raw",
-                       max_distance: int = 5, r_max: int = 4):
-    """The QT2/QT3/QT4/QT5 serve step on one document shard — the
-    (w,v)-key / ordinary-window / NSW analogue of
-    :func:`make_qt1_serve_step` (DESIGN.md §12-§13). ``"qt34"`` serves
-    both QT3 and QT4: their evaluation is identical, only the lemma
-    classes differ. Arguments, by ``payload``:
+                       max_distance: int = 5, r_max: int = 4, mesh=None):
+    """The QT2/QT3/QT4/QT5 serve step — the (w,v)-key / ordinary-window
+    / NSW analogue of :func:`make_qt1_serve_step` (DESIGN.md §12-§13),
+    sharded over ``mesh`` when it has more than one device. ``"qt34"``
+    serves both QT3 and QT4: their evaluation is identical, only the
+    lemma classes differ. Arguments, by ``payload``:
 
     * ``"raw"`` — the ``device_args`` of the matching batch: qt2
       ``(wv_lo, wv_hi, n_keys, idf_sum, span_adjust)``, qt34 ``(a_g,
@@ -260,6 +392,12 @@ def make_wv_serve_step(qtype: str, top_k: int = 16, payload: str = "raw",
     not depend on the payload."""
     assert qtype in ("qt2", "qt34", "qt5")
     assert payload in ("raw", "delta", "offsets")
+    step, specs = _wv_step(qtype, top_k, payload, max_distance, r_max)
+    return _over(mesh, step, specs, top_k)
+
+
+def _wv_step(qtype, top_k, payload, max_distance, r_max):
+    """(single-shard step, argument specs) of :func:`make_wv_serve_step`."""
 
     def finish(score, lo, hi):
         # the CPU engine derives the doc from lo, so lo doubles as g
@@ -279,35 +417,37 @@ def make_wv_serve_step(qtype: str, top_k: int = 16, payload: str = "raw",
             return torch.where(pad, SENTINEL, lo), hi
 
         if payload == "raw":
-            return join_finish
+            return join_finish, (ROW, ROW, VEC, VEC, VEC)
         if payload == "delta":
             def step(base, delta, width, n_keys, idf_sum, span_adjust):
                 lo, hi = widths(_delta_decode(base, delta), width)
                 return join_finish(lo, hi, n_keys, idf_sum, span_adjust)
-        else:
-            def step(lo, width, n_keys, idf_sum, span_adjust):
-                lo, hi = widths(lo, width)
-                return join_finish(lo, hi, n_keys, idf_sum, span_adjust)
-        return step
+            return step, (ROW, ROW, ROW, VEC, VEC, VEC)
+
+        def step(lo, width, n_keys, idf_sum, span_adjust):
+            lo, hi = widths(lo, width)
+            return join_finish(lo, hi, n_keys, idf_sum, span_adjust)
+        return step, (ROW, ROW, VEC, VEC, VEC)
 
     def ord_rows(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad):
         a_g = torch.where(a_pad == 1, SENTINEL, _delta_decode(a_base, a_delta))
         ns_g = torch.where(ns_pad == 1, SENTINEL, _delta_decode(ns_base, ns_delta))
         return a_g, ns_g
 
+    ord_delta = (AROW, AROW, AROW, ROW, ROW, ROW, KVEC)
     if qtype == "qt34":
         def join_finish(a_g, ns_g, ns_r, idf_sum, span_adjust):
             valid, lo, hi = qt34_join(a_g, ns_g, ns_r, max_distance, r_max)
             return finish(qt1_score(valid, lo, hi, idf_sum, span_adjust), lo, hi)
 
         if payload in ("raw", "offsets"):
-            return join_finish
+            return join_finish, (AROW, ROW, KVEC, VEC, VEC)
 
         def step(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad, ns_r,
                  idf_sum, span_adjust):
             a_g, ns_g = ord_rows(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad)
             return join_finish(a_g, ns_g, ns_r, idf_sum, span_adjust)
-        return step
+        return step, ord_delta + (VEC, VEC)
 
     def join_finish(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, idf_sum, span_adjust):
         valid, lo, hi = qt5_join(a_g, ns_g, ns_r, st_cnt, st_ext, st_r,
@@ -319,19 +459,20 @@ def make_wv_serve_step(qtype: str, top_k: int = 16, payload: str = "raw",
         return st_cnt.to(torch.int32), st_epos.to(torch.int32) - st_eneg.to(torch.int32)
 
     if payload == "raw":
-        return join_finish
+        return join_finish, (AROW, ROW, KVEC, ROW, ROW, KVEC, VEC, VEC)
     if payload == "delta":
         def step(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad, ns_r,
                  st_cnt, st_eneg, st_epos, st_r, idf_sum, span_adjust):
             a_g, ns_g = ord_rows(a_base, a_delta, a_pad, ns_base, ns_delta, ns_pad)
             return join_finish(a_g, ns_g, ns_r, *nsw(st_cnt, st_eneg, st_epos),
                                st_r, idf_sum, span_adjust)
-    else:
-        def step(a_g, ns_g, ns_r, st_cnt, st_eneg, st_epos, st_r, idf_sum,
-                 span_adjust):
-            return join_finish(a_g, ns_g, ns_r, *nsw(st_cnt, st_eneg, st_epos),
-                               st_r, idf_sum, span_adjust)
-    return step
+        return step, ord_delta + (ROW, ROW, ROW, KVEC, VEC, VEC)
+
+    def step(a_g, ns_g, ns_r, st_cnt, st_eneg, st_epos, st_r, idf_sum,
+             span_adjust):
+        return join_finish(a_g, ns_g, ns_r, *nsw(st_cnt, st_eneg, st_epos),
+                           st_r, idf_sum, span_adjust)
+    return step, (AROW, ROW, KVEC, ROW, ROW, ROW, KVEC, VEC, VEC)
 
 
 # --------------------------------------------------------------------------
@@ -352,9 +493,12 @@ class QT1Batch:
     span_adjust: np.ndarray  # (B,) f32 == len(query) - 1
     stride: int
 
+    def host_args(self) -> tuple:
+        return (self.key_g, self.key_lo, self.key_hi, self.idf_sum,
+                self.span_adjust)
+
     def device_args(self, device):
-        return to_device((self.key_g, self.key_lo, self.key_hi,
-                           self.idf_sum, self.span_adjust), device)
+        return to_device(self.host_args(), device)
 
 
 def qt1_stride(index) -> int:
@@ -611,9 +755,12 @@ class QT2Batch:
     span_adjust: np.ndarray
     stride: int
 
+    def host_args(self) -> tuple:
+        return (self.wv_lo, self.wv_hi, self.n_keys, self.idf_sum,
+                self.span_adjust)
+
     def device_args(self, device):
-        return to_device((self.wv_lo, self.wv_hi, self.n_keys, self.idf_sum,
-                           self.span_adjust), device)
+        return to_device(self.host_args(), device)
 
 
 @dataclass
@@ -628,10 +775,12 @@ class QT5Batch:
     span_adjust: np.ndarray
     stride: int
 
+    def host_args(self) -> tuple:
+        return (self.a_g, self.ns_g, self.ns_r, self.st_cnt, self.st_ext,
+                self.st_r, self.idf_sum, self.span_adjust)
+
     def device_args(self, device):
-        return to_device((self.a_g, self.ns_g, self.ns_r, self.st_cnt,
-                           self.st_ext, self.st_r, self.idf_sum,
-                           self.span_adjust), device)
+        return to_device(self.host_args(), device)
 
 
 @dataclass
@@ -643,9 +792,11 @@ class QT34Batch:
     span_adjust: np.ndarray
     stride: int
 
+    def host_args(self) -> tuple:
+        return (self.a_g, self.ns_g, self.ns_r, self.idf_sum, self.span_adjust)
+
     def device_args(self, device):
-        return to_device((self.a_g, self.ns_g, self.ns_r, self.idf_sum,
-                           self.span_adjust), device)
+        return to_device(self.host_args(), device)
 
 
 def pack_qt2_batch(

@@ -1,7 +1,7 @@
 """Serving launcher: builds a proximity index and serves batched QT1
-requests through the deadline-aware `SearchService` on one device (thin
-CLI over serving/service.py). The card is the default; ``--device cpu``
-runs the plain PyTorch path on the host.
+requests through the deadline-aware `SearchService` on a (1, 1) mesh of
+one device (thin CLI over serving/service.py). The card is the default;
+``--device cpu`` runs the plain PyTorch path on the host.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 3000 --requests 512 --deadline-ms 50
 
@@ -11,17 +11,29 @@ deadline control loop (admission verdicts, shedding, EDF splits):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 3000 \
       --deadline-ms 50 --admission --load-qps 2000
+
+``--config`` loads a tuned (MaxDistance, ServeConfig) artifact emitted by
+the §19 autotuner (``repro_torch.tune.report``, or the JAX package's);
+explicit ``--deadline-ms`` / ``--admission`` flags still overlay the
+loaded config:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --config results/tuned_serve_config.json
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import sys
 import time
 
 import numpy as np
 
 from repro_torch.core.index_builder import build_index
 from repro_torch.data.corpus import generate_corpus, sample_stop_queries
+from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.serving import (
     SearchService,
     ServeConfig,
@@ -38,6 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-distance", type=int, default=5)
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--top-k", type=int, default=8)
+    ap.add_argument("--config", default=None, metavar="PATH",
+                    help="load a tuned (MaxDistance, ServeConfig) JSON "
+                         "artifact (repro_torch.tune.report); overrides "
+                         "--max-distance/--max-batch/--top-k, while "
+                         "explicit --deadline-ms/--admission still apply")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on: cuda (the default; fails without "
                          "a card) or cpu")
@@ -61,8 +78,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def resolve_config(args) -> tuple[int, ServeConfig]:
-    """(max_distance, ServeConfig) from flags."""
+    """(max_distance, ServeConfig) from flags, or from a tuned artifact
+    with explicit deadline/admission flags overlaid on top."""
     deadline_on = args.deadline_ms is not None and args.deadline_ms > 0
+    if args.config is not None:
+        from repro_torch.tune.report import load_serve_config
+
+        max_distance, cfg, meta = load_serve_config(args.config)
+        overlay: dict = {}
+        if args.deadline_ms is not None:
+            overlay["default_deadline_s"] = (
+                args.deadline_ms / 1e3 if deadline_on else None)
+        if args.admission:
+            overlay["admission"] = True
+            if cfg.max_queue is None:
+                overlay["max_queue"] = 4 * cfg.max_batch
+        if overlay:
+            cfg = dataclasses.replace(cfg, **overlay)
+        origin = meta.get("workload", meta.get("bench", "sweep"))
+        dropped = meta.get("dropped_fields")
+        print(f"loaded tuned config from {args.config} "
+              f"(max_distance={max_distance}, tuned on {origin!r}"
+              + (f", dropped {sorted(dropped)}" if dropped else "") + ")",
+              file=sys.stderr)
+        return max_distance, cfg
     cfg = ServeConfig(
         max_batch=args.max_batch, top_k=args.top_k,
         default_deadline_s=args.deadline_ms / 1e3 if deadline_on else None,
@@ -79,7 +118,9 @@ def main(argv: list[str] | None = None) -> None:
     max_distance, cfg = resolve_config(args)
     index = build_index(table, lex, max_distance=max_distance)
     deadline_on = args.deadline_ms is not None and args.deadline_ms > 0
-    service = SearchService(index, cfg, device=args.device)
+    mesh = make_mesh((1, 1), ("data", "model"),
+                     devices=[resolve_device(args.device)])
+    service = SearchService(index, cfg, mesh=mesh)
     queries = sample_stop_queries(table, lex, args.requests, window=3, seed=2)
 
     if args.load_qps is not None:

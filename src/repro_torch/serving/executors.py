@@ -29,7 +29,14 @@ eagerly, so there is no ahead-of-time compile: the first execution of a
 load, allocator growth, first-launch costs), timed as the ``compile``
 phase, and its ``cost_summaries`` entry is None. Later calls skip it, so
 the ``serve.step.<family>.B<B>.L<L>`` histograms measure run time only.
-On a card the ``execute`` phase ends with ``torch.cuda.synchronize``.
+On a card the ``execute`` phase ends with ``torch.cuda.synchronize`` on
+every device of the mesh.
+
+The executor serves over a device mesh (``repro_torch.launch.mesh``):
+on a one-device mesh a batch's host arrays go to that device whole
+(``LocalStep.place``); on a (D, S) mesh each shard's block goes from the
+host straight to its own device (``ShardedStep.place``), as part of the
+``pack`` (or ``compress``) phase.
 """
 
 from __future__ import annotations
@@ -59,7 +66,6 @@ from repro_torch.core.torch_search import (
     pack_qt2_batch,
     pack_qt34_batch,
     pack_qt5_batch,
-    to_device,
 )
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving.planner import (
@@ -118,16 +124,18 @@ def _payload_of_kind(kind: str) -> str:
     return _PAYLOAD_OF_KIND[kind.rsplit("_", 1)[-1] if "_" in kind else kind]
 
 
-def _sync(device: torch.device) -> None:
-    """Wait for the device to finish queued work; a no-op on the CPU,
+def _sync(devices) -> None:
+    """Wait for the devices to finish queued work; a no-op on the CPU,
     where every op has finished when it returns."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 class CompiledExecutor:
     """Packs, compresses and executes padded batches on the per-(step
-    kind, B-bucket, L-bucket) serve steps, on one device.
+    kind, B-bucket, L-bucket) serve steps, over one device mesh (a
+    (1, 1) mesh is one device; ``device`` is the mesh's first).
 
     ``executables`` maps every (kind, B, L) triple ever executed to its
     batch count — the engine-stats surface tests assert B-bucket
@@ -138,10 +146,12 @@ class CompiledExecutor:
     metrics registry as ``serve.step.<family>.B<B>.L<L>`` histograms
     (µs)."""
 
-    def __init__(self, device, config, pack_cache=None, compressed_cache=None,
+    def __init__(self, mesh, config, pack_cache=None, compressed_cache=None,
                  metrics: MetricsRegistry | None = None,
                  tracer: Tracer | None = None, costs=None):
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0]
+        self._devices = mesh.unique_devices()
         self.config = config
         self.pack_cache = pack_cache
         self.compressed_cache = compressed_cache
@@ -180,15 +190,17 @@ class CompiledExecutor:
         if step is None:
             cfg = self.config
             if kind == "base":
-                step = make_qt1_serve_step(top_k=cfg.top_k)
+                step = make_qt1_serve_step(top_k=cfg.top_k, mesh=self.mesh)
             elif kind in ("delta", "offsets"):
                 step = make_qt1_serve_step_compressed(
-                    top_k=cfg.top_k, delta_g=(kind == "delta"))
+                    top_k=cfg.top_k, delta_g=(kind == "delta"),
+                    mesh=self.mesh)
             else:  # "qt2_raw" ... "qt5_offsets"
                 qtype, payload = kind.split("_", 1)
                 step = make_wv_serve_step(
                     qtype, top_k=cfg.top_k, payload=payload,
                     max_distance=max_distance, r_max=cfg.r_max,
+                    mesh=self.mesh,
                 )
             self._steps[kind] = step
         return step
@@ -240,10 +252,10 @@ class CompiledExecutor:
                 first = self._warm_up(key, kind, step, args)
                 t_compile = time.perf_counter()
                 with self.tracer.span("dispatch", kind=kind):
-                    raw = step(*args)
+                    raw = step.run(args)
                 t_disp = time.perf_counter()
                 with self.tracer.span("execute", kind=kind, compile=first):
-                    _sync(self.device)
+                    _sync(self._devices)
                 t_exec = time.perf_counter()
                 with self.tracer.span("decode"):
                     decoded = decode_results(stub, *raw)
@@ -306,8 +318,8 @@ class CompiledExecutor:
             return False
         with self.tracer.span("compile", kind=kind, B=key[1], L=key[2]):
             t0 = time.perf_counter()
-            step(*args)
-            _sync(self.device)
+            step.run(args)
+            _sync(self._devices)
             dt = time.perf_counter() - t0
         self._warm.add(key)
         self.cost_summaries[key] = None
@@ -429,9 +441,14 @@ class CompiledExecutor:
         return out
 
     # -- batch preparation --------------------------------------------------
+    def _place(self, kind: str, args, max_distance: int):
+        """A batch's host arrays on the mesh: whole on a one-device
+        mesh, each shard's block on its own device otherwise."""
+        return self._step(kind, max_distance).place(args)
+
     def _prepare(self, index, family, bucket, queries, selections, t0,
                  payload=None):
-        """Pack (and compress) one padded batch and move it to the device;
+        """Pack (and compress) one padded batch and move it to the mesh;
         returns ``(kind, decode stub, device args, t_pack_end,
         t_compress_end)`` so the caller can tile the phase timeline
         without gaps. ``payload=PAYLOAD_RAW`` forces the raw pack path
@@ -452,7 +469,7 @@ class CompiledExecutor:
                     ccache=ccache, cache=self.pack_cache, plans=selections,
                     **kw,
                 )
-                args = to_device(args, self.device)
+                args = self._place(kind, args, index.max_distance)
             self._count_compressed(kind)
             t_pack = time.perf_counter()
             return kind, stub, args, t_pack, t_pack
@@ -465,7 +482,7 @@ class CompiledExecutor:
                 )
                 # the host->device transfer of the packed rows belongs
                 # to pack, not to whatever phase is timed next
-                args = batch.device_args(self.device)
+                args = self._place(kind, batch.host_args(), index.max_distance)
             t_pack = time.perf_counter()
             return kind, batch, args, t_pack, t_pack
         with self.tracer.span("pack", family=family):
@@ -477,7 +494,7 @@ class CompiledExecutor:
         with self.tracer.span("compress", family=family):
             kind, args = self._compress_batch(bucket, batch, compress_fn,
                                               prefix)
-            args = to_device(args, self.device)
+            args = self._place(kind, args, index.max_distance)
         return kind, batch, args, t_pack, time.perf_counter()
 
     def _compress_batch(self, bucket, batch, compress_fn, prefix=""):

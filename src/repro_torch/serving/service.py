@@ -8,8 +8,9 @@ The serving tier is three explicit layers — this module is the top one:
   factories + the shared per-(kind, B, L) executable table) and
   ``ScalarExecutor`` behind one protocol;
 * :class:`SearchService` — submit/drain/refresh/explain over one
-  :class:`ServeConfig`, on one device: the card unless the caller passes
-  ``device="cpu"``.
+  :class:`ServeConfig`, on one device (the card unless the caller passes
+  ``device="cpu"``) or over a device mesh whose ``model`` axis shards the
+  documents (``mesh=``, ``repro_torch.launch.mesh``).
 
 ``submit(lemma_ids, deadline_s=...)`` returns a :class:`SearchTicket`
 resolved by the next :meth:`SearchService.drain`; every
@@ -29,6 +30,7 @@ from dataclasses import dataclass, field
 
 from repro_torch.core.torch_search import batch_size_bucket
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_mesh, tp_size
 from repro_torch.obs import MetricsRegistry, Tracer, chrome_trace, write_chrome_trace
 from repro_torch.serving import planner as _planner
 from repro_torch.serving.admission import (
@@ -68,11 +70,10 @@ class ServeConfig:
     * ``buckets`` — the L-bucket ladder posting rows are padded to; one
       compiled executable exists per (step kind, B-bucket, L-bucket);
     * ``max_batch`` / ``top_k`` / ``doc_shards`` — batch cap, results
-      per query, model-axis doc shards;
+      per query, model-axis doc shards (must equal the serving mesh's
+      model-axis size);
     * ``compressed`` — serve the block-delta16 device payload
       (DESIGN.md §11-§12) with per-batch offsets fallback;
-      ``doc_shards > 1`` arrives with the doc-sharding slice of the port
-      and raises ``NotImplementedError`` until then;
     * ``use_pack_cache`` / ``use_compressed_cache`` / ``cache_entries``
       / ``cache_bytes`` — the packed-posting row caches;
     * ``k_fst``/``k_wv``/``k_ns``/``k_st``/``k_ord``/``r_max`` — static
@@ -249,10 +250,10 @@ class SearchResponse:
 
     Observability surface (DESIGN.md §15): ``phases`` maps every phase
     of the request's life to its duration in seconds — ``queue`` (submit
-    → its batch starting), ``plan``, then the batch phases ``pack`` /
-    ``compress`` / ``compile`` / ``dispatch`` / ``execute`` / ``decode``
-    — and sums to the end-to-end latency ``finished_at - arrival``
-    (within the tiny planning overlap; tests pin 10%).
+    → its batch starting, less its own planning), ``plan``, then the
+    batch phases ``pack`` / ``compress`` / ``compile`` / ``dispatch`` /
+    ``execute`` / ``decode`` — and sums to the end-to-end latency
+    ``finished_at - arrival``.
     ``started_at``/``finished_at`` are the perf_counter bounds of the
     batch that served it, on every route including scalar fallback and
     empty. ``deadline_blame`` names the largest non-queue phase when
@@ -295,9 +296,13 @@ def _route_to_path(route: str) -> str:
 class SearchService:
     """Deadline-aware, bucketed, batched proximity-search serving over
     a static ``ProximityIndex`` or a snapshot-able incremental index
-    (``repro_torch.index.SegmentedIndex``), on one device
-    (``device=None`` means the card, and raises when there is none; the
-    tests pass ``"cpu"``).
+    (``repro_torch.index.SegmentedIndex``), on one device or over a
+    device mesh: ``device=X`` serves on a (1, 1) mesh on X, ``mesh=`` (a
+    ``repro_torch.launch.mesh.Mesh``, (1, S) for a service, whose model
+    axis must equal ``config.doc_shards``) shards the documents over S
+    devices, and neither means the card (which raises when there is
+    none; the tests pass ``"cpu"``). One process drives every device of
+    the mesh.
 
     Serving always runs against an *immutable* searcher snapshot: a
     drain pins the snapshot once, so in-flight batches see a consistent
@@ -318,13 +323,9 @@ class SearchService:
     :class:`CompiledExecutor`."""
 
     def __init__(self, index, config: ServeConfig | None = None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config if config is not None else ServeConfig()
         cfg = self.config
-        if cfg.doc_shards != 1:
-            raise NotImplementedError(
-                "doc_shards > 1 arrives with the doc-sharding slice of the "
-                "port (torch.distributed)")
         self._source = index if hasattr(index, "snapshot") else None
         self.index = index.snapshot() if self._source is not None else index
         if cfg.compressed and getattr(self.index, "max_distance", 0) > 254:
@@ -334,7 +335,23 @@ class SearchService:
                 "compressed serving requires max_distance <= 254 "
                 f"(got {self.index.max_distance})"
             )
-        self.device = resolve_device(device)
+        if device is not None and mesh is not None:
+            raise ValueError("pass device= or mesh=, not both")
+        if mesh is None:
+            mesh = make_mesh((1, 1), ("data", "model"),
+                             devices=[resolve_device(device)])
+        else:
+            for dev in mesh.unique_devices():
+                resolve_device(dev)  # a card mesh on a host without a card
+        if cfg.doc_shards != tp_size(mesh):
+            # the reference states this invariant (jax_search.py) but
+            # does not check it; a mismatch would join rows partitioned
+            # for another shard count
+            raise ValueError(
+                f"doc_shards={cfg.doc_shards} must equal the serving "
+                f"mesh's model-axis size ({tp_size(mesh)})")
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0]
         # §15 observability tier: one registry + tracer per service,
         # shared by the executors and both row caches so every layer's
         # timings land in the same place
@@ -367,7 +384,7 @@ class SearchService:
             if cfg.compressed and cfg.payload_cost_driven else None
         )
         self.compiled = CompiledExecutor(
-            self.device, cfg, pack_cache=self.pack_cache,
+            self.mesh, cfg, pack_cache=self.pack_cache,
             compressed_cache=self.compressed_cache,
             metrics=self.metrics, tracer=self.tracer,
             costs=self.payload_costs,
@@ -992,11 +1009,11 @@ class SearchService:
         # multi-chunk group, earlier chunks resolve earlier
         queue_wait = max(ex.started_at - ticket.arrival, 0.0)
         # the per-request phase breakdown (§15): queue + plan + the
-        # batch phases. The batch phases tile [started_at, finished_at]
-        # and queue tiles [arrival, started_at], so the values sum to
-        # the end-to-end latency (plan overlaps the queue window but is
-        # orders of magnitude smaller; tests pin agreement within 10%)
-        phases = {"queue": queue_wait, "plan": plan_dt}
+        # batch phases. The batch phases tile [started_at, finished_at];
+        # the request's own planning ran inside [arrival, started_at],
+        # so queue is that window less plan, and the values sum to the
+        # end-to-end latency
+        phases = {"queue": max(queue_wait - plan_dt, 0.0), "plan": plan_dt}
         phases.update(ex.phases if ex.phases else zero_phases())
         met = None
         blame = None
