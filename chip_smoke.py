@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives six paths:
+``nvcc`` per source, all started together) and drives seven paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -48,7 +48,20 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   at the top bucket against the unsharded one, timed;
 - the tuner: a two-by-two sweep (``repro_torch.tune``) on the serving
   CLI's default corpus, whose winning artifact
-  ``python -m repro_torch.launch.serve --config`` then serves on the card.
+  ``python -m repro_torch.launch.serve --config`` then serves on the card;
+- the model zoo's serving paths, through ``launch/steps.py``'s built
+  steps at full width with seeded random weights, the counts set to 0:
+  two-tower-retrieval (V 10M x D 256) at serve_p99, serve_bulk and
+  retrieval_cand, its user tower's bag through the embedding-bag kernel
+  (one launch per tower); din, bert4rec and sasrec at serve_p99 and
+  retrieval_cand (din's cut to 65,536 candidates); stablelm-1.6b prefill
+  at B 4 x S 4096, decode at B 4 on a 32,768-row cache (bf16, then int8)
+  and granite-moe-1b-a400m prefill and decode; the continuous batcher on
+  a reduced float32 LM. The two-tower user vectors must equal the tower
+  fed by the plain bag bit for bit, every recsys output a CPU run of the
+  port on the same weights, stablelm's decode at S its prefill(S + 1)
+  (cosine >= 0.999), the int8 cache the bf16 one (test_kv_int8.py's
+  thresholds) and the batcher's outputs the CPU batcher's.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -85,6 +98,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores; no int32 row is published beside it
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 MAX_SEP, R_MAX = 5, 4  # ServeConfig defaults: max_distance=5, r_max=4
 N_DOCS, N_QUERIES = 20_000, 256
 LOAD_CLOSED, LOAD_SECONDS = 256, 2.0  # closed-loop requests; open-loop trace length
@@ -1931,6 +1945,451 @@ def tune_phase(dev) -> dict:
             "cli_s": cli_s, "cli_stdout": served}
 
 
+# -- the model zoo's serving paths ----------------------------------------------
+MODEL_SEED = 19
+# LM cells: prefill_32k cut to (B, S); decode_32k cut to B, on a cache of
+# s_max rows (None: S + steps), greedy steps after the first decode; an
+# int8 run; the built steps, or the model's functions without a mesh
+# (granite: the dense MoE path, where a (1, 1) mesh's capacity dispatch
+# would drop tokens at decode's two-token batches, as the reference's does)
+LM_RUNS = (("stablelm-1.6b", 4, 4096, 32, 32768, True, True),
+           ("granite-moe-1b-a400m", 2, 2048, 16, None, False, False))
+DIN_RETRIEVAL_C = 65_536  # (C, 100, 144) float32 features: 60 GB at retrieval_cand's C
+BATCHER_SLOTS, BATCHER_PROMPTS, BATCHER_MAX_LEN = 8, 16, 32
+SLICE_ROWS = 4096  # serve_bulk rows checked against the plain bag
+RECSYS_TOL = 1e-5  # rtol and atol of tests/test_torch_recsys.py
+LM_CONSISTENCY_COS = 0.999  # prefill(S + 1) against decode at S after prefill(S)
+INT8_COS, INT8_AGREE = 0.995, 0.9  # tests/test_kv_int8.py's thresholds
+
+
+def timed(fn):
+    """(result, ms) of one call between two CUDA events, synchronised."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def median_ms(fn, n: int = 5) -> float:
+    return statistics.median(timed(fn)[1] for _ in range(n))
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device)
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def cut_arch(arch, **shapes):
+    """``arch`` with its shapes replaced: name=(kind, dims)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ShapeSpec
+    return replace(arch, shapes={n: ShapeSpec(n, k, d) for n, (k, d) in shapes.items()})
+
+
+def same_top_k(got, want, what: str) -> int:
+    """Card against host top-k: scores within RECSYS_TOL rank by rank; an
+    id may differ only where the host's scores tie within that tolerance
+    (a swap of near-equal candidates). Returns the number of such ranks."""
+    gv, gi = (t.cpu().double().numpy()[0] for t in got)
+    wv, wi = (t.double().numpy()[0] for t in want)
+    np.testing.assert_allclose(gv, wv, rtol=RECSYS_TOL, atol=RECSYS_TOL, err_msg=what)
+    tol = RECSYS_TOL + RECSYS_TOL * np.abs(wv)
+    swaps = 0
+    for r in np.flatnonzero(gi != wi):
+        at = np.flatnonzero(wi == gi[r])
+        near = wv[at[0]] if at.size else wv[-1]
+        if abs(near - wv[r]) > tol[r] + tol[-1]:
+            raise AssertionError(f"{what}: rank {r} holds {int(gi[r])} on the card and "
+                                 f"{int(wi[r])} on the host, scores not tied")
+        swaps += 1
+    return swaps
+
+
+def recsys_inputs(dev, mesh) -> dict:
+    """The four recsys models at full width on the card: each built step
+    and its inputs from materialize_inputs (the port's seeded init and the
+    reference's synthetic batches); din's retrieval_cand cut to
+    DIN_RETRIEVAL_C candidates."""
+    from repro_torch.configs.recsys_archs import BERT4REC, DIN, SASREC, TWO_TOWER
+    from repro_torch.launch.steps import build_step, materialize_batch, materialize_inputs
+
+    din = cut_arch(DIN, serve_p99=("serve", DIN.shapes["serve_p99"].dims),
+                   retrieval_cand=("retrieval", {"batch": 1, "n_candidates": DIN_RETRIEVAL_C}))
+    plan = ((TWO_TOWER, ("serve_p99", "serve_bulk", "retrieval_cand")),
+            (din, ("serve_p99", "retrieval_cand")),
+            (BERT4REC, ("serve_p99", "retrieval_cand")),
+            (SASREC, ("serve_p99", "retrieval_cand")))
+    out = {}
+    for arch, shapes in plan:
+        steps, params = {}, None
+        for i, name in enumerate(shapes):
+            built = build_step(arch, name, mesh)
+            if i == 0:
+                params, batch = materialize_inputs(arch, name, built, seed=MODEL_SEED)
+            else:
+                (batch,) = materialize_batch(arch, name, built, seed=MODEL_SEED + i)
+            steps[name] = {"built": built, "batch": batch}
+        out[arch.arch_id] = {"arch": arch, "params": params, "steps": steps}
+    torch.cuda.synchronize()
+    return out
+
+
+def lm_inputs(dev, mesh) -> dict:
+    """stablelm-1.6b and granite-moe-1b-a400m at full width: the cut
+    prefill and decode steps (stablelm's int8 decode step built with
+    REPRO_KV_INT8=1, as the reference reads it) or the model's functions
+    without a mesh, bf16 weights and a prompt from materialize_inputs,
+    and the next token."""
+    from functools import partial
+
+    from repro_torch.configs.lm_archs import GRANITE_MOE, STABLELM_1_6B
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import transformer
+
+    out = {}
+    for arch, (arch_id, B, S, steps, s_max, int8, on_mesh) in zip(
+            (STABLELM_1_6B, GRANITE_MOE), LM_RUNS):
+        s_max = s_max or S + steps + 1
+        cut = cut_arch(arch, prefill_32k=("prefill", {"seq_len": S, "global_batch": B}),
+                       decode_32k=("decode", {"seq_len": s_max, "global_batch": B}))
+        pre = build_step(cut, "prefill_32k", mesh)
+        dec = build_step(cut, "decode_32k", mesh)
+        dec8 = None
+        if int8:
+            old = os.environ.get("REPRO_KV_INT8")
+            os.environ["REPRO_KV_INT8"] = "1"
+            try:
+                dec8 = build_step(cut, "decode_32k", mesh)
+            finally:
+                if old is None:
+                    del os.environ["REPRO_KV_INT8"]
+                else:
+                    os.environ["REPRO_KV_INT8"] = old
+        params, prompt = materialize_inputs(cut, "prefill_32k", pre, seed=MODEL_SEED)
+        nxt = np.random.default_rng(MODEL_SEED + 1).integers(0, arch.model_cfg.vocab, (B, 1))
+        fns = ((pre.fn, dec.fn) if on_mesh else
+               (partial(transformer.prefill, arch.model_cfg),
+                partial(transformer.decode_step, arch.model_cfg)))
+        out[arch_id] = {"arch": cut, "cfg": arch.model_cfg, "pre": fns[0], "dec": fns[1],
+                        "dec8": dec8 and dec8.fn, "on_mesh": on_mesh,
+                        "params": params, "prompt": prompt,
+                        "next": torch.from_numpy(nxt.astype(np.int32)).to(dev),
+                        "B": B, "S": S, "steps": steps, "s_max": s_max}
+    torch.cuda.synchronize()
+    return out
+
+
+def lm_bounds(cfg, params, B: int, S: int, s_max: int) -> dict:
+    """Least times on this card: a decode step reads every weight and the
+    whole cache once (its attention spans all s_max rows); a prefill does
+    2 operations per active layer weight per token plus causal attention
+    (2 products over S^2 / 2 pairs of head_dim per head) at the bf16 rate."""
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    kv = 2 * cfg.n_layers * B * s_max * cfg.n_kv * cfg.head_dim  # k and v values
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    ops = (2 * (cfg.active_param_count() - embed) * B * S
+           + 2 * cfg.n_layers * B * cfg.n_heads * cfg.head_dim * S * S)
+    return {"decode_ms": (weights + 2 * kv) / HBM_BYTES_PER_S * 1e3,
+            "decode_int8_ms": (weights + kv + kv // cfg.head_dim * 4) / HBM_BYTES_PER_S * 1e3,
+            "prefill_ms": max(ops / BF16_OPS_PER_S, weights / HBM_BYTES_PER_S) * 1e3}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def drive_lm(run: dict) -> dict:
+    """Prefill(S), prefill(S + 1) for the consistency check, then decode
+    on an s_max cache holding the prefill: the next token at position S,
+    then greedy steps; with an int8 step, the same stream teacher-forced
+    on an int8 cache filled with the quantised prefill."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import quantize_kv
+
+    cfg, params, S, B = run["cfg"], run["params"], run["S"], run["B"]
+    dev = params["embed"].device
+    (last, kv), prefill_ms = timed(lambda: run["pre"](params, run["prompt"]))
+    longer = torch.cat([run["prompt"], run["next"]], dim=1)
+    full, prefill1_ms = timed(lambda: transformer.prefill(cfg, params, longer)[0])
+    cache = transformer.init_cache(cfg, B, run["s_max"], device=dev)
+    for n in ("k", "v"):
+        cache[n][:, :, :S] = kv[n]
+    logits, step_ms, fed = [], [], [run["next"]]
+    for i in range(run["steps"] + 1):
+        (lg, cache), ms = timed(lambda: run["dec"](params, fed[i], cache, S + i))
+        logits.append(lg)
+        step_ms.append(ms)
+        fed.append(lg.argmax(dim=-1, keepdim=True).to(torch.int32))
+    del cache
+    bounds = lm_bounds(cfg, params, B, S, run["s_max"])
+    rec = {"path": "built steps on a (1, 1) mesh" if run["on_mesh"] else "model functions, no mesh",
+           "prefill": {"B": B, "S": S, "ms": prefill_ms, "S_plus_1_ms": prefill1_ms,
+                       "bound_ms": bounds["prefill_ms"]},
+           "decode": {"B": B, "cache_rows": run["s_max"], "first_position": S,
+                      "greedy_steps": run["steps"], "step_ms": step_ms,
+                      "median_step_ms": statistics.median(step_ms[1:]),
+                      "bound_ms": bounds["decode_ms"]},
+           "finite": bool(torch.isfinite(last.float()).all() and torch.isfinite(full.float()).all()
+                          and all(torch.isfinite(x.float()).all() for x in logits)),
+           "consistency_cos": cosine(logits[0], full)}
+    if run["dec8"] is not None:
+        cache8 = transformer.init_cache(cfg, B, run["s_max"], quantized=True, device=dev)
+        for layer in range(cfg.n_layers):
+            for n in ("k", "v"):
+                q8, scale = quantize_kv(kv[n][layer])
+                cache8[n][layer, :, :S] = q8
+                cache8[f"{n}_scale"][layer, :, :S] = scale
+        logits8, step8_ms = [], []
+        for i in range(run["steps"] + 1):
+            (lg, cache8), ms = timed(lambda: run["dec8"](params, fed[i], cache8, S + i))
+            logits8.append(lg)
+            step8_ms.append(ms)
+        del cache8
+        a, b = torch.stack(logits8), torch.stack(logits)
+        rec["int8"] = {"step_ms": step8_ms, "median_step_ms": statistics.median(step8_ms[1:]),
+                       "bound_ms": bounds["decode_int8_ms"],
+                       "cos_vs_bf16": cosine(a, b),
+                       "argmax_agreement": float((a.argmax(-1) == b.argmax(-1)).double().mean())}
+    del kv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_batcher(cfg, params, prompts, device) -> tuple[dict, int]:
+    """LMContinuousBatcher over BATCHER_SLOTS slots, every prompt submitted
+    at once, stepped to completion: (outputs by request id, steps)."""
+    from repro_torch.serving import LMContinuousBatcher
+
+    batcher = LMContinuousBatcher(cfg, params, BATCHER_SLOTS, BATCHER_MAX_LEN, device=device)
+    for p in prompts:
+        batcher.submit(p)
+    done, steps = {}, 0
+    while len(done) < len(prompts):
+        done.update(batcher.step())
+        steps += 1
+        if steps > len(prompts) * BATCHER_MAX_LEN:
+            raise AssertionError("the batcher did not finish its prompts")
+    return done, steps
+
+
+def bag_record(params, batch) -> dict:
+    """The embedding-bag kernel at serve_bulk: kernel, wrapper, plain
+    version (over SLICE_ROWS-row slices: its (B, S, D) gather does not fit
+    at once) and F.embedding_bag, against the bound counted from these
+    ids (each distinct row read once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
+    from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag
+
+    table, ids = params["item_emb"], batch["hist"]
+    (B, S), (V, D) = ids.shape, table.shape
+    valid = (ids >= 0) & (ids < V)
+    rows = int(torch.unique(ids[valid]).numel())
+    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+    lib = F.embedding_bag(ids, table, mode="sum")
+    ref = embedding_bag(ids, table, None, "sum")
+    n_valid = int(valid.sum())
+    rec = {"B": B, "S": S, "V": V, "D": D, "valid_ids": n_valid, "distinct_rows": rows,
+           "ms": device_ms(lambda: launch_embedding_bag(ids, table, None, out, mean=False)),
+           "wrapper_ms": call_ms(lambda: embedding_bag(ids, table, None, "sum")),
+           "plain_ms": device_ms(lambda: [embedding_bag_plain(ids[i:i + SLICE_ROWS], table)
+                                          for i in range(0, B, SLICE_ROWS)], runs=5),
+           "plain": f"embedding_bag_plain over {SLICE_ROWS}-row slices",
+           "library_ms": device_ms(lambda: F.embedding_bag(ids, table, mode="sum")),
+           "library": "F.embedding_bag(mode='sum')",
+           "library_max_abs_diff": float((lib - ref).abs().max()),
+           "bytes_all_lookups": 4 * B * S + n_valid * D * table.element_size()
+           + B * D * table.element_size(),
+           **window_bound(4 * B * S + rows * D * table.element_size(),
+                          B * D * table.element_size(), n_valid * D)}
+    rec["bound_all_lookups_ms"] = rec["bytes_all_lookups"] / HBM_BYTES_PER_S * 1e3
+    return rec
+
+
+def models_phase(dev) -> dict:
+    """The model zoo's serving paths on the card (see the module
+    docstring), each cut listed under ``reduced``."""
+    from dataclasses import replace
+
+    from repro_torch.configs.lm_archs import STABLELM_1_6B
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import recsys, transformer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    t0 = time.perf_counter()
+    rs = recsys_inputs(dev, mesh)
+    lms = lm_inputs(dev, mesh)
+    bcfg = replace(STABLELM_1_6B.reduced().model_cfg, dtype="float32")
+    bparams = transformer.init_params(bcfg, MODEL_SEED, device=dev)
+    rng = np.random.default_rng(MODEL_SEED + 2)
+    prompts = [rng.integers(1, bcfg.vocab, rng.integers(1, 7)).tolist()
+               for _ in range(BATCHER_PROMPTS)]
+    setup_s = time.perf_counter() - t0
+    log(f"models: weights and inputs made on the card in {setup_s:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+
+    # the main path, with every launch count at 0
+    reset_counts()
+    t_main = time.perf_counter()
+    for m in rs.values():
+        for step in m["steps"].values():
+            step["out"], step["first_ms"] = timed(
+                lambda: step["built"].fn(m["params"], step["batch"]))
+    lm_recs = {arch_id: drive_lm(run) for arch_id, run in lms.items()}
+    (card_out, b_steps), batcher_ms = timed(lambda: drive_batcher(bcfg, bparams, prompts, dev))
+    main_s = time.perf_counter() - t_main
+    launches = read_counts()
+    n_bag = len(rs["two-tower-retrieval"]["steps"])
+    log(f"models: main path launches {launches} in {main_s:.1f} s")
+    if launches["embedding_bag.embedding_bag"] != n_bag:
+        raise AssertionError(f"models: {launches['embedding_bag.embedding_bag']} bag launches "
+                             f"for {n_bag} two-tower user towers")
+
+    report = {"launches": launches, "setup_s": setup_s, "main_s": main_s, "recsys": {},
+              "lm": lm_recs}
+    # the two-tower path: the bag kernel against its plain version, the
+    # scores against a CPU run on the same weights
+    tt = rs["two-tower-retrieval"]
+    cfg, params = tt["arch"].model_cfg, tt["params"]
+    for name, rows in (("serve_p99", None), ("serve_bulk", SLICE_ROWS)):
+        b = tt["steps"][name]["batch"]
+        if rows:
+            b = {k: v[:rows] for k, v in b.items()}
+        u = recsys.twotower_user(cfg, params, b)
+        hist = embedding_bag_plain(b["hist"], params["item_emb"])
+        u_plain = recsys._tower(params["user_tower"], torch.cat([hist, b["user_feats"]], dim=-1))
+        if not torch.equal(u, u_plain):
+            raise AssertionError(f"two-tower {name}: user vectors differ from the tower fed by "
+                                 f"the plain bag (max abs {float((u - u_plain).abs().max())})")
+    t = time.perf_counter()
+    host = to_device(params, "cpu")
+    p99 = tt["steps"]["serve_p99"]
+    want = build_step(tt["arch"], "serve_p99", cpu_mesh).fn(host, to_device(p99["batch"], "cpu"))
+    torch.testing.assert_close(p99["out"].cpu(), want, rtol=RECSYS_TOL, atol=RECSYS_TOL)
+    cpu_s = time.perf_counter() - t
+    del host
+    retr = tt["steps"]["retrieval_cand"]
+    scores, idx = retr["out"]
+    b = retr["batch"]
+    u = recsys.twotower_user(cfg, params, b)
+    v = recsys.twotower_item(cfg, params, b["cand_items"][idx[0].long()],
+                             b["cand_cates"][idx[0].long()])
+    torch.testing.assert_close(scores[0], v @ u[0], rtol=RECSYS_TOL, atol=RECSYS_TOL)
+    if not bool((scores[0, :-1] >= scores[0, 1:]).all()):
+        raise AssertionError("two-tower retrieval: top-k scores not in descending order")
+    bag = bag_record(params, tt["steps"]["serve_bulk"]["batch"])
+    log(f"models: two-tower-retrieval V={cfg.n_items} D={cfg.embed_dim}: user vectors equal "
+        f"to the plain bag's tower at serve_p99 and {SLICE_ROWS} serve_bulk rows; serve_p99 "
+        f"scores within {RECSYS_TOL} of the CPU run ({cpu_s:.1f} s with the host copy); "
+        f"retrieval top-{idx.shape[1]} rescored; bag at serve_bulk B={bag['B']}: kernel "
+        f"{bag['ms']:.4f} ms (wrapper {bag['wrapper_ms']:.4f} ms), plain {bag['plain_ms']:.4f} ms, "
+        f"library {bag['library_ms']:.4f} ms, bound {bag['bound_ms']:.4f} ms by "
+        f"{bag['bound_by']} ({bag['bytes'] / 1e9:.2f} GB, {bag['distinct_rows']} distinct "
+        f"rows; {bag['bound_all_lookups_ms']:.4f} ms counting every lookup)")
+    report["bag_serve_bulk"] = bag
+
+    # every recsys step: warm times, and a CPU run on the same weights
+    for arch_id, m in rs.items():
+        host = None if arch_id == "two-tower-retrieval" else to_device(m["params"], "cpu")
+        for name, step in m["steps"].items():
+            warm = median_ms(lambda: step["built"].fn(m["params"], step["batch"]))
+            rec = {"first_ms": step["first_ms"], "warm_ms": warm,
+                   "dims": dict(m["arch"].shapes[name].dims)}
+            out = step["out"]
+            finite = all(bool(torch.isfinite(x.float()).all())
+                         for x in (out if isinstance(out, tuple) else (out,)))
+            if not finite:
+                raise AssertionError(f"{arch_id} {name}: non-finite output")
+            if host is not None:
+                cpu_out = build_step(m["arch"], name, cpu_mesh).fn(
+                    host, to_device(step["batch"], "cpu"))
+                if isinstance(out, tuple):
+                    rec["near_tie_swaps"] = same_top_k(out, cpu_out, f"{arch_id} {name}")
+                else:
+                    torch.testing.assert_close(out.cpu(), cpu_out, rtol=RECSYS_TOL,
+                                               atol=RECSYS_TOL)
+                rec["equals_cpu_run"] = True
+            report["recsys"][f"{arch_id} {name}"] = rec
+            log(f"models: {arch_id} {name} {rec['dims']}: first call {rec['first_ms']:.3f} ms, "
+                f"warm {warm:.3f} ms" + (", equal to the CPU run within tolerance"
+                                         if host is not None else ""))
+
+    for arch_id, rec in lm_recs.items():
+        if not rec["finite"]:
+            raise AssertionError(f"{arch_id}: non-finite logits")
+        line = (f"models: {arch_id} ({rec['path']}) prefill B={rec['prefill']['B']} "
+                f"S={rec['prefill']['S']} "
+                f"{rec['prefill']['ms']:.1f} ms; decode B={rec['decode']['B']} on "
+                f"{rec['decode']['cache_rows']} cache rows from position "
+                f"{rec['decode']['first_position']}: median step "
+                f"{rec['decode']['median_step_ms']:.2f} ms (bound "
+                f"{rec['decode']['bound_ms']:.2f} ms); prefill bound "
+                f"{rec['prefill']['bound_ms']:.1f} ms; prefill(S+1) vs decode at S "
+                f"cosine {rec['consistency_cos']:.6f}")
+        if "int8" in rec:
+            i8 = rec["int8"]
+            line += (f"; int8 cache median step {i8['median_step_ms']:.2f} ms (bound "
+                     f"{i8['bound_ms']:.2f} ms), cosine vs bf16 "
+                     f"{i8['cos_vs_bf16']:.6f}, argmax agreement {i8['argmax_agreement']:.3f}")
+            if not (i8["cos_vs_bf16"] > INT8_COS and i8["argmax_agreement"] >= INT8_AGREE):
+                raise AssertionError(f"{arch_id}: int8 cache misses test_kv_int8.py's thresholds")
+        log(line)
+        if arch_id == "stablelm-1.6b" and rec["consistency_cos"] < LM_CONSISTENCY_COS:
+            raise AssertionError(f"{arch_id}: decode at S disagrees with prefill(S+1)")
+
+    t = time.perf_counter()
+    host_out, host_steps = drive_batcher(bcfg, to_device(bparams, "cpu"), prompts, "cpu")
+    if host_out != card_out or host_steps != b_steps:
+        raise AssertionError("the card's batcher outputs differ from the CPU batcher's")
+    report["batcher"] = {"slots": BATCHER_SLOTS, "prompts": BATCHER_PROMPTS,
+                         "max_len": BATCHER_MAX_LEN, "steps": b_steps, "card_ms": batcher_ms,
+                         "cpu_s": time.perf_counter() - t,
+                         "tokens": sum(len(v) for v in card_out.values())}
+    log(f"models: batcher {BATCHER_PROMPTS} prompts over {BATCHER_SLOTS} slots, {b_steps} "
+        f"steps, {report['batcher']['tokens']} tokens in {batcher_ms:.1f} ms on the card; "
+        f"outputs equal the CPU batcher's")
+    report["reduced"] = [
+        {"what": "stablelm-1.6b prefill_32k", "cut": "B 32 x S 32768 -> B 4 x S 4096",
+         "why": "its KV cache alone would be ~206 GB"},
+        {"what": "stablelm-1.6b decode_32k", "cut": "B 128 -> B 4 on the S 32768 cache, "
+         "filled to 4096 by the prefill, positions 4096-4128",
+         "why": "B 128's bf16 cache is ~824 GB; B 4's is ~25.8 GB (int8 ~13.7 GB)"},
+        {"what": "granite-moe-1b-a400m", "cut": "prefill B 2 x S 2048, then 16 greedy decode "
+         "steps on a cache of S + 17 rows", "why": "covers the MoE dense path, GQA and tied "
+         "embeddings within the phase's time"},
+        {"what": "din retrieval_cand", "cut": f"C 1,048,576 -> {DIN_RETRIEVAL_C}",
+         "why": "its (C, 100, 144) float32 feature tensor is 60 GB at full C"},
+        {"what": "the batcher", "cut": "stablelm's reduced config (2 layers, d 64) in float32",
+         "why": "bf16 greedy tokens on two devices part at near-tied logits"},
+        {"what": "all models", "cut": "random weights from a seed", "why": "no checkpoints"}]
+    report["seconds"] = time.perf_counter() - t_phase
+    del rs, lms, bparams
+    torch.cuda.empty_cache()
+    log(f"models: phase {report['seconds']:.1f} s; reduced: "
+        + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
+    return report
+
+
 def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
     """One kernel of the kernels line, from its primary shape's record."""
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -1978,6 +2437,7 @@ def main() -> int:
     steps = compressed_steps_phase(dev)
     segmented = segmented_phase(dev, table, lex, queries)
     tuned = tune_phase(dev)
+    models = models_phase(dev)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -2029,14 +2489,19 @@ def main() -> int:
         kernel_entry("embedding_bag.embedding_bag", "embedding_bag.cu",
                      "src/repro/kernels/embedding_bag/embedding_bag.py:73",
                      n["embedding_bag.embedding_bag"], lib["max_abs_err"]["embedding_bag"],
-                     sh["embedding_bag"][bag], others("embedding_bag", bag)),
+                     sh["embedding_bag"][bag],
+                     {**others("embedding_bag", bag),
+                      "launches_models": models["launches"]["embedding_bag.embedding_bag"],
+                      "models_serve_bulk": {k: models["bag_serve_bulk"][k] for k in (
+                          "B", "S", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_by", "bound_all_lookups_ms")}}),
     ]}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
-             "segmented": segmented, "sharded": sharded, "tune": tuned},
+             "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

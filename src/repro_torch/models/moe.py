@@ -1,0 +1,154 @@
+"""Mixture-of-Experts FFN with top-k routing (the reference's
+``models/moe.py``).
+
+Two paths, as in the reference. :func:`moe_block_dense_ref` computes
+every expert for every token and combines the top-k exactly; it is what
+a transformer block runs without a mesh. :func:`moe_block` is the
+capacity-dispatch path (GShard-style dropping, one trash slot) that a
+block runs on a mesh: per data shard, C = ceil(T_local * top_k *
+capacity_factor / E) slots per expert. Expert parallelism over a model
+axis larger than 1 (``shard_map`` with a psum of expert partials) comes
+with the multi-device model slice; until then such a mesh raises.
+
+The gates' top-k is a stable descending sort, so the lower expert comes
+first among equal probabilities, as ``lax.top_k`` orders them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import normal
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+
+
+def init_moe(d_model: int, cfg: MoEConfig, *, generator, device, stack=()):
+    E, Fe = cfg.n_experts, cfg.d_ff_expert
+    s_in = 1.0 / np.sqrt(d_model)
+    s_out = 1.0 / np.sqrt(Fe)
+    return {
+        "router": normal((*stack, d_model, E), s_in, generator, device),
+        "w_gate": normal((*stack, E, d_model, Fe), s_in, generator, device),
+        "w_up": normal((*stack, E, d_model, Fe), s_in, generator, device),
+        "w_down": normal((*stack, E, Fe, d_model), s_out, generator, device),
+    }
+
+
+def top_k_stable(x, k: int):
+    """``lax.top_k`` over the last axis: the k largest values in
+    descending order, the lower index first among equal values."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(x, -1, order), order
+
+
+def _gates(p, xf, cfg: MoEConfig):
+    """Router probabilities (float32) and the normalised top-k gates."""
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_e = top_k_stable(probs, cfg.top_k)
+    gate_w = gate_w / torch.clamp_min(gate_w.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate_w, gate_e
+
+
+def _experts(ex_in, p, dt):
+    g = F.silu(torch.einsum("ecd,edf->ecf", ex_in, p["w_gate"].to(dt)))
+    u = torch.einsum("ecd,edf->ecf", ex_in, p["w_up"].to(dt))
+    return torch.einsum("ecf,efd->ecd", g * u, p["w_down"].to(dt))
+
+
+def _local_moe(p, x, *, cfg: MoEConfig, n_local_experts: int, expert_offset: int,
+               capacity: int):
+    """Token dispatch for the experts one rank owns: x (T, D) ->
+    (partial y (T, D), load-balance aux loss term)."""
+    T, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    probs, gate_w, gate_e = _gates(p, x, cfg)
+
+    # position of each (token, choice) in its expert's queue (GShard)
+    flat_e = gate_e.reshape(-1)  # (T*k,), row-major by token
+    oh = F.one_hot(flat_e, E).to(torch.int32)
+    pos = (torch.cumsum(oh, dim=0) * oh - 1).amax(dim=-1)
+    keep = (pos >= 0) & (pos < capacity)
+    local_e = flat_e - expert_offset
+    mine = keep & (local_e >= 0) & (local_e < n_local_experts)
+    slot = torch.where(mine, local_e * capacity + pos,
+                       torch.full_like(pos, n_local_experts * capacity))
+
+    # token rows into expert slots; one trash slot at the end
+    tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
+    mine_dt = mine[:, None].to(dt)
+    buf = torch.zeros((n_local_experts * capacity + 1, D), dtype=dt, device=x.device)
+    buf.index_add_(0, slot, x[tok_idx] * mine_dt)
+    ex_out = _experts(buf[:-1].reshape(n_local_experts, capacity, D), p, dt)
+
+    # combine: gather back, weight by gate, add a token's k choices in order
+    flat_out = torch.cat([ex_out.reshape(n_local_experts * capacity, D),
+                          torch.zeros((1, D), dtype=dt, device=x.device)])
+    contrib = (flat_out[slot] * gate_w.reshape(-1, 1).to(dt)) * mine_dt
+    contrib = contrib.reshape(T, k, D)
+    y = torch.zeros((T, D), dtype=dt, device=x.device)
+    for j in range(k):
+        y = y + contrib[:, j]
+
+    # Switch-style load-balance aux
+    frac_tokens = F.one_hot(gate_e[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
+    return y, aux
+
+
+def moe_block(p, x, *, cfg: MoEConfig, mesh, dp_axes: tuple, tp_axis: str = "model"):
+    """x: (B, S, D) -> (y, aux) through capacity dispatch, one dispatch
+    per data shard of the mesh (its aux averaged over them)."""
+    B, S, D = x.shape
+    tp = mesh.shape[tp_axis]
+    if tp > 1:
+        raise NotImplementedError(
+            f"expert parallelism over a model axis of {tp} (shard_map, the experts "
+            "split over ranks and a psum of their partials) comes with the "
+            "multi-device model slice")
+    dp = math.prod(mesh.shape[a] for a in dp_axes)
+    if B % dp:
+        raise ValueError(f"batch {B} does not split over {dp} data shards")
+    t_local = (B // dp) * S
+    capacity = int(np.ceil(t_local * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+    capacity = max(capacity, 1)
+    ys, auxes = [], []
+    for x_l in x.reshape(dp, B // dp, S, D):
+        y, aux = _local_moe(p, x_l.reshape(-1, D), cfg=cfg, n_local_experts=cfg.n_experts,
+                            expert_offset=0, capacity=capacity)
+        ys.append(y.reshape(B // dp, S, D))
+        auxes.append(aux)
+    return torch.cat(ys), torch.stack(auxes).mean()
+
+
+def moe_block_dense_ref(p, x, *, cfg: MoEConfig):
+    """Oracle: dense per-expert compute + exact top-k combine (no capacity
+    drops). The combine weights are added in ``x.dtype`` in the order
+    k = 0..top_k-1."""
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    _, gate_w, gate_e = _gates(p, xf, cfg)
+    dt = x.dtype
+    g = F.silu(torch.einsum("td,edf->tef", xf, p["w_gate"].to(dt)))
+    u = torch.einsum("td,edf->tef", xf, p["w_up"].to(dt))
+    all_out = torch.einsum("tef,efd->ted", g * u, p["w_down"].to(dt))
+    combine = torch.zeros((T, cfg.n_experts), dtype=dt, device=x.device)
+    rows = torch.arange(T, device=x.device)
+    for j in range(cfg.top_k):
+        combine.index_put_((rows, gate_e[:, j]), gate_w[:, j].to(dt), accumulate=True)
+    y = torch.einsum("te,ted->td", combine, all_out)
+    return y.reshape(B, S, D)

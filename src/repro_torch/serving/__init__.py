@@ -30,6 +30,9 @@ Public API
   / :func:`poisson_arrivals` / :func:`bursty_arrivals` /
   :func:`warm_service` — the open-loop load harness that exercises the
   control loop at a fixed offered rate.
+* :class:`LMContinuousBatcher` — the second tenant: slot-based
+  continuous batching of greedy LM decode over the model zoo's
+  ``decode_step``.
 * :class:`PackedPostingCache` — LRU memo of the padded per-key rows
   (and their block-delta16 compressed twins), invalidated by snapshot
   identity (DESIGN.md §11).
@@ -47,6 +50,7 @@ from repro_torch.serving.load import (  # noqa: F401
     run_open_loop,
     warm_service,
 )
+from repro_torch.serving.lm_batcher import LMContinuousBatcher  # noqa: F401
 from repro_torch.serving.pack_cache import PackedPostingCache  # noqa: F401
 from repro_torch.serving.planner import QueryPlan  # noqa: F401
 from repro_torch.serving.service import (  # noqa: F401
@@ -59,6 +63,7 @@ from repro_torch.serving.service import (  # noqa: F401
 __all__ = [
     "AdmissionController",
     "AdmissionVerdict",
+    "LMContinuousBatcher",
     "LoadReport",
     "PackedPostingCache",
     "QueryPlan",
