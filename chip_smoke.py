@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives seven paths:
+``nvcc`` per source, all started together) and drives eight paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -61,7 +61,23 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   fed by the plain bag bit for bit, every recsys output a CPU run of the
   port on the same weights, stablelm's decode at S its prefill(S + 1)
   (cosine >= 0.999), the int8 cache the bf16 one (test_kv_int8.py's
-  thresholds) and the batcher's outputs the CPU batcher's.
+  thresholds) and the batcher's outputs the CPU batcher's;
+- training: the embedding bag's backward kernel held to its plain
+  version over the forward's float32 replay families and a bag set of
+  one repeated row; two-tower-retrieval's train_batch at full width (B
+  32,768), one step's gradients through both bag kernels against the
+  same step through the plain bag under autograd, then 3 built steps
+  with the counts set to 0 (one forward and one backward launch a step),
+  the backward timed at that shape against its bound, the zero-fill, the
+  plain version and F.embedding_bag's backward; stablelm-1.6b train_4k
+  at full width cut to B 8 x S 4096 (two microbatches), and cut to 2
+  layers in float32, one step's loss and gradients against the host's;
+  every reduced train cell against the port's CPU run; the supervisor
+  (``launch/train.py`` ``train_arch``, a failure injected at step 15)
+  resuming with an uninterrupted run's losses, then the train CLI; and
+  compressed data parallelism (exact, int8, top-k) on a (4,) mesh of
+  this card, and of four cards when four are visible, against
+  ``tests/multidevice/check_compressed_dp.py``'s thresholds.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -536,7 +552,7 @@ def kernel_phase(dev, parent=None) -> dict:
 # -- launch counts ---------------------------------------------------------------
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by its name in the kernels line."""
-    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_backward
     from repro_torch.kernels.intersect import (
         intersect_compressed_streams,
         intersect_sorted,
@@ -550,7 +566,8 @@ def wrappers() -> dict:
             "intersect.intersect_compressed_streams": intersect_compressed_streams,
             "intersect.intersect_sorted_compressed": intersect_sorted_compressed,
             "proximity.proximity_join": proximity_join,
-            "embedding_bag.embedding_bag": embedding_bag}
+            "embedding_bag.embedding_bag": embedding_bag,
+            "embedding_bag.embedding_bag_backward": embedding_bag_backward}
 
 
 def reset_counts() -> None:
@@ -2390,6 +2407,505 @@ def models_phase(dev) -> dict:
     return report
 
 
+# -- training: the bag's backward, the train steps, the supervisor, compressed DP --
+# two-tower train batch: the shape's 65,536 reckoned (not run) at ~82.7 GB, 31.1 GB of parameters
+# and moments plus three 17.2 GB (B, B) float32 tensors in the loss's backward; the 20.5 GB of
+# table gradients come after those are freed (PERF.md §4)
+TT_TRAIN_B = 32_768
+LM_TRAIN = {"seq_len": 4096, "global_batch": 8}  # stablelm train_4k, cut from B 256
+TRAIN_STEPS = 3
+BAG_GRAD_RTOL, BAG_GRAD_ATOL = 1e-5, 1e-6  # of the sum of the added terms' magnitudes
+LM_HOST_LOSS_RTOL = 1e-4  # stablelm cut to 2 layers, float32, card against host
+BF16_ULP = 2.0 ** -7  # a bfloat16-rounded gradient element may land one ulp apart
+TRAIN_TOL = {"lm": ((2e-3, 3e-2)), "recsys": (1e-5, 1e-5)}  # tests/test_torch_train_steps.py
+SUP_STEPS, SUP_CKPT_EVERY, SUP_FAIL_AT = 30, 10, 15
+DP_STEPS, DP_SHARDS, DP_TOPK_FRAC = 40, 4, 0.5  # tests/multidevice/check_compressed_dp.py
+
+
+def bag_grad_scale(ids, weights, g, num_rows, combine):
+    """Per element of the table's gradient, the sum of |w g'| over the
+    terms added into it: the scale on which a reordered float32 sum errs."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_plain
+
+    return embedding_bag_backward_plain(ids, g.abs(), num_rows,
+                                        None if weights is None else weights.abs(), combine)
+
+
+def assert_bag_grad(got, want, scale, what: str, atol: float = BAG_GRAD_ATOL) -> float:
+    """|got - want| <= atol + rtol * (scale + |want|), row slices at a time
+    (a full-width gradient is 10 GB); returns the largest difference."""
+    worst = 0.0
+    for r in range(0, want.shape[0], 1 << 20):
+        d = (got[r:r + (1 << 20)] - want[r:r + (1 << 20)]).abs()
+        lim = atol + BAG_GRAD_RTOL * (scale[r:r + (1 << 20)]
+                                               + want[r:r + (1 << 20)].abs())
+        if bool((d > lim).any()):
+            raise AssertionError(f"{what}: {int((d > lim).sum())} gradient elements off the "
+                                 f"plain version (max abs diff {float(d.max())})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def bag_backward_replays(dev) -> tuple[int, float]:
+    """The backward kernel against its plain version over the forward's
+    float32 replay families (their grad_out drawn per case, a misaligned
+    copy for the shifted ones) and one bag set whose every id is the same
+    row, the atomics' worst contention."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward, embedding_bag_backward_plain
+
+    cases = [c for c in bag_replays() if c[4] == torch.float32]
+    rng = np.random.default_rng(90)
+    one_row = np.zeros((4096, 50), np.int32)
+    cases += [(f"every id row 0 {combine} {wt}", one_row, np.zeros((1, 256), np.float32),
+               rng.normal(size=one_row.shape).astype(np.float32) if wt == "weighted" else None,
+               torch.float32, combine, False)
+              for combine in ("sum", "mean") for wt in ("weighted", "unweighted")]
+    worst = 0.0
+    for i, (name, ids, table, w, _, combine, shifted) in enumerate(cases):
+        tids = torch.from_numpy(ids).to(dev)
+        tw = None if w is None else torch.from_numpy(w).to(dev)
+        g = torch.from_numpy(np.random.default_rng(i).normal(
+            size=(ids.shape[0], table.shape[1])).astype(np.float32)).to(dev)
+        if shifted:
+            g = misaligned(g)
+        got = embedding_bag_backward(tids, g, table.shape[0], tw, combine)
+        want = embedding_bag_backward_plain(tids, g, table.shape[0], tw, combine)
+        scale = bag_grad_scale(tids, tw, g, table.shape[0], combine)
+        worst = max(worst, assert_bag_grad(got, want, scale, f"bag backward {name}"))
+    return len(cases), worst
+
+
+def bag_backward_record(ids, table) -> dict:
+    """The backward kernel at two-tower's train shape with a unit-scale
+    grad_out, summed into a zeroed buffer: held to its plain version
+    within the replays' tolerance, then kernel, zero-fill, plain version
+    and the backward of F.embedding_bag(mode='sum') timed, against the
+    bound counted from these ids (each distinct row read and written
+    once) plus reading g and the ids."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward, embedding_bag_backward_plain
+    from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag_backward
+
+    (B, S), (V, D) = ids.shape, table.shape
+    g = torch.from_numpy(np.random.default_rng(91).normal(size=(B, D)).astype(np.float32)).to(ids.device)
+    valid = (ids >= 0) & (ids < V)
+    n_valid, rows = int(valid.sum()), int(torch.unique(ids[valid]).numel())
+    del valid
+    got = embedding_bag_backward(ids, g, V)
+    want = embedding_bag_backward_plain(ids, g, V)
+    scale = bag_grad_scale(ids, None, g, V, "sum")
+    err = assert_bag_grad(got, want, scale, "bag backward at the train shape")
+    del want, scale
+    lib_table = table.detach().requires_grad_()
+    lib_out = F.embedding_bag(ids.long(), lib_table, mode="sum")
+    lib_grad = torch.autograd.grad(lib_out, lib_table, g, retain_graph=True)[0]
+    lib_diff = float((lib_grad - got).abs().max())
+    del lib_grad, got
+    torch.cuda.empty_cache()
+    buf = torch.zeros((V, D), dtype=torch.float32, device=ids.device)
+    rest = B * D * 4 + B * S * 4
+    rec = {"B": B, "S": S, "V": V, "D": D, "valid_ids": n_valid, "distinct_rows": rows,
+           "max_abs_err": err,
+           "ms": device_ms(lambda: launch_embedding_bag_backward(ids, None, g, buf, mean=False),
+                           runs=9),
+           "zero_fill_ms": device_ms(buf.zero_, runs=9),
+           "wrapper_ms": call_ms(lambda: embedding_bag_backward(ids, g, V), runs=5),
+           "plain_ms": device_ms(lambda: embedding_bag_backward_plain(ids, g, V), runs=5),
+           "library_ms": device_ms(lambda: torch.autograd.grad(lib_out, lib_table, g,
+                                                               retain_graph=True), runs=5),
+           "library": "backward of F.embedding_bag(mode='sum'), dense",
+           "library_max_abs_diff": lib_diff,
+           "bytes_all_lookups": 2 * n_valid * D * 4 + rest,
+           **window_bound(2 * rows * D * 4 + rest, 0, 2 * n_valid * D)}
+    rec["bound_all_lookups_ms"] = rec["bytes_all_lookups"] / HBM_BYTES_PER_S * 1e3
+    rec["bound_with_zero_fill_ms"] = (rec["bytes"] + V * D * 4) / HBM_BYTES_PER_S * 1e3
+    del buf, lib_out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _twotower_grads(cfg, params, batch, bag):
+    """(loss, grads by leaf name, the bag's ids and output gradient) of
+    twotower_loss with its user tower's bag-sum done by ``bag``."""
+    from repro_torch.models import recsys, tree_leaves, tree_unflatten
+    from repro_torch.train.checkpoint import _flatten_with_names
+
+    names = [name for name, _ in _flatten_with_names(params)]
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    seen = {}
+
+    def recording(table, ids, weights=None):
+        seen["ids"] = ids
+        seen["out"] = bag(table, ids, weights)
+        return seen["out"]
+
+    original = recsys.embedding_bag_sum
+    recsys.embedding_bag_sum = recording
+    try:
+        loss = recsys.twotower_loss(cfg, tree_unflatten(params, leaves), batch)
+    finally:
+        recsys.embedding_bag_sum = original
+    grads = torch.autograd.grad(loss, leaves + [seen["out"]])
+    return loss.detach(), dict(zip(names, grads[:-1])), seen["ids"], grads[-1]
+
+
+def twotower_train(dev, mesh) -> dict:
+    """two-tower-retrieval's train_batch at full width, cut to TT_TRAIN_B:
+    one step's gradients through both bag kernels against the same step
+    through embedding_bag_plain under autograd, then TRAIN_STEPS built
+    steps on one batch with every launch count at 0."""
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.kernels.embedding_bag import embedding_bag_plain
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models.embedding import embedding_bag_sum
+    from repro_torch.train import init_opt_state
+
+    arch = cut_arch(TWO_TOWER, train_batch=("train", {"batch": TT_TRAIN_B}))
+    cfg = arch.model_cfg
+    built = build_step(arch, "train_batch", mesh)
+    t0 = time.perf_counter()
+    params, opt, batch = materialize_inputs(arch, "train_batch", built, seed=MODEL_SEED)
+    del opt  # made again after the gradient check, which needs the room
+    setup_s = time.perf_counter() - t0
+
+    loss_k, grads_k, ids, g_hist = _twotower_grads(cfg, params, batch, embedding_bag_sum)
+    loss_p, grads_p, _, g_hist_p = _twotower_grads(
+        cfg, params, batch, lambda t, i, w=None: embedding_bag_plain(i, t, w, "sum"))
+    if not torch.equal(loss_k, loss_p):
+        raise AssertionError(f"two-tower train: loss {float(loss_k)} through the kernels, "
+                             f"{float(loss_p)} through the plain bag")
+    if not torch.equal(g_hist, g_hist_p):
+        raise AssertionError("two-tower train: the bag's output gradients differ")
+    del g_hist_p
+    worst, bitwise = {}, []
+    V = cfg.n_items
+    for name in grads_k:
+        gk, gp = grads_k[name], grads_p[name]
+        atol = BAG_GRAD_ATOL * float(gp.abs().max())  # dL/dlogits is ~1/B: atol on the leaf's scale
+        if name == "item_emb":
+            del grads_p[name]
+            scale = bag_grad_scale(ids, None, g_hist, V, "sum")
+            worst[name] = assert_bag_grad(gk, gp, scale, "two-tower item_emb gradient", atol)
+            del scale
+        else:
+            worst[name] = assert_bag_grad(gk, gp, torch.zeros_like(gp),
+                                          f"two-tower {name} gradient", atol)
+        if torch.equal(gk, gp):
+            bitwise.append(name)
+        del gp
+    del grads_k, grads_p, g_hist
+    torch.cuda.empty_cache()
+    bag = bag_backward_record(ids, params["item_emb"])
+
+    torch.cuda.empty_cache()  # the check's blocks, of other sizes, would fragment the steps'
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        (params, opt, m), ms = timed(lambda: built.fn(params, opt, batch))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("embedding_bag.embedding_bag", "embedding_bag.embedding_bag_backward"):
+        if launches[name] != TRAIN_STEPS:
+            raise AssertionError(f"two-tower train: {launches[name]} launches of {name} in "
+                                 f"{TRAIN_STEPS} steps")
+    if losses[0] != float(loss_k):
+        raise AssertionError("two-tower train: the first step's loss differs from the gradient check's")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"two-tower train: losses {losses} not finite and falling")
+    del params, opt, batch, ids
+    torch.cuda.empty_cache()
+    return {"B": TT_TRAIN_B, "setup_s": setup_s, "losses": losses, "step_ms": step_ms,
+            "peak_bytes": peak, "launches": launches, "grad_max_abs_diff": worst,
+            "bitwise_equal_leaves": bitwise, "loss_bitwise": True, "bag_backward": bag}
+
+
+def grads_close_bf16(got, want, what: str) -> dict:
+    """Card against host, leaf by leaf: each gradient element is the float32
+    of a bfloat16 rounding (the bf16 gather), so two devices' elements may
+    land one bfloat16 ulp apart: |d| <= 2^-7 |want| + 1e-5 max|want|."""
+    out = {}
+    for name in sorted(want):
+        g, w = got[name].cpu(), want[name]
+        d = (g - w).abs()
+        lim = BF16_ULP * w.abs() + 1e-5 * float(w.abs().max())
+        if bool((d > lim).any()):
+            raise AssertionError(f"{what} {name}: {int((d > lim).sum())} elements off "
+                                 f"(max abs diff {float(d.max())})")
+        out[name] = {"max_abs_diff": float(d.max()), "differing_share": float((d > 0).double().mean())}
+    return out
+
+
+def stablelm_train(dev, mesh, cpu_mesh) -> dict:
+    """stablelm-1.6b train_4k at full width, cut to LM_TRAIN: TRAIN_STEPS
+    steps on one batch (two microbatches), then the same config cut to 2
+    layers in float32 at B 1 x S 256, one step's loss and gradients on the
+    card against the host."""
+    from repro_torch.configs.lm_archs import STABLELM_1_6B
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import transformer
+    from repro_torch.train.checkpoint import _flatten_with_names
+
+    arch = cut_arch(STABLELM_1_6B, train_4k=("train", LM_TRAIN))
+    built = build_step(arch, "train_4k", mesh)
+    if built.meta["n_micro"] != 2 or not built.meta["bf16_gather"]:
+        raise AssertionError(f"stablelm train: meta {built.meta}, want n_micro 2 with the bf16 gather")
+    params, opt, batch = materialize_inputs(arch, "train_4k", built, seed=MODEL_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        (params, opt, m), ms = timed(lambda: built.fn(params, opt, batch))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(np.isfinite(losses + norms)) and losses[-1] < losses[0]):
+        raise AssertionError(f"stablelm train: losses {losses}, grad norms {norms}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    rec = {"dims": LM_TRAIN, "n_micro": built.meta["n_micro"], "losses": losses,
+           "grad_norms": norms, "step_ms": step_ms, "peak_bytes": peak,
+           "tokens_per_s": LM_TRAIN["global_batch"] * LM_TRAIN["seq_len"] / (statistics.median(step_ms) / 1e3)}
+
+    from dataclasses import replace
+
+    small = replace(arch, model_cfg=replace(arch.model_cfg, n_layers=2, dtype="float32"))
+    small = cut_arch(small, train_4k=("train", {"seq_len": 256, "global_batch": 1}))
+    built = build_step(small, "train_4k", mesh)
+    params, _, batch = materialize_inputs(small, "train_4k", built, seed=MODEL_SEED)
+    cfg = small.model_cfg
+    args = (built.meta["n_micro"],)
+    t = time.perf_counter()
+    loss_c, grads_c = transformer.lm_grads_microbatched(
+        cfg, params, batch["tokens"], batch["targets"], *args, mesh, ("data",),
+        bf16_gather=built.meta["bf16_gather"])
+    host_p, host_b = to_device(params, "cpu"), to_device(batch, "cpu")
+    loss_h, grads_h = transformer.lm_grads_microbatched(
+        cfg, host_p, host_b["tokens"], host_b["targets"], *args, cpu_mesh, ("data",),
+        bf16_gather=built.meta["bf16_gather"])
+    rel = abs(float(loss_c) / float(loss_h) - 1)
+    if rel > LM_HOST_LOSS_RTOL:
+        raise AssertionError(f"stablelm 2 layers: loss {float(loss_c)} on the card, "
+                             f"{float(loss_h)} on the host")
+    rec["card_vs_host"] = {"loss_card": float(loss_c), "loss_host": float(loss_h), "loss_rel": rel,
+                           "grads": grads_close_bf16(dict(_flatten_with_names(grads_c)),
+                                                     dict(_flatten_with_names(grads_h)),
+                                                     "stablelm 2 layers gradient"),
+                           "seconds": time.perf_counter() - t}
+    del params, grads_c
+    torch.cuda.empty_cache()
+    return rec
+
+
+def reduced_train_cells(dev, mesh, cpu_mesh) -> dict:
+    """Every reduced train cell, two steps on the card against the port's
+    CPU run from the same inputs, within the CPU tests' tolerances."""
+    from repro_torch.configs.lm_archs import LM_ARCHS
+    from repro_torch.configs.recsys_archs import RECSYS_ARCHS
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import tree_map
+
+    out = {}
+    for arch in [a.reduced() for a in LM_ARCHS + RECSYS_ARCHS]:
+        shape = "train_4k" if arch.family == "lm" else "train_batch"
+        card = build_step(arch, shape, mesh)
+        host = build_step(arch, shape, cpu_mesh)
+        p, o, b = materialize_inputs(arch, shape, card, seed=MODEL_SEED)
+        hp, ho, hb = tree_map(lambda t: t.to("cpu", copy=True), (p, o, b))  # the steps write in place
+        got, want = [], []
+        for _ in range(2):
+            p, o, m = card.fn(p, o, b)
+            hp, ho, hm = host.fn(hp, ho, hb)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+            want.append((float(hm["loss"]), float(hm["grad_norm"])))
+        rtol_loss, rtol_norm = TRAIN_TOL[arch.family]
+        got, want = np.array(got), np.array(want)
+        np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=rtol_loss, err_msg=arch.arch_id)
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=rtol_norm, err_msg=arch.arch_id)
+        out[arch.arch_id] = {"card": got.tolist(), "host": want.tolist()}
+    return out
+
+
+def supervisor_run(dev) -> dict:
+    """launch/train.py's train_arch on the card: the default reduced
+    stablelm, a failure injected at SUP_FAIL_AT, against an uninterrupted
+    run; then the CLI for 5 steps."""
+    from repro_torch.launch.train import train_arch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(steps=SUP_STEPS, ckpt_every=SUP_CKPT_EVERY, device=dev)
+        t = time.perf_counter()
+        clean = train_arch("stablelm-1.6b", ckpt_dir=f"{tmp}/clean", **kw)
+        failed = train_arch("stablelm-1.6b", ckpt_dir=f"{tmp}/faulty",
+                            inject_failures={SUP_FAIL_AT: "node_loss"}, **kw)
+        sup_s = time.perf_counter() - t
+        if failed.restarts != 1 or clean.restarts != 0:
+            raise AssertionError(f"supervisor: restarts {failed.restarts} / {clean.restarts}")
+        # the faulty run logs steps 0..SUP_FAIL_AT-1, then replays from the last checkpoint
+        resumed = failed.losses[SUP_FAIL_AT:]
+        replayed = clean.losses[SUP_FAIL_AT - SUP_FAIL_AT % SUP_CKPT_EVERY:]
+        diff = max(abs(a - b) for a, b in zip(resumed, replayed))
+        if len(resumed) != len(replayed) or failed.losses[:SUP_FAIL_AT] != clean.losses[:SUP_FAIL_AT]:
+            raise AssertionError("supervisor: the runs' steps do not line up")
+        if diff > 1e-5 * max(abs(x) for x in replayed):
+            raise AssertionError(f"supervisor: losses after the restart differ by {diff}")
+        t = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--steps", "5",
+                              "--ckpt-dir", f"{tmp}/cli"],
+                             capture_output=True, text=True, timeout=300,
+                             env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src")))
+        if cli.returncode != 0 or "steps=5 restarts=0" not in cli.stdout:
+            raise AssertionError(f"train CLI failed: {cli.stdout}{cli.stderr}")
+    return {"restarts": failed.restarts, "resumed_max_abs_diff": diff,
+            "resumed_bitwise": resumed == replayed, "losses_clean": clean.losses,
+            "seconds": sup_s, "cli_s": time.perf_counter() - t,
+            "cli_stdout": cli.stdout.strip().splitlines()[-1]}
+
+
+def dp_problem():
+    """check_compressed_dp.py's linear regression: make_batch(step)."""
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=(8, 1)).astype(np.float32)
+
+    def make_batch(step):
+        r = np.random.default_rng(step)
+        x = r.normal(size=(64, 8)).astype(np.float32)
+        y = x @ w_true + 0.01 * r.normal(size=(64, 1)).astype(np.float32)
+        return {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+
+    return make_batch
+
+
+def compressed_dp(devices) -> dict:
+    """The three schemes over a (DP_SHARDS,) mesh of ``devices``, 40 steps
+    each -> losses by scheme, checked against the reference script's
+    thresholds."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (
+        AdamWConfig,
+        init_error_state,
+        init_opt_state,
+        make_compressed_dp_train_step,
+    )
+
+    mesh = make_mesh((DP_SHARDS,), ("data",), devices=devices)
+    make_batch = dp_problem()
+    lead = torch.device(devices[0])
+
+    def loss_fn(params, batch):
+        return torch.mean((batch["x"] @ params["w"] - batch["y"]) ** 2)
+
+    out = {}
+    for scheme in ("exact", "int8", "topk"):
+        step = make_compressed_dp_train_step(loss_fn, AdamWConfig(lr=5e-2, weight_decay=0.0), mesh,
+                                             "data", scheme, topk_frac=DP_TOPK_FRAC)
+        params = {"w": torch.zeros((8, 1), device=lead)}
+        opt, err = init_opt_state(params), [init_error_state(params)] * DP_SHARDS
+        losses = []
+        for i in range(DP_STEPS):
+            params, opt, err, m = step(params, opt, err, to_device(make_batch(i), lead))
+            losses.append(float(m["loss"]))
+        out[scheme] = losses
+    for scheme, losses in out.items():
+        if not losses[-1] < 0.05 * losses[0]:
+            raise AssertionError(f"compressed DP {scheme}: {losses[0]} -> {losses[-1]}")
+    for scheme in ("int8", "topk"):
+        if not out[scheme][-1] < out["exact"][-1] * 20 + 1e-3:
+            raise AssertionError(f"compressed DP {scheme}: {out[scheme][-1]} against exact "
+                                 f"{out['exact'][-1]}")
+    return out
+
+
+def train_phase(dev) -> dict:
+    """Training on the card (see the module docstring), each cut listed
+    under ``reduced``."""
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    n_cases, worst = bag_backward_replays(dev)
+    log(f"train: kernel embedding_bag.embedding_bag_backward: {n_cases} replay cases within "
+        f"rtol {BAG_GRAD_RTOL}, atol {BAG_GRAD_ATOL} of the added terms' magnitudes "
+        f"(max abs err {worst})")
+    report = {"replay_cases": n_cases, "replay_max_abs_err": worst}
+
+    tt = twotower_train(dev, mesh)
+    report["twotower"] = tt
+    bag = tt["bag_backward"]
+    report["max_abs_err"] = max(worst, bag["max_abs_err"])
+    log(f"train: two-tower-retrieval train_batch B={tt['B']} V={bag['V']} D={bag['D']}: main path "
+        f"launches {tt['launches']}; losses {tt['losses']}; ms per step "
+        f"{[round(x, 1) for x in tt['step_ms']]}; peak {tt['peak_bytes'] / 1e9:.2f} GB; "
+        f"gradients through both kernels equal the plain bag's within tolerance (item_emb max "
+        f"abs diff {tt['grad_max_abs_diff']['item_emb']}, bit-equal leaves "
+        f"{len(tt['bitwise_equal_leaves'])} of {len(tt['grad_max_abs_diff'])}), loss to the bit")
+    log(f"train: bag backward at B={bag['B']} S={bag['S']} into V={bag['V']} x D={bag['D']}: "
+        f"kernel {bag['ms']:.4f} ms (wrapper {bag['wrapper_ms']:.4f} ms with its zeroed "
+        f"buffer), zero-fill {bag['zero_fill_ms']:.4f} ms, plain {bag['plain_ms']:.4f} ms, "
+        f"library {bag['library_ms']:.4f} ms, bound {bag['bound_ms']:.4f} ms by "
+        f"{bag['bound_by']} ({bag['bytes'] / 1e9:.2f} GB, {bag['distinct_rows']} distinct rows; "
+        f"{bag['bound_all_lookups_ms']:.4f} ms counting every lookup; "
+        f"{bag['bound_with_zero_fill_ms']:.4f} ms with the buffer's write); unit-scale "
+        f"grad_out within tolerance of the plain version (max abs err {bag['max_abs_err']})")
+
+    lm = stablelm_train(dev, mesh, cpu_mesh)
+    report["stablelm"] = lm
+    ch = lm["card_vs_host"]
+    log(f"train: stablelm-1.6b train_4k B={LM_TRAIN['global_batch']} S={LM_TRAIN['seq_len']} "
+        f"n_micro {lm['n_micro']}: losses {lm['losses']}, grad norms {lm['grad_norms']}; "
+        f"ms per step {[round(x, 1) for x in lm['step_ms']]}; peak {lm['peak_bytes'] / 1e9:.2f} GB; "
+        f"2 layers float32 B1 S256 card vs host: loss rel diff {ch['loss_rel']:.2e}, gradients "
+        f"within one bfloat16 ulp (largest differing share "
+        f"{max(v['differing_share'] for v in ch['grads'].values()):.4f})")
+
+    cells = reduced_train_cells(dev, mesh, cpu_mesh)
+    report["reduced_cells"] = cells
+    log(f"train: {len(cells)} reduced train cells, two steps on the card equal to the CPU run "
+        f"within the CPU tests' tolerances")
+
+    sup = supervisor_run(dev)
+    report["supervisor"] = sup
+    log(f"train: supervisor {SUP_STEPS} steps, checkpoint every {SUP_CKPT_EVERY}, failure at "
+        f"{SUP_FAIL_AT}: restarts {sup['restarts']}, resumed losses "
+        f"{'equal to the bit' if sup['resumed_bitwise'] else 'max abs diff ' + str(sup['resumed_max_abs_diff'])}"
+        f" ({sup['seconds']:.1f} s); CLI: {sup['cli_stdout']}")
+
+    layouts = [[dev] * DP_SHARDS]
+    if torch.cuda.device_count() >= DP_SHARDS:
+        layouts.append([torch.device("cuda", i) for i in range(DP_SHARDS)])
+    report["compressed_dp"] = {}
+    for devices in layouts:
+        tag = "one card" if len(set(devices)) == 1 else f"{DP_SHARDS} cards"
+        dp = compressed_dp(devices)
+        report["compressed_dp"][tag] = dp
+        log(f"train: compressed DP ({DP_SHARDS},) mesh on {tag}: final loss "
+            + ", ".join(f"{k} {v[-1]:.6f}" for k, v in dp.items())
+            + " (check_compressed_dp.py's thresholds met)")
+    report["reduced"] = [
+        {"what": "two-tower-retrieval train_batch", "cut": f"B 65,536 -> {TT_TRAIN_B}",
+         "why": "reckoned (not run) ~82.7 GB at B 65,536, over the 76 GB limit: 31.1 GB of "
+                "parameters and moments plus three 17.2 GB (B, B) float32 tensors in the loss's "
+                "backward (the 20.5 GB of table gradients come after those are freed)"},
+        {"what": "stablelm-1.6b train_4k", "cut": "global_batch 256 -> 8 at S 4096",
+         "why": "B 256 is 64 microbatches, minutes a step; 8 keeps two microbatches"},
+        {"what": "stablelm card against host", "cut": "2 layers, float32, B 1 x S 256",
+         "why": "a host step at full width takes too long"},
+        {"what": "all models", "cut": "random weights from a seed, one repeated batch",
+         "why": "no checkpoints"}]
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"train: phase {report['seconds']:.1f} s; reduced: "
+        + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
+    return report
+
+
 def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
     """One kernel of the kernels line, from its primary shape's record."""
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -2438,6 +2954,7 @@ def main() -> int:
     segmented = segmented_phase(dev, table, lex, queries)
     tuned = tune_phase(dev)
     models = models_phase(dev)
+    train = train_phase(dev)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -2492,16 +3009,28 @@ def main() -> int:
                      sh["embedding_bag"][bag],
                      {**others("embedding_bag", bag),
                       "launches_models": models["launches"]["embedding_bag.embedding_bag"],
+                      "launches_train": train["twotower"]["launches"]["embedding_bag.embedding_bag"],
                       "models_serve_bulk": {k: models["bag_serve_bulk"][k] for k in (
                           "B", "S", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
                           "bound_by", "bound_all_lookups_ms")}}),
+        kernel_entry("embedding_bag.embedding_bag_backward", "embedding_bag.cu",
+                     "none: the gradient of src/repro/models/embedding.py:26 embedding_bag_sum, "
+                     "which the reference differentiates through XLA",
+                     train["twotower"]["launches"]["embedding_bag.embedding_bag_backward"],
+                     train["max_abs_err"], train["twotower"]["bag_backward"],
+                     {"matches_plain": f"within rtol {BAG_GRAD_RTOL}, atol {BAG_GRAD_ATOL} of the "
+                                       "added terms' magnitudes (float32 atomics)",
+                      "shape": {k: train["twotower"]["bag_backward"][k] for k in ("B", "S", "V", "D")},
+                      **{k: train["twotower"]["bag_backward"][k] for k in (
+                          "zero_fill_ms", "distinct_rows", "bound_all_lookups_ms")}}),
     ]}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
-             "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models},
+             "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models,
+             "train": train},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

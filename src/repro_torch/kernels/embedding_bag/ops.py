@@ -25,6 +25,21 @@ width raises ValueError (the reference fails on each), and so does a
 ``combine`` other than "sum" or "mean" (the reference sums then). The
 kernel takes float32 and bfloat16 tables. Given numpy arrays, the entry
 point runs on ``device``, the card unless the caller names another.
+
+The bag is differentiable with respect to the table (and the weights)
+through a ``torch.autograd.Function``: the forward is the path above, the
+table's gradient :func:`embedding_bag_backward`, a dense (V, D) float32
+buffer with ``w[b, s] * g[b]`` added at row ``ids[b, s]`` for every valid
+``(b, s)`` (``g[b]`` divided first by the mean's denominator), as the
+reference's gradient of its gather and sum is. On a card that is the
+port's own kernel ``embedding_bag_bwd`` in ``csrc/embedding_bag.cu``
+(``embedding_bag_backward.launches`` counts it), on the CPU its plain
+version :func:`embedding_bag_backward_plain`. Departure: the backward
+takes float32 tables only; a bfloat16 table that requires a gradient
+raises TypeError. The kernel adds with float32 atomics, so its sums agree
+with the plain version's within rounding, not bit for bit. The weights'
+gradient, ``dot(row, g[b])`` per valid ``(b, s)``, is plain torch ops on
+both devices.
 """
 
 from __future__ import annotations
@@ -86,13 +101,26 @@ def embedding_bag(ids, table, weights=None, combine: str = "sum", *,
     """Bag-reduce embedding lookup: ids (B, S) int32 (-1 = padding), table
     (V, D), optional weights (B, S) -> (B, D) in the table's type. A table
     on a card goes through the CUDA kernel, one on the CPU through
-    :func:`embedding_bag_plain`; ids and weights follow the table."""
+    :func:`embedding_bag_plain`; ids and weights follow the table. With a
+    table (or weights) that requires a gradient, the result carries one
+    (see the module docstring)."""
     dtype = table.dtype if isinstance(table, torch.Tensor) else torch.float32
     table = as_tensor(table, dtype, device)
     ids = as_tensor(ids, torch.int32, table.device)
     if weights is not None:
         weights = as_tensor(weights, torch.float32, table.device)
     _check(ids, table, weights, combine)
+    if torch.is_grad_enabled() and (table.requires_grad
+                                    or (weights is not None and weights.requires_grad)):
+        if table.dtype != torch.float32:
+            raise TypeError("the embedding bag's backward kernel takes float32 gradients "
+                            f"only; the table is {table.dtype}")
+        return _EmbeddingBagFn.apply(ids, table, weights, combine)
+    return _forward(ids, table, weights, combine)
+
+
+def _forward(ids, table, weights, combine: str) -> torch.Tensor:
+    """The checked forward: the kernel on a card, the plain version on the CPU."""
     if not table.is_cuda:
         return embedding_bag_plain(ids, table, weights, combine)
     if table.dtype not in KERNEL_DTYPES:
@@ -108,6 +136,101 @@ def embedding_bag(ids, table, weights=None, combine: str = "sum", *,
 embedding_bag.launches = 0
 
 
+class _EmbeddingBagFn(torch.autograd.Function):
+    """The bag with its gradients: the table's through
+    :func:`embedding_bag_backward`, the weights' in plain torch ops."""
+
+    @staticmethod
+    def forward(ctx, ids, table, weights, combine):
+        ctx.save_for_backward(ids, table if weights is not None else None, weights)
+        ctx.combine, ctx.num_rows = combine, table.shape[0]
+        return _forward(ids, table, weights, combine)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, table, weights = ctx.saved_tensors
+        grad_table = grad_w = None
+        if ctx.needs_input_grad[1]:
+            grad_table = embedding_bag_backward(ids, grad_out, ctx.num_rows, weights, ctx.combine)
+        if ctx.needs_input_grad[2]:
+            g = _bag_grad(ids, grad_out, ctx.combine)
+            valid = (ids >= 0) & (ids < ctx.num_rows)
+            rows = table[ids.clamp(0, ctx.num_rows - 1).long()].float()  # (B, S, D)
+            grad_w = torch.where(valid, (rows * g[:, None, :]).sum(dim=-1), 0.0)
+        return None, grad_table, grad_w, None
+
+
+def _bag_grad(ids, grad_out, combine: str) -> torch.Tensor:
+    """g', the bag's float32 output gradient, divided for ``mean`` by the
+    forward's denominator max(#(ids >= 0), 1)."""
+    g = grad_out.float()
+    if combine == "mean":
+        g = g / (ids >= 0).sum(dim=1, keepdim=True).clamp(min=1).float()
+    return g
+
+
+def _check_backward(ids, grad_out, num_rows: int, weights, combine: str) -> None:
+    if combine not in COMBINES:
+        raise ValueError(f"combine must be one of {COMBINES}, got {combine!r}")
+    if ids.dim() != 2 or grad_out.dim() != 2 or grad_out.shape[0] != ids.shape[0]:
+        raise ValueError(f"ids {tuple(ids.shape)} and grad_out {tuple(grad_out.shape)} "
+                         "must be (B, S) and (B, D)")
+    if 0 in ids.shape or 0 in grad_out.shape or num_rows < 1:
+        raise ValueError(f"empty input: ids {tuple(ids.shape)}, grad_out "
+                         f"{tuple(grad_out.shape)}, {num_rows} rows")
+    if ids.dtype != torch.int32 or grad_out.dtype != torch.float32:
+        raise TypeError(f"ids must be int32 and grad_out float32, got {ids.dtype} and "
+                        f"{grad_out.dtype}")
+    if weights is not None and (tuple(weights.shape) != tuple(ids.shape)
+                                or weights.dtype != torch.float32):
+        raise ValueError(f"weights must be float32 of shape {tuple(ids.shape)}")
+    for name, t in (("ids", ids), ("weights", weights)):
+        if t is not None and t.device != grad_out.device:
+            raise ValueError(f"{name} is on {t.device}, grad_out on {grad_out.device}")
+
+
+def embedding_bag_backward_plain(ids: torch.Tensor, grad_out: torch.Tensor, num_rows: int,
+                                 weights: torch.Tensor | None = None,
+                                 combine: str = "sum") -> torch.Tensor:
+    """The plain PyTorch version of :func:`embedding_bag_backward`, on any
+    device: ids (B, S) int32, grad_out (B, D) float32 -> the table's
+    gradient (num_rows, D) float32, ``w[b, s] * g'[b]`` added at row
+    ``ids[b, s]`` for every id in [0, num_rows): in (b, s) order on the
+    CPU, with atomics on a card."""
+    _check_backward(ids, grad_out, num_rows, weights, combine)
+    g = _bag_grad(ids, grad_out, combine)
+    valid = (ids >= 0) & (ids < num_rows)
+    w = torch.ones(ids.shape, device=ids.device) if weights is None else weights
+    contrib = w[..., None] * g[:, None, :]  # (B, S, D)
+    out = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    out.index_add_(0, ids[valid].long(), contrib[valid])  # in (b, s) order on the CPU
+    return out
+
+
+def embedding_bag_backward(ids, grad_out, num_rows: int, weights=None,
+                           combine: str = "sum") -> torch.Tensor:
+    """The table's gradient of :func:`embedding_bag`: ids (B, S) int32,
+    grad_out (B, D) float32, optional weights (B, S) float32 -> (num_rows,
+    D) float32. On a card the CUDA kernel ``embedding_bag_bwd`` adds into a
+    zeroed buffer with float32 atomics; on the CPU
+    :func:`embedding_bag_backward_plain`."""
+    _check_backward(ids, grad_out, num_rows, weights, combine)
+    if not grad_out.is_cuda:
+        return embedding_bag_backward_plain(ids, grad_out, num_rows, weights, combine)
+    if num_rows >= 2**31 or grad_out.shape[1] > 2**23:
+        raise ValueError(f"a gradient of {num_rows} x {grad_out.shape[1]} exceeds the "
+                         "kernel's limits")
+    ids, grad_out = ids.contiguous(), grad_out.contiguous()
+    weights = None if weights is None else weights.contiguous()
+    out = torch.zeros((num_rows, grad_out.shape[1]), dtype=torch.float32, device=grad_out.device)
+    launch_embedding_bag_backward(ids, weights, grad_out, out, mean=combine == "mean")
+    embedding_bag_backward.launches += 1
+    return out
+
+
+embedding_bag_backward.launches = 0
+
+
 def launch_embedding_bag(ids, table, weights, out, *, mean: bool, csrc=None) -> None:
     """Launch the CUDA kernel into a preallocated output on the current
     stream — no checks and no launch count: the wrapper's inner step,
@@ -120,3 +243,16 @@ def launch_embedding_bag(ids, table, weights, out, *, mean: bool, csrc=None) -> 
     launch("embedding_bag", "embedding_bag_fwd",
            [ids, weights, table, out, B, S, V, D, int(mean), KERNEL_DTYPES[table.dtype]],
            table.device, CSRC if csrc is None else csrc)
+
+
+def launch_embedding_bag_backward(ids, weights, grad_out, grad_table, *, mean: bool) -> None:
+    """Launch the backward kernel, adding into a preallocated zeroed
+    ``grad_table`` on the current stream — no checks and no launch count
+    (for timing the kernel alone)."""
+    from repro_torch.kernels.build import CSRC, launch
+
+    B, S = ids.shape
+    V, D = grad_table.shape
+    launch("embedding_bag", "embedding_bag_bwd",
+           [ids, weights, grad_out, grad_table, B, S, V, D, int(mean)],
+           grad_out.device, CSRC)

@@ -1,23 +1,31 @@
-"""Step builders, serving half: (arch x shape x mesh) -> step + abstract
-inputs (the reference's ``launch/steps.py``).
+"""Step builders: (arch x shape x mesh) -> step + abstract inputs (the
+reference's ``launch/steps.py``).
 
-For every serving cell (LM prefill and decode, recsys serve and
-retrieval) :func:`build_step` returns a :class:`BuiltStep`: the step
+For every LM and recsys cell (train, LM prefill and decode, recsys serve
+and retrieval) :func:`build_step` returns a :class:`BuiltStep`: the step
 function, its abstract arguments as tensors on the ``meta`` device (the
 torch counterpart of ``jax.eval_shape``: shapes and types, no memory) and
-metadata for the roofline (model params, layers, tokens). The step runs
-on the mesh's device; the port has no sharding annotations, so a mesh
-matters through its data shards (the MoE capacity dispatch runs once per
-shard) and through its model axis, over which the reference shards
-experts and embedding tables, which raises until the multi-device model
-slice. :func:`materialize_inputs` makes concrete inputs: the port's own
-seeded init and the reference's synthetic batch, the same numpy draws in
-the same order.
+metadata for the roofline (model params, layers, tokens; ``n_micro`` and
+``bf16_gather`` for LM training). The step runs on the mesh's device; the
+port has no sharding annotations, so a mesh matters through its data
+shards (the MoE capacity dispatch runs once per shard, the microbatch
+rule divides by them) and through its model axis, over which the
+reference shards experts and embedding tables, which raises until the
+multi-device model slice. :func:`materialize_inputs` makes concrete
+inputs: the port's own seeded init (float32 masters and ``init_opt_state``
+for training, bf16 weights for LM serving) and the reference's synthetic
+batch, the same numpy draws in the same order.
 
-The train branches, ``build_lm_layer_probe``, ``build_gnn_step`` and
-``build_search_step`` raise ``NotImplementedError`` naming the slice that
-ports them. ``REPRO_KV_INT8=1`` (the quantized decode cache) and
-``REPRO_PAD_HEADS=1`` are read where the reference reads them.
+A train step is ``(params, opt_state, batch) -> (params, opt_state,
+{"loss", "grad_norm"})``. It updates ``params`` and the moments in place
+and returns them: the reference's jitted step donates them, and at full
+width there is no room for a second copy.
+
+``build_lm_layer_probe``, ``build_gnn_step`` and ``build_search_step``
+raise ``NotImplementedError`` naming the slice that ports them.
+``REPRO_KV_INT8=1`` (the quantized decode cache), ``REPRO_PAD_HEADS=1``,
+``REPRO_MICRO_STACK_GIB`` and ``REPRO_BF16_GATHER`` are read where the
+reference reads them.
 """
 
 from __future__ import annotations
@@ -30,14 +38,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchSpec, ShapeSpec
-from repro_torch.launch.mesh import dp_axes_of, tp_size
-from repro_torch.models import n_params, recsys, transformer
+from repro_torch.configs.recsys_archs import N_NEG
+from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
+from repro_torch.models import n_params, recsys, transformer, value_and_grad
+from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
 F32 = torch.float32
 I32 = torch.int32
 META = torch.device("meta")
 NP_INTS = {torch.int32: np.int32, torch.int8: np.int8}
-TRAIN_SLICE = "the training slice"
 MULTI_DEVICE_SLICE = "the multi-device model slice"
 
 
@@ -92,7 +101,31 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "device": _device(mesh),
     }
     if shape.kind == "train":
-        raise NotImplementedError(f"LM train steps come with {TRAIN_SLICE}")
+        params_abs = transformer.init_params(cfg, device=META)
+        # reduced (smoke/example) configs train faster with a higher LR
+        opt_cfg = AdamWConfig(lr=1e-3) if cfg.d_model <= 128 else AdamWConfig()
+        # microbatching: bound the remat residual stack (L x Bmicro x S x D
+        # bf16) per device, the reference's rule and budget
+        stack_gib = float(os.environ.get("REPRO_MICRO_STACK_GIB", "2"))
+        b_local = max(B // dp_size(mesh), 1)
+        stack_bytes = lambda bm: cfg.n_layers * bm * S * cfg.d_model * 2  # noqa: E731
+        micro_local = b_local
+        while micro_local > 1 and stack_bytes(micro_local) > stack_gib * 2**30:
+            micro_local //= 2
+        n_micro = b_local // micro_local
+        meta["n_micro"] = n_micro
+        bf16_gather = os.environ.get("REPRO_BF16_GATHER", "1") != "0"
+        meta["bf16_gather"] = bf16_gather
+
+        def step(params, opt_state, batch):
+            loss, grads = transformer.lm_grads_microbatched(
+                cfg, params, batch["tokens"], batch["targets"], n_micro, mesh, dp_ax,
+                bf16_gather=bf16_gather)
+            params, opt_state, gnorm = adamw_update(opt_cfg, params, grads, opt_state)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+        batch_abs = {"tokens": _abstract((B, S), I32), "targets": _abstract((B, S), I32)}
+        return BuiltStep(step, (params_abs, init_opt_state(params_abs), batch_abs), meta)
 
     # serving: bf16 params (production serving never keeps f32 masters)
     params_abs = transformer.init_params(cfg, device=META, dtype=torch.bfloat16)
@@ -153,12 +186,15 @@ def _tables_sharded(params_abs, tp: int) -> bool:
 
 
 def _recsys_batch(cfg, arch_kind: str, kind: str, dims: dict) -> dict:
-    """The reference's serve and retrieval batches, as abstract tensors."""
+    """The reference's train, serve and retrieval batches, as abstract
+    tensors."""
     B = dims["batch"]
     i32 = lambda *s: _abstract(s, I32)  # noqa: E731
     f32 = lambda *s: _abstract(s, F32)  # noqa: E731
     if arch_kind == "seqrec":
         S = cfg.seq_len
+        if kind == "train":
+            return {"hist": i32(B, S), "target": i32(B), "negatives": i32(B, N_NEG)}
         if kind == "serve":
             return {"hist": i32(B, S), "candidates": i32(B, 100)}
         return {"hist": i32(1, S), "candidates": i32(1, dims["n_candidates"])}
@@ -168,22 +204,26 @@ def _recsys_batch(cfg, arch_kind: str, kind: str, dims: dict) -> dict:
             C = dims["n_candidates"]
             return {"hist_items": i32(1, S), "hist_cates": i32(1, S), "cand_items": i32(C),
                     "cand_cates": i32(C), "user_feats": f32(1, cfg.d_user)}
-        return {"hist_items": i32(B, S), "hist_cates": i32(B, S), "target_item": i32(B),
-                "target_cate": i32(B), "user_feats": f32(B, cfg.d_user)}
+        batch = {"hist_items": i32(B, S), "hist_cates": i32(B, S), "target_item": i32(B),
+                 "target_cate": i32(B), "user_feats": f32(B, cfg.d_user)}
+        if kind == "train":
+            batch["labels"] = f32(B)
+        return batch
     if kind == "retrieval":
         C = dims["n_candidates"]
         return {"hist": i32(1, cfg.hist_len), "user_feats": f32(1, cfg.d_user),
                 "cand_items": i32(C), "cand_cates": i32(C)}
-    return {"hist": i32(B, cfg.hist_len), "user_feats": f32(B, cfg.d_user),
-            "item": i32(B), "cate": i32(B)}
+    batch = {"hist": i32(B, cfg.hist_len), "user_feats": f32(B, cfg.d_user),
+             "item": i32(B), "cate": i32(B)}
+    if kind == "train":
+        batch["log_q"] = f32(B)
+    return batch
 
 
 def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
     cfg = arch.model_cfg
     dp_ax = dp_axes_of(mesh)
     kind = shape.kind
-    if kind == "train":
-        raise NotImplementedError(f"recsys train steps come with {TRAIN_SLICE}")
     arch_kind = _arch_kind(cfg)
     params_abs = _INITS[arch_kind](cfg, device=META)
     use_mesh = mesh if _tables_sharded(params_abs, tp_size(mesh)) else None
@@ -193,6 +233,19 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "device": _device(mesh),
     }
     batch_abs = _recsys_batch(cfg, arch_kind, kind, shape.dims)
+
+    if kind == "train":
+        opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.0)
+        loss_fn = {"seqrec": recsys.seqrec_loss, "din": recsys.din_loss,
+                   "twotower": recsys.twotower_loss}[arch_kind]
+
+        def step(params, opt_state, batch):
+            loss, grads = value_and_grad(
+                lambda p: loss_fn(cfg, p, batch, use_mesh, dp_ax), params)
+            params, opt_state, gnorm = adamw_update(opt_cfg, params, grads, opt_state)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+        return BuiltStep(step, (params_abs, init_opt_state(params_abs), batch_abs), meta)
 
     if kind == "serve":
         serve_fn = {
@@ -227,10 +280,11 @@ def build_step(arch: ArchSpec, shape_name: str, mesh) -> BuiltStep:
 
 
 def _synth(tree, arch: ArchSpec, rng, device):
-    """The reference's synthetic serving leaves, drawn from ``rng`` in its
-    order (dict keys sorted): integers in the family's id range (wrapping
-    into narrow types as numpy's cast does), zero for a scalar, N(0, 0.5)
-    for floats."""
+    """The reference's synthetic leaves, drawn from ``rng`` in its order
+    (dict keys sorted): integers in the family's id range (wrapping into
+    narrow types as numpy's cast does), zero for a scalar; ones for a float
+    leaf named ``*mask*`` and zeros for ``log_q``, neither drawn; N(0, 0.5)
+    for the other floats."""
     cfg = arch.model_cfg
 
     def leaf(name, x):
@@ -245,6 +299,10 @@ def _synth(tree, arch: ArchSpec, rng, device):
                 return torch.zeros((), dtype=x.dtype)
             a = rng.integers(0, max(hi, 2), tuple(x.shape)).astype(NP_INTS[x.dtype])
             return torch.from_numpy(a).to(device)
+        if "mask" in name:
+            return torch.ones(tuple(x.shape), dtype=x.dtype, device=device)
+        if name == "log_q":
+            return torch.zeros(tuple(x.shape), dtype=x.dtype, device=device)
         a = rng.normal(0, 0.5, tuple(x.shape)).astype(np.float32)
         return torch.from_numpy(a).to(device=device, dtype=x.dtype)
 
@@ -258,23 +316,28 @@ def _synth(tree, arch: ArchSpec, rng, device):
 
 
 def materialize_batch(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: int = 0):
-    """The step's arguments after the parameters, synthesised on the
-    step's device from ``np.random.default_rng(seed)`` as the reference
-    draws them."""
+    """The step's arguments after the parameters (a train step's: after
+    the optimizer state), synthesised on the step's device from
+    ``np.random.default_rng(seed)`` as the reference draws them."""
     rng = np.random.default_rng(seed)
-    return tuple(_synth(a, arch, rng, built.meta["device"]) for a in built.args[1:])
+    first = 2 if arch.shapes[shape_name].kind == "train" else 1
+    return tuple(_synth(a, arch, rng, built.meta["device"]) for a in built.args[first:])
 
 
 def materialize_inputs(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: int = 0):
     """Concrete inputs for a built step on its device: the port's init
-    seeded with ``seed`` (serving LMs in bf16, as the reference casts
-    them) and :func:`materialize_batch`."""
+    seeded with ``seed`` (float32 masters and ``init_opt_state`` for
+    training; serving LMs in bf16, as the reference casts them) and
+    :func:`materialize_batch`."""
     cfg = arch.model_cfg
     device = built.meta["device"]
+    train = arch.shapes[shape_name].kind == "train"
     if arch.family == "lm":
-        params = transformer.init_params(cfg, seed, device=device, dtype=torch.bfloat16)
+        dtype = torch.float32 if train else torch.bfloat16
+        params = transformer.init_params(cfg, seed, device=device, dtype=dtype)
     elif arch.family == "recsys":
         params = _INITS[_arch_kind(cfg)](cfg, seed, device=device)
     else:
         raise NotImplementedError(f"{arch.family} inputs come with the slice that ports its steps")
-    return (params,) + materialize_batch(arch, shape_name, built, seed)
+    state = (params, init_opt_state(params)) if train else (params,)
+    return state + materialize_batch(arch, shape_name, built, seed)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import normal
+from repro_torch.models import normal, remat
 
 NEG_MASK = -1e30  # the reference's masked score
 RECIP_127 = float(np.float32(1.0) / np.float32(127.0))  # XLA turns "/ 127.0" into this product
@@ -105,13 +105,28 @@ def gqa_attention_naive(q, k, v, *, causal: bool, q_offset=0, kv_len_valid=None)
     return out.reshape(B, Sq, Hq, Dh)
 
 
+def _kv_block(m, l, acc, qblk, kblk, vblk, mask, scale: float):
+    """One KV block of the online softmax: the running max, normaliser and
+    float32 accumulator after the block."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
+    s = torch.where(mask, s, NEG_MASK)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(qblk.dtype), vblk).float()
+    return m_new, l, acc * corr[..., None] + pv
+
+
 def gqa_attention_chunked(
     q, k, v, *, causal: bool, q_offset=0, kv_len_valid=None,
     q_block: int = 512, kv_block: int = 1024,
 ):
     """Flash-style attention in plain torch ops: a loop over Q blocks and,
     inside, over KV blocks with the reference's online softmax (running
-    max, normaliser and float32 accumulator, ``-1e30`` masks).
+    max, normaliser and float32 accumulator, ``-1e30`` masks). Each KV
+    block is rematerialised in the backward, as the reference checkpoints
+    its inner scan body, so a backward holds one block's scores at a time.
 
     A KV block past a Q block's last causal position, or at or past
     ``kv_len_valid``, is skipped. That changes nothing: once block 0
@@ -151,21 +166,13 @@ def gqa_attention_chunked(
             if kj and kv_valid > 0 and (k_first >= kv_valid
                                         or (causal and k_first > q_first + qb - 1)):
                 continue
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kg[:, kj]).float() * scale
             kpos = k_first + torch.arange(kb, device=dev)
             mask = kpos[None, :] < kv_valid
             if causal:
                 mask = mask & (kpos[None, :] <= qpos[:, None])
             else:
                 mask = mask.expand(qb, kb)
-            s = torch.where(mask, s, NEG_MASK)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(qblk.dtype), vg[:, kj]).float()
-            acc = acc * corr[..., None] + pv
-            m = m_new
+            m, l, acc = remat(_kv_block, m, l, acc, qblk, kg[:, kj], vg[:, kj], mask, scale)
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         # (B, Hkv, G, qb, Dh) -> (B, qb, Hq, Dh)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, qb, Hq, Dh).to(q.dtype))

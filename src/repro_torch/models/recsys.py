@@ -1,12 +1,12 @@
 """RecSys architectures: BERT4Rec, SASRec, DIN, Two-Tower retrieval (the
-reference's ``models/recsys.py``), serving side.
+reference's ``models/recsys.py``): serving, and the training losses
+(``seqrec_loss``, ``din_loss``, ``twotower_loss``).
 
 Embedding tables are unsharded here: a mesh whose model axis would
 row-shard a table raises, and the sharded lookups come with the
-multi-device model slice; the ``*_loss`` functions come with training.
-The two-tower user tower reduces its history with
-:func:`repro_torch.models.embedding.embedding_bag_sum`, the port's
-embedding-bag kernel on a card. Retrieval's top-k is a stable descending
+multi-device model slice. The two-tower user tower reduces its history
+with :func:`repro_torch.models.embedding.embedding_bag_sum`, the port's
+embedding-bag kernel on a card, forward and backward. Retrieval's top-k is a stable descending
 sort (the lower candidate first among equal scores, as ``lax.top_k``),
 returning (scores, int32 indices).
 """
@@ -112,6 +112,15 @@ def seqrec_user_state(cfg: SeqRecConfig, params, hist, mesh=None, dp_axes=("data
     return x[:, -1]  # next-item state
 
 
+def seqrec_loss(cfg: SeqRecConfig, params, batch, mesh=None, dp_axes=("data",)):
+    """Sampled softmax: target at slot 0 vs provided negatives."""
+    u = seqrec_user_state(cfg, params, batch["hist"], mesh, dp_axes)
+    cand = torch.cat([batch["target"][:, None], batch["negatives"]], dim=1)
+    c = _lookup(params["item_emb"], cand, mesh, dp_axes)  # (B, 1+N, D)
+    logits = torch.einsum("bd,bnd->bn", u, c).float()
+    return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
+
+
 def seqrec_score(cfg: SeqRecConfig, params, batch, mesh=None, dp_axes=("data",)):
     """Score candidate items: hist (B,S) x candidates (B,C) -> (B,C)."""
     u = seqrec_user_state(cfg, params, batch["hist"], mesh, dp_axes)
@@ -179,6 +188,14 @@ def din_forward(cfg: DINConfig, params, batch, mesh=None, dp_axes=("data",)):
     et_b = et[:, None, :]  # (B, 1, d)
     feats = torch.cat([eh, et_b.expand_as(eh), eh - et_b, eh * et_b], dim=-1)
     return _din_head(params, feats, batch["hist_items"], eh, et, batch["user_feats"])
+
+
+def din_loss(cfg: DINConfig, params, batch, mesh=None, dp_axes=("data",)):
+    logit = din_forward(cfg, params, batch, mesh, dp_axes)
+    y = batch["labels"].float()
+    z = logit.float()
+    # numerically stable BCE-with-logits
+    return torch.mean(torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-torch.abs(z))))
 
 
 def din_retrieval(cfg: DINConfig, params, batch, top_k: int = 100, mesh=None,
@@ -251,6 +268,16 @@ def twotower_item(cfg, params, item_ids, cate_ids, mesh=None, dp_axes=("data",))
     ei = _lookup(params["item_emb"], item_ids, mesh, dp_axes)
     ec = _lookup(params["cate_emb"], cate_ids, mesh, dp_axes)
     return _tower(params["item_tower"], torch.cat([ei, ec], dim=-1))
+
+
+def twotower_loss(cfg: TwoTowerConfig, params, batch, mesh=None, dp_axes=("data",)):
+    """In-batch sampled softmax with logQ correction (Yi et al., RecSys'19):
+    temperature 20, the diagonal of the (B, B) log-softmax."""
+    u = twotower_user(cfg, params, batch, mesh, dp_axes)  # (B, D)
+    v = twotower_item(cfg, params, batch["item"], batch["cate"], mesh, dp_axes)  # (B, D)
+    logits = (u @ v.T).float() * 20.0  # temperature
+    logits = logits - batch["log_q"][None, :]  # sampling correction
+    return -torch.log_softmax(logits, dim=-1).diagonal().mean()
 
 
 def twotower_score(cfg: TwoTowerConfig, params, batch, mesh=None, dp_axes=("data",)):

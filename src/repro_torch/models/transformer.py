@@ -10,12 +10,19 @@ the reference's ``models/transformer.py``, serving side.
 * entry points: ``forward``, ``prefill``, ``decode_step``, with bf16 and
   int8 (``quantized=True``) KV caches from ``init_cache``.
 
+Training: ``lm_loss`` and ``lm_grads_microbatched``, gradients from
+``torch.autograd``. With ``cfg.remat`` each layer of ``forward`` runs
+under ``torch.utils.checkpoint`` where the reference wraps its scan body
+in ``jax.checkpoint`` (the chunked attention also checkpoints its inner
+block), so the backward holds one layer's intermediates at a time.
+
 The reference's sharding rules (``param_pspecs``, ``cache_pspecs``,
 ``_constrain``) only place arrays on a JAX mesh and have no counterpart
-here; ``lm_loss`` and the microbatched gradients come with the training
-slice. ``decode_step`` writes into the caches it is given and returns
-them: the reference's step donates its caches, and a full-width cache
-(26 GB at 32k tokens) leaves no room for a second copy.
+here, and neither has ``_opt_barrier`` (an identity with an identity
+gradient that pins XLA's scheduling). ``decode_step`` writes into the
+caches it is given and returns them: the reference's step donates its
+caches, and a full-width cache (26 GB at 32k tokens) leaves no room for a
+second copy.
 """
 
 from __future__ import annotations
@@ -25,8 +32,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.models import layer_slice, make_generator, model_device, normal, torch_dtype
+from repro_torch.models import (
+    layer_slice,
+    make_generator,
+    model_device,
+    normal,
+    remat,
+    torch_dtype,
+    tree_map,
+    unstack,
+    value_and_grad,
+)
 from repro_torch.models.layers import (
+    NEG_MASK,
     apply_norm,
     attention_block,
     init_attention,
@@ -176,14 +194,75 @@ def _logits(cfg: TransformerConfig, params, x):
 
 
 def forward(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)):
-    """tokens (B, S) -> (logits (B, S, V), mean aux loss over layers)."""
+    """tokens (B, S) -> (logits (B, S, V), mean aux loss over layers); each
+    layer rematerialised in the backward when ``cfg.remat``."""
     x = _embed(cfg, params, tokens)
     block = _block(cfg, mesh, dp_axes)
+
+    def layer(x, p_l):
+        y, _, a = block(x, p_l)
+        return y, a
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, a = block(x, layer_slice(params["layers"], i))
+    for p_l in unstack(params["layers"], cfg.n_layers):
+        x, a = remat(layer, x, p_l) if cfg.remat else layer(x, p_l)
         aux = aux + a
     return _logits(cfg, params, x), aux / cfg.n_layers
+
+
+def lm_loss(cfg: TransformerConfig, params, tokens, targets, mesh=None, dp_axes=("data",)):
+    """Mean next-token cross-entropy in float32 over (B, S), pad columns
+    of the padded vocabulary masked with -1e30, plus 0.01 x the MoE aux
+    loss."""
+    logits, aux = forward(cfg, params, tokens, mesh, dp_axes)
+    logits = logits.float()
+    if cfg.vocab_padded != cfg.vocab:
+        cols = torch.arange(cfg.vocab_padded, device=logits.device)
+        logits = logits + torch.where(cols >= cfg.vocab, NEG_MASK, 0.0)
+    lse = torch.logsumexp(logits, dim=-1)
+    # The reference takes the target logit by a one-hot contraction (a
+    # sharded-V reduction). A gather gives the same float32 value, since
+    # every other product of the contraction is an exact zero, without a
+    # (B, S, V) one-hot (6.6 GB a microbatch at stablelm's full width).
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    loss = (lse - tgt).mean()
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux
+    return loss
+
+
+def lm_grads_microbatched(cfg: TransformerConfig, params, tokens, targets, n_micro: int,
+                          mesh=None, dp_axes=("data",), bf16_gather: bool = True):
+    """Gradient accumulation over ``n_micro`` microbatches in order: the
+    float32 sums of ``g / n_micro`` and ``loss / n_micro`` -> (loss,
+    grads), the grads float32 like the master parameters.
+
+    With ``bf16_gather`` and a mesh, every float32 parameter is cast to
+    bfloat16 before ``lm_loss``, as the reference's ``cast_sharded`` casts
+    it (the reference also needs its parameter specs, which its step
+    builder always passes); the gradients come back through the cast, so
+    each is the float32 of a bfloat16-rounded value."""
+    B = tokens.shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} does not split into {n_micro} microbatches")
+    tk = tokens.reshape(n_micro, B // n_micro, -1)
+    tg = targets.reshape(n_micro, B // n_micro, -1)
+    cast = bf16_gather and mesh is not None
+
+    def loss_fn(p, t, y):
+        if cast:
+            p = tree_map(lambda x: x.to(torch.bfloat16) if x.dtype == torch.float32 else x, p)
+        return lm_loss(cfg, p, t, y, mesh, dp_axes)
+
+    grads = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
+                     params)
+    loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(n_micro):
+        l, g = value_and_grad(loss_fn, params, tk[i], tg[i])
+        tree_map(lambda acc, gi: acc.add_(gi.float().div_(n_micro)), grads, g)
+        del g
+        loss = loss + l / n_micro
+    return loss, grads
 
 
 def prefill(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)):

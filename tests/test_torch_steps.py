@@ -10,8 +10,9 @@ reference's draw for draw; the step's outputs have the shapes
 reference's materialized inputs (its weights carried across) agrees
 with the reference's step: LM logits by cosine >= 0.995 and argmax
 agreement >= 0.9 (bf16 serving weights), recsys outputs within rtol and
-atol 1e-5 with equal top-k ids. The builders the later slices bring
-raise ``NotImplementedError`` naming them.
+atol 1e-5 with equal top-k ids. The train cells are held to the
+reference in ``test_torch_train_steps.py``; the builders the later
+slices bring raise ``NotImplementedError`` naming them.
 """
 
 import numpy as np
@@ -103,8 +104,8 @@ def test_built_lm_step(monkeypatch, arch_id, shape_name, kv_int8):
 def test_lm_train_and_probe_wait_for_their_slices():
     port = LM_ARCHS[0].reduced()
     mesh = _mesh11()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tsteps.build_step(port, "train_4k", mesh)
+    built = tsteps.build_step(port, "train_4k", mesh)  # training is ported
+    assert built.meta["n_micro"] == 1 and len(built.args) == 3
     with pytest.raises(NotImplementedError, match="analysis slice"):
         tsteps.build_lm_layer_probe(port, port.shapes["prefill_32k"], mesh)
     with pytest.raises(NotImplementedError, match="multi-device model slice"):
@@ -149,8 +150,8 @@ def test_built_recsys_step(arch_id, shape_name):
 
 def test_other_builders_wait_for_their_slices():
     mesh = _mesh11()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tsteps.build_step(RECSYS_ARCHS[0].reduced(), "train_batch", mesh)
+    built = tsteps.build_step(RECSYS_ARCHS[0].reduced(), "train_batch", mesh)  # ported
+    assert sorted(built.args[1]) == ["mu", "nu", "step"]
     with pytest.raises(NotImplementedError, match="GNN slice"):
         tsteps.build_gnn_step(None, None, mesh)
     with pytest.raises(NotImplementedError, match="GNN slice"):
