@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives eight paths:
+``nvcc`` per source, all started together) and drives ten paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -62,22 +62,39 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   port on the same weights, stablelm's decode at S its prefill(S + 1)
   (cosine >= 0.999), the int8 cache the bf16 one (test_kv_int8.py's
   thresholds) and the batcher's outputs the CPU batcher's;
-- training: the embedding bag's backward kernel held to its plain
-  version over the forward's float32 replay families and a bag set of
-  one repeated row; two-tower-retrieval's train_batch at full width (B
-  32,768), one step's gradients through both bag kernels against the
-  same step through the plain bag under autograd, then 3 built steps
-  with the counts set to 0 (one forward and one backward launch a step),
-  the backward timed at that shape against its bound, the zero-fill, the
-  plain version and F.embedding_bag's backward; stablelm-1.6b train_4k
-  at full width cut to B 8 x S 4096 (two microbatches), and cut to 2
-  layers in float32, one step's loss and gradients against the host's;
-  every reduced train cell against the port's CPU run; the supervisor
-  (``launch/train.py`` ``train_arch``, a failure injected at step 15)
-  resuming with an uninterrupted run's losses, then the train CLI; and
-  compressed data parallelism (exact, int8, top-k) on a (4,) mesh of
-  this card, and of four cards when four are visible, against
-  ``tests/multidevice/check_compressed_dp.py``'s thresholds.
+- training: the embedding bag's backward kernel (a stable sort of the
+  ids, then the sorted segment sum of ``csrc/segment_sum.cuh``) held to
+  its plain version on the host, to the bit, over the forward's float32
+  replay families and bag sets of one repeated row;
+  two-tower-retrieval's train_batch at full width (B 32,768): one step's
+  gradients through both bag kernels twice (every leaf equal to the bit),
+  then against the same step through the plain bag under autograd, the
+  backward at that shape equal to the host's plain version and timed
+  against its bound, the plan (sort and offsets), the plain version and
+  F.embedding_bag's backward; 3 built steps with the counts set to 0 (one
+  forward and one backward launch a step), then the same 3 steps from the
+  state materialized anew from the seed (losses and grad norms equal);
+  stablelm-1.6b train_4k at full width cut to B 8 x S 4096 (two
+  microbatches), and cut to 2 layers in float32, one step's loss and
+  gradients against the host's; every reduced train cell against the
+  port's CPU run; the supervisor (``launch/train.py`` ``train_arch``, a
+  failure injected at step 15) resuming with an uninterrupted run's
+  losses, equal to the bit, then the train CLI; and compressed data
+  parallelism (exact, int8, top-k) on a (4,) mesh of this card, and of
+  four cards when four are visible, against
+  ``tests/multidevice/check_compressed_dp.py``'s thresholds;
+- the GNN: the segment-sum kernel held to its plain version on the host,
+  to the bit, over replay families; the EGNN (4 layers x 64) through its
+  built train steps at full_graph_sm, minibatch_lg and molecule, with the
+  counts set to 0, each against the same steps on the host and against a
+  replay from the seeded state (to the bit); minibatch_lg fed by
+  ``minibatch_stream`` over a Reddit-sized ``CSRGraph.random`` (losses
+  finite and falling); then the kernel at minibatch_lg's widths (64, 3,
+  1) with a uniform and the sampler's src, timed against its bound, the
+  plain version and ``index_add_``;
+- the search arch: ``build_search_step`` at qt1_p99, qt1_serve and
+  qt1_heavy, raw, offsets and delta payloads, timed warm, the top-k
+  records of the first rows equal to the same step on the host.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -90,7 +107,8 @@ kernels built from ``DIR/{nearest_r,embedding_bag,intersect,proximity}.cu``
 full-width shape too, in turns with the current ones: earlier, current,
 current, earlier.
 
-The second-to-last line of standard output is the kernels JSON line, the
+ogb_products and qt1_bulk are reckoned, not run (they do not fit one
+card). The second-to-last line of standard output is the kernels JSON line, the
 last line ``{"ok": true, "device": {...}}``. The script fails (non-zero
 exit, no result line) without a card, and outside a checkout of the repo.
 """
@@ -139,7 +157,7 @@ NR_SHAPES = (("qt34", (64, 4, 0, 65536), None),
              ("qt34 dense-anchor", (64, 4, 0, 65536), (2025, DENSE_ROWS, SPARSE_ROWS)),
              ("qt5 sparse-anchor", (64, 3, 3, 65536), (2026, SPARSE_ROWS, DENSE_ROWS)))
 SLEEP_CYCLES_PER_S = 2.0e9  # above the H100's top SM clock, so a hold lasts at least as asked
-SOURCES = ("nearest_r", "intersect", "proximity", "embedding_bag")  # csrc/<name>.cu
+SOURCES = ("nearest_r", "intersect", "proximity", "embedding_bag", "segment_sum")  # csrc/<name>.cu
 # (tag, Na, Nb): kernel_bench.py's full shape and qt1_heavy's posting length
 # (configs/proximity_search.py)
 FULL_SHAPES = (("kernel_bench", 131_072, 1_048_576), ("qt1_heavy", 1_048_576, 1_048_576))
@@ -560,6 +578,7 @@ def wrappers() -> dict:
     )
     from repro_torch.kernels.nearest_r import window_join
     from repro_torch.kernels.proximity import proximity_join
+    from repro_torch.kernels.segment_sum import segment_sum
 
     return {"nearest_r.window_join": window_join,
             "intersect.intersect_sorted": intersect_sorted,
@@ -567,7 +586,8 @@ def wrappers() -> dict:
             "intersect.intersect_sorted_compressed": intersect_sorted_compressed,
             "proximity.proximity_join": proximity_join,
             "embedding_bag.embedding_bag": embedding_bag,
-            "embedding_bag.embedding_bag_backward": embedding_bag_backward}
+            "embedding_bag.embedding_bag_backward": embedding_bag_backward,
+            "segment_sum.segment_sum": segment_sum}
 
 
 def reset_counts() -> None:
@@ -2414,7 +2434,9 @@ def models_phase(dev) -> dict:
 TT_TRAIN_B = 32_768
 LM_TRAIN = {"seq_len": 4096, "global_batch": 8}  # stablelm train_4k, cut from B 256
 TRAIN_STEPS = 3
-BAG_GRAD_RTOL, BAG_GRAD_ATOL = 1e-5, 1e-6  # of the sum of the added terms' magnitudes
+# the two-tower gradients through the kernels against the plain bag under autograd (whose card
+# backward adds with atomics): of the sum of the added terms' magnitudes
+BAG_GRAD_RTOL, BAG_GRAD_ATOL = 1e-5, 1e-6
 LM_HOST_LOSS_RTOL = 1e-4  # stablelm cut to 2 layers, float32, card against host
 BF16_ULP = 2.0 ** -7  # a bfloat16-rounded gradient element may land one ulp apart
 TRAIN_TOL = {"lm": ((2e-3, 3e-2)), "recsys": (1e-5, 1e-5)}  # tests/test_torch_train_steps.py
@@ -2431,14 +2453,13 @@ def bag_grad_scale(ids, weights, g, num_rows, combine):
                                         None if weights is None else weights.abs(), combine)
 
 
-def assert_bag_grad(got, want, scale, what: str, atol: float = BAG_GRAD_ATOL) -> float:
+def assert_bag_grad(got, want, scale, what: str, atol: float) -> float:
     """|got - want| <= atol + rtol * (scale + |want|), row slices at a time
     (a full-width gradient is 10 GB); returns the largest difference."""
     worst = 0.0
     for r in range(0, want.shape[0], 1 << 20):
         d = (got[r:r + (1 << 20)] - want[r:r + (1 << 20)]).abs()
-        lim = atol + BAG_GRAD_RTOL * (scale[r:r + (1 << 20)]
-                                               + want[r:r + (1 << 20)].abs())
+        lim = atol + BAG_GRAD_RTOL * (scale[r:r + (1 << 20)] + want[r:r + (1 << 20)].abs())
         if bool((d > lim).any()):
             raise AssertionError(f"{what}: {int((d > lim).sum())} gradient elements off the "
                                  f"plain version (max abs diff {float(d.max())})")
@@ -2446,11 +2467,22 @@ def assert_bag_grad(got, want, scale, what: str, atol: float = BAG_GRAD_ATOL) ->
     return worst
 
 
-def bag_backward_replays(dev) -> tuple[int, float]:
-    """The backward kernel against its plain version over the forward's
-    float32 replay families (their grad_out drawn per case, a misaligned
-    copy for the shifted ones) and one bag set whose every id is the same
-    row, the atomics' worst contention."""
+def assert_equal_host(got, want, what: str) -> None:
+    """``got`` (on the card) equal to ``want`` (on the host) to the bit,
+    row slices at a time (a full-width gradient is 10 GB)."""
+    for r in range(0, want.shape[0], 1 << 20):
+        g, w = got[r:r + (1 << 20)].cpu(), want[r:r + (1 << 20)]
+        if not torch.equal(g, w):
+            d = (g - w).abs()
+            raise AssertionError(f"{what}: {int((g != w).sum())} elements differ from the host's "
+                                 f"plain version (max abs diff {float(d.max())})")
+
+
+def bag_backward_replays(dev) -> int:
+    """The backward kernel against its plain version on the host, to the
+    bit, over the forward's float32 replay families (their grad_out drawn
+    per case, a misaligned copy for the shifted ones) and bag sets whose
+    every id is the same row (the longest segment)."""
     from repro_torch.kernels.embedding_bag import embedding_bag_backward, embedding_bag_backward_plain
 
     cases = [c for c in bag_replays() if c[4] == torch.float32]
@@ -2460,67 +2492,64 @@ def bag_backward_replays(dev) -> tuple[int, float]:
                rng.normal(size=one_row.shape).astype(np.float32) if wt == "weighted" else None,
                torch.float32, combine, False)
               for combine in ("sum", "mean") for wt in ("weighted", "unweighted")]
-    worst = 0.0
     for i, (name, ids, table, w, _, combine, shifted) in enumerate(cases):
         tids = torch.from_numpy(ids).to(dev)
         tw = None if w is None else torch.from_numpy(w).to(dev)
-        g = torch.from_numpy(np.random.default_rng(i).normal(
-            size=(ids.shape[0], table.shape[1])).astype(np.float32)).to(dev)
+        g_host = torch.from_numpy(np.random.default_rng(i).normal(
+            size=(ids.shape[0], table.shape[1])).astype(np.float32))
+        g = g_host.to(dev)
         if shifted:
             g = misaligned(g)
         got = embedding_bag_backward(tids, g, table.shape[0], tw, combine)
-        want = embedding_bag_backward_plain(tids, g, table.shape[0], tw, combine)
-        scale = bag_grad_scale(tids, tw, g, table.shape[0], combine)
-        worst = max(worst, assert_bag_grad(got, want, scale, f"bag backward {name}"))
-    return len(cases), worst
+        want = embedding_bag_backward_plain(torch.from_numpy(ids), g_host, table.shape[0],
+                                            None if w is None else torch.from_numpy(w), combine)
+        assert_equal_host(got, want, f"bag backward {name}")
+    return len(cases)
 
 
 def bag_backward_record(ids, table) -> dict:
     """The backward kernel at two-tower's train shape with a unit-scale
-    grad_out, summed into a zeroed buffer: held to its plain version
-    within the replays' tolerance, then kernel, zero-fill, plain version
-    and the backward of F.embedding_bag(mode='sum') timed, against the
-    bound counted from these ids (each distinct row read and written
-    once) plus reading g and the ids."""
+    grad_out, equal to its plain version on the host to the bit; then
+    kernel (from a prebuilt plan), the plan (the stable sort and the
+    offsets' search), wrapper, the plain version on the card and the
+    backward of F.embedding_bag(mode='sum') timed, against the bound:
+    the (V, D) gradient written once, g and the ids read once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import embedding_bag_backward, embedding_bag_backward_plain
     from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag_backward
+    from repro_torch.kernels.segment_sum import segment_plan
 
     (B, S), (V, D) = ids.shape, table.shape
-    g = torch.from_numpy(np.random.default_rng(91).normal(size=(B, D)).astype(np.float32)).to(ids.device)
+    g_host = torch.from_numpy(np.random.default_rng(91).normal(size=(B, D)).astype(np.float32))
+    g = g_host.to(ids.device)
     valid = (ids >= 0) & (ids < V)
     n_valid, rows = int(valid.sum()), int(torch.unique(ids[valid]).numel())
     del valid
     got = embedding_bag_backward(ids, g, V)
-    want = embedding_bag_backward_plain(ids, g, V)
-    scale = bag_grad_scale(ids, None, g, V, "sum")
-    err = assert_bag_grad(got, want, scale, "bag backward at the train shape")
-    del want, scale
+    want = embedding_bag_backward_plain(ids.cpu(), g_host, V)
+    assert_equal_host(got, want, "bag backward at the train shape")
+    del want
     lib_table = table.detach().requires_grad_()
     lib_out = F.embedding_bag(ids.long(), lib_table, mode="sum")
     lib_grad = torch.autograd.grad(lib_out, lib_table, g, retain_graph=True)[0]
     lib_diff = float((lib_grad - got).abs().max())
     del lib_grad, got
     torch.cuda.empty_cache()
-    buf = torch.zeros((V, D), dtype=torch.float32, device=ids.device)
-    rest = B * D * 4 + B * S * 4
+    plan = segment_plan(ids.reshape(-1), V)
+    buf = torch.empty((V, D), dtype=torch.float32, device=ids.device)
     rec = {"B": B, "S": S, "V": V, "D": D, "valid_ids": n_valid, "distinct_rows": rows,
-           "max_abs_err": err,
-           "ms": device_ms(lambda: launch_embedding_bag_backward(ids, None, g, buf, mean=False),
-                           runs=9),
-           "zero_fill_ms": device_ms(buf.zero_, runs=9),
+           "max_abs_err": 0.0,
+           "ms": device_ms(lambda: launch_embedding_bag_backward(plan, None, g, buf, S), runs=9),
+           "plan_ms": device_ms(lambda: segment_plan(ids.reshape(-1), V), runs=9),
            "wrapper_ms": call_ms(lambda: embedding_bag_backward(ids, g, V), runs=5),
            "plain_ms": device_ms(lambda: embedding_bag_backward_plain(ids, g, V), runs=5),
            "library_ms": device_ms(lambda: torch.autograd.grad(lib_out, lib_table, g,
                                                                retain_graph=True), runs=5),
            "library": "backward of F.embedding_bag(mode='sum'), dense",
            "library_max_abs_diff": lib_diff,
-           "bytes_all_lookups": 2 * n_valid * D * 4 + rest,
-           **window_bound(2 * rows * D * 4 + rest, 0, 2 * n_valid * D)}
-    rec["bound_all_lookups_ms"] = rec["bytes_all_lookups"] / HBM_BYTES_PER_S * 1e3
-    rec["bound_with_zero_fill_ms"] = (rec["bytes"] + V * D * 4) / HBM_BYTES_PER_S * 1e3
-    del buf, lib_out
+           **window_bound(B * D * 4 + B * S * 4, V * D * 4, 2 * n_valid * D)}
+    del buf, lib_out, plan
     torch.cuda.empty_cache()
     return rec
 
@@ -2550,11 +2579,20 @@ def _twotower_grads(cfg, params, batch, bag):
     return loss.detach(), dict(zip(names, grads[:-1])), seen["ids"], grads[-1]
 
 
+def differing_leaves(a: dict, b: dict) -> dict:
+    """Leaf name -> number of elements that differ, for the leaves of two
+    gradient sets that are not equal to the bit."""
+    return {n: int((a[n] != b[n]).sum()) for n in a if not torch.equal(a[n], b[n])}
+
+
 def twotower_train(dev, mesh) -> dict:
     """two-tower-retrieval's train_batch at full width, cut to TT_TRAIN_B:
-    one step's gradients through both bag kernels against the same step
-    through embedding_bag_plain under autograd, then TRAIN_STEPS built
-    steps on one batch with every launch count at 0."""
+    one step's gradients through both bag kernels twice (every leaf equal
+    to the bit), then against the same step through embedding_bag_plain
+    under autograd; the bag's backward at this shape; then TRAIN_STEPS
+    built steps on one batch with every launch count at 0, and the same
+    steps again from a state materialized anew from the seed (losses and
+    grad norms equal)."""
     from repro_torch.configs.recsys_archs import TWO_TOWER
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
     from repro_torch.launch.steps import build_step, materialize_inputs
@@ -2566,10 +2604,17 @@ def twotower_train(dev, mesh) -> dict:
     built = build_step(arch, "train_batch", mesh)
     t0 = time.perf_counter()
     params, opt, batch = materialize_inputs(arch, "train_batch", built, seed=MODEL_SEED)
-    del opt  # made again after the gradient check, which needs the room
+    del opt  # made again after the gradient checks, which need the room
     setup_s = time.perf_counter() - t0
 
     loss_k, grads_k, ids, g_hist = _twotower_grads(cfg, params, batch, embedding_bag_sum)
+    loss_k2, grads_k2, _, g_hist2 = _twotower_grads(cfg, params, batch, embedding_bag_sum)
+    twice = differing_leaves(grads_k, grads_k2)
+    if twice or not torch.equal(loss_k, loss_k2) or not torch.equal(g_hist, g_hist2):
+        raise AssertionError(f"two-tower train: two calls on one state and batch differ: loss "
+                             f"{float(loss_k)} / {float(loss_k2)}, leaves {twice}")
+    del grads_k2, g_hist2
+    torch.cuda.empty_cache()
     loss_p, grads_p, _, g_hist_p = _twotower_grads(
         cfg, params, batch, lambda t, i, w=None: embedding_bag_plain(i, t, w, "sum"))
     if not torch.equal(loss_k, loss_p):
@@ -2603,10 +2648,11 @@ def twotower_train(dev, mesh) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    losses, step_ms = [], []
+    losses, norms, step_ms = [], [], []
     for _ in range(TRAIN_STEPS):
         (params, opt, m), ms = timed(lambda: built.fn(params, opt, batch))
         losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
         step_ms.append(ms)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2620,9 +2666,20 @@ def twotower_train(dev, mesh) -> dict:
         raise AssertionError(f"two-tower train: losses {losses} not finite and falling")
     del params, opt, batch, ids
     torch.cuda.empty_cache()
-    return {"B": TT_TRAIN_B, "setup_s": setup_s, "losses": losses, "step_ms": step_ms,
-            "peak_bytes": peak, "launches": launches, "grad_max_abs_diff": worst,
-            "bitwise_equal_leaves": bitwise, "loss_bitwise": True, "bag_backward": bag}
+    params, opt, batch = materialize_inputs(arch, "train_batch", built, seed=MODEL_SEED)
+    again = []
+    for _ in range(TRAIN_STEPS):
+        params, opt, m = built.fn(params, opt, batch)
+        again.append((float(m["loss"]), float(m["grad_norm"])))
+    if again != list(zip(losses, norms)):
+        raise AssertionError(f"two-tower train: a replay from the seeded state gives {again}, the "
+                             f"first run {list(zip(losses, norms))}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return {"B": TT_TRAIN_B, "setup_s": setup_s, "losses": losses, "grad_norms": norms,
+            "step_ms": step_ms, "peak_bytes": peak, "launches": launches,
+            "grad_max_abs_diff": worst, "bitwise_equal_leaves": bitwise, "loss_bitwise": True,
+            "twice_equal": True, "replay_equal": True, "bag_backward": bag}
 
 
 def grads_close_bf16(got, want, what: str) -> dict:
@@ -2753,8 +2810,8 @@ def supervisor_run(dev) -> dict:
         diff = max(abs(a - b) for a, b in zip(resumed, replayed))
         if len(resumed) != len(replayed) or failed.losses[:SUP_FAIL_AT] != clean.losses[:SUP_FAIL_AT]:
             raise AssertionError("supervisor: the runs' steps do not line up")
-        if diff > 1e-5 * max(abs(x) for x in replayed):
-            raise AssertionError(f"supervisor: losses after the restart differ by {diff}")
+        if resumed != replayed:  # the reference's supervisor promises exact replay
+            raise AssertionError(f"supervisor: losses after the restart differ by up to {diff}")
         t = time.perf_counter()
         cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--steps", "5",
                               "--ckpt-dir", f"{tmp}/cli"],
@@ -2831,30 +2888,30 @@ def train_phase(dev) -> dict:
     torch.cuda.empty_cache()
     mesh = make_mesh((1, 1), ("data", "model"))
     cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
-    n_cases, worst = bag_backward_replays(dev)
-    log(f"train: kernel embedding_bag.embedding_bag_backward: {n_cases} replay cases within "
-        f"rtol {BAG_GRAD_RTOL}, atol {BAG_GRAD_ATOL} of the added terms' magnitudes "
-        f"(max abs err {worst})")
-    report = {"replay_cases": n_cases, "replay_max_abs_err": worst}
+    n_cases = bag_backward_replays(dev)
+    log(f"train: kernel embedding_bag.embedding_bag_backward: {n_cases} replay cases equal to "
+        "the host's plain version to the bit")
+    report = {"replay_cases": n_cases}
 
     tt = twotower_train(dev, mesh)
     report["twotower"] = tt
     bag = tt["bag_backward"]
-    report["max_abs_err"] = max(worst, bag["max_abs_err"])
+    report["max_abs_err"] = bag["max_abs_err"]
     log(f"train: two-tower-retrieval train_batch B={tt['B']} V={bag['V']} D={bag['D']}: main path "
-        f"launches {tt['launches']}; losses {tt['losses']}; ms per step "
-        f"{[round(x, 1) for x in tt['step_ms']]}; peak {tt['peak_bytes'] / 1e9:.2f} GB; "
+        f"launches {tt['launches']}; losses {tt['losses']}, grad norms {tt['grad_norms']}; ms per "
+        f"step {[round(x, 1) for x in tt['step_ms']]}; peak {tt['peak_bytes'] / 1e9:.2f} GB; two "
+        f"gradient calls on one state equal to the bit in all {len(tt['grad_max_abs_diff'])} "
+        f"leaves, and {TRAIN_STEPS} steps replayed from the seeded state equal to the bit; "
         f"gradients through both kernels equal the plain bag's within tolerance (item_emb max "
         f"abs diff {tt['grad_max_abs_diff']['item_emb']}, bit-equal leaves "
         f"{len(tt['bitwise_equal_leaves'])} of {len(tt['grad_max_abs_diff'])}), loss to the bit")
     log(f"train: bag backward at B={bag['B']} S={bag['S']} into V={bag['V']} x D={bag['D']}: "
-        f"kernel {bag['ms']:.4f} ms (wrapper {bag['wrapper_ms']:.4f} ms with its zeroed "
-        f"buffer), zero-fill {bag['zero_fill_ms']:.4f} ms, plain {bag['plain_ms']:.4f} ms, "
+        f"kernel {bag['ms']:.4f} ms (every row written), plan {bag['plan_ms']:.4f} ms (stable "
+        f"sort and offsets), wrapper {bag['wrapper_ms']:.4f} ms, plain {bag['plain_ms']:.4f} ms, "
         f"library {bag['library_ms']:.4f} ms, bound {bag['bound_ms']:.4f} ms by "
-        f"{bag['bound_by']} ({bag['bytes'] / 1e9:.2f} GB, {bag['distinct_rows']} distinct rows; "
-        f"{bag['bound_all_lookups_ms']:.4f} ms counting every lookup; "
-        f"{bag['bound_with_zero_fill_ms']:.4f} ms with the buffer's write); unit-scale "
-        f"grad_out within tolerance of the plain version (max abs err {bag['max_abs_err']})")
+        f"{bag['bound_by']} ({bag['bytes'] / 1e9:.2f} GB: the gradient written once, g and the "
+        f"ids read once; {bag['distinct_rows']} distinct rows); unit-scale grad_out equal to the "
+        "host's plain version to the bit")
 
     lm = stablelm_train(dev, mesh, cpu_mesh)
     report["stablelm"] = lm
@@ -2902,6 +2959,306 @@ def train_phase(dev) -> dict:
          "why": "no checkpoints"}]
     report["seconds"] = time.perf_counter() - t_phase
     log(f"train: phase {report['seconds']:.1f} s; reduced: "
+        + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
+    return report
+
+
+# -- the GNN: the sorted segment sum, the EGNN's train steps, the sampler -------
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")  # ogb_products reckoned, not run
+GNN_STEPS = 2
+GNN_RTOL = 1e-4  # card against host, float32: loss and grad norm after GNN_STEPS steps
+SEG_WIDTHS = (64, 3, 1)  # the EGNN's message, coordinate and degree sums
+REDDIT = (232_965, 492)  # gnn_archs.py's minibatch_lg source: nodes, average degree
+STREAM_STEPS = 6  # minibatch_lg steps fed by minibatch_stream
+OGB_PRODUCTS_GB = 79  # reckoned forward of one layer: the (E, 129) edge input + 3 (E, 64)
+
+
+def segment_sum_replays(dev) -> int:
+    """The segment-sum kernel against its plain version on the host, to the
+    bit: ids past either end (dropped), empty segments, zipf ids (segments
+    past the block-wide length beside short ones), one segment holding
+    every term, no terms at all, widths off the group sizes and past one
+    pass of 8 x 32 columns, and misaligned data."""
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+
+    rng = np.random.default_rng(95)
+    cases = []
+    for n, R, C in ((1000, 37, 64), (5000, 1000, 3), (300, 40, 1), (777, 50, 5), (64, 2000, 17),
+                    (4000, 300, 256), (1500, 60, 300), (900, 20, 600), (513, 7, 33)):
+        cases.append((f"n{n} R{R} C{C}", rng.integers(-2, R + 3, n).astype(np.int32), R, C, False))
+    for C in (1, 3, 64, 300, 600):  # zipf ids: long segments beside short ones in a block
+        ids = np.minimum(rng.zipf(1.3, 6000) - 2, 202).astype(np.int32)
+        cases.append((f"zipf C{C}", ids, 200, C, False))
+    cases.append(("one segment C64", np.full(4096, 5, np.int32), 9, 64, False))
+    cases.append(("no terms C3", np.zeros(0, np.int32), 11, 3, False))
+    cases.append(("misaligned C129", rng.integers(0, 90, 2000).astype(np.int32), 90, 129, True))
+    for name, ids, R, C, shifted in cases:
+        data = torch.from_numpy(rng.normal(size=(ids.shape[0], C)).astype(np.float32))
+        on_card = data.to(dev)
+        if shifted:
+            on_card = misaligned(on_card)
+        got = segment_sum(on_card, torch.from_numpy(ids).to(dev), R)
+        assert_equal_host(got, segment_sum_plain(data, torch.from_numpy(ids), R),
+                          f"segment sum {name}")
+    return len(cases)
+
+
+def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int) -> dict:
+    """The segment sum of (E, C) float32 rows by ``src`` into ``n`` rows:
+    equal to the plain version on the host to the bit, then kernel (from a
+    prebuilt plan), the plan, wrapper, the plain version on the card and
+    ``index_add_`` into a zeroed buffer timed, against the bound: rows,
+    index and offsets read once, the output written once."""
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum, segment_sum_plain
+    from repro_torch.kernels.segment_sum.ops import launch_segment_sum
+
+    E = src.shape[0]
+    data_host = torch.from_numpy(np.random.default_rng(seed).normal(size=(E, C)).astype(np.float32))
+    data = data_host.to(src.device)
+    assert_equal_host(segment_sum(data, src, n), segment_sum_plain(data_host, src.cpu(), n),
+                      f"segment sum E{E} C{C}")
+    plan = segment_plan(src, n)
+    out = torch.empty((n, C), dtype=torch.float32, device=src.device)
+    lib = torch.zeros((n, C), dtype=torch.float32, device=src.device)
+    idx = src.long()
+    return {"E": E, "N": n, "C": C, "max_abs_err": 0.0,
+            "ms": device_ms(lambda: launch_segment_sum(data, plan, out)),
+            "plan_ms": device_ms(lambda: segment_plan(src, n)),
+            "wrapper_ms": call_ms(lambda: segment_sum(data, src, n)),
+            "plain_ms": device_ms(lambda: segment_sum_plain(data, src, n)),
+            "library_ms": device_ms(lambda: lib.index_add_(0, idx, data)),
+            "library": "index_add_ (float32 atomics) into a zeroed buffer",
+            **window_bound(E * C * 4 + E * 4 + (n + 1) * 4, n * C * 4, 2 * E * C)}
+
+
+def gnn_steps(dev, mesh, cpu_mesh, shape: str) -> dict:
+    """The built EGNN step on one full-width shape: GNN_STEPS steps on the
+    card against the same steps on the host (loss and grad norm within
+    GNN_RTOL), the counts at 0; then the same steps again on the card from
+    the state materialized anew from the seed, equal to the bit."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import tree_leaves, tree_map
+
+    arch = get_arch("egnn")
+    card = build_step(arch, shape, mesh)
+    host = build_step(arch, shape, cpu_mesh)
+    p, o, b = materialize_inputs(arch, shape, card, seed=MODEL_SEED)
+    hp, ho, hb = tree_map(lambda t: t.to("cpu", copy=True), (p, o, b))  # the steps write in place
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got, step_ms = [], []
+    for _ in range(GNN_STEPS):
+        (p, o, m), ms = timed(lambda: card.fn(p, o, b))
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+        step_ms.append(ms)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # a layer: 3 segment sums, and the backward of the h[src], h[dst] gathers and (past the
+    # first layer, whose x needs no gradient) the x[src], x[dst] ones
+    want_launches = GNN_STEPS * (7 * arch.model_cfg.n_layers - 2)
+    if launches["segment_sum.segment_sum"] != want_launches:
+        raise AssertionError(f"egnn {shape}: {launches['segment_sum.segment_sum']} segment-sum "
+                             f"launches in {GNN_STEPS} steps, want {want_launches}")
+    first = [t.clone() for t in tree_leaves(p)]
+    t = time.perf_counter()
+    want = []
+    for _ in range(GNN_STEPS):
+        hp, ho, hm = host.fn(hp, ho, hb)
+        want.append((float(hm["loss"]), float(hm["grad_norm"])))
+    host_s = time.perf_counter() - t
+    rel = np.abs(np.array(got) / np.array(want) - 1)
+    if not (np.isfinite(got).all() and (rel <= GNN_RTOL).all()):
+        raise AssertionError(f"egnn {shape}: card {got} against host {want}")
+    del p, o, b
+    p, o, b = materialize_inputs(arch, shape, card, seed=MODEL_SEED)
+    again = []
+    for _ in range(GNN_STEPS):
+        p, o, m = card.fn(p, o, b)
+        again.append((float(m["loss"]), float(m["grad_norm"])))
+    same_params = all(torch.equal(x, y) for x, y in zip(first, tree_leaves(p)))
+    if again != got or not same_params:
+        raise AssertionError(f"egnn {shape}: a replay from the seeded state gives {again}, the "
+                             f"first run {got} (parameters equal: {same_params})")
+    dims = arch.shapes[shape].dims
+    return {"dims": {k: v for k, v in dims.items() if k != "fanout"}, "card": got, "host": want,
+            "rel_diff": rel.max().item(), "step_ms": step_ms, "host_s": host_s,
+            "peak_bytes": peak, "launches": launches,
+            "segment_sums_per_step": launches["segment_sum.segment_sum"] / GNN_STEPS,
+            "replay_equal": True}
+
+
+def gnn_stream(dev, mesh) -> tuple[dict, torch.Tensor]:
+    """minibatch_lg fed by minibatch_stream over a Reddit-sized
+    CSRGraph.random: STREAM_STEPS built steps on fresh batches, losses
+    finite and falling; returns the record and one batch's src."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graph_data import CSRGraph, minibatch_stream
+    from repro_torch.launch.steps import build_step, materialize_inputs
+
+    arch = get_arch("egnn")
+    dims = arch.shapes["minibatch_lg"].dims
+    t = time.perf_counter()
+    graph = CSRGraph.random(REDDIT[0], avg_degree=REDDIT[1], seed=MODEL_SEED)
+    rng = np.random.default_rng(MODEL_SEED)
+    feats = rng.normal(0, 0.5, (REDDIT[0], dims["d_feat"])).astype(np.float32)
+    # a target the model can learn from the features, so the loss falls
+    targets = np.tanh(feats[:, :8].sum(axis=1)).astype(np.float32)
+    graph_s = time.perf_counter() - t
+    stream = minibatch_stream(graph, feats, targets, dims["seeds"], dims["fanout"],
+                              dims["n_nodes"], dims["n_edges"], seed=MODEL_SEED)
+    built = build_step(arch, "minibatch_lg", mesh)
+    params, opt, _ = materialize_inputs(arch, "minibatch_lg", built, seed=MODEL_SEED)
+    losses, step_ms, sample_s, edges = [], [], [], []
+    src = None
+    for _ in range(STREAM_STEPS):
+        t = time.perf_counter()
+        batch = next(stream)
+        sample_s.append(time.perf_counter() - t)
+        edges.append(int(batch["edge_mask"].sum()))
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+        src = batch["src"] if src is None else src
+        (params, opt, m), ms = timed(lambda: built.fn(params, opt, batch))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"egnn minibatch stream: losses {losses}")
+    del params, opt, batch
+    return ({"graph_nodes": graph.n_nodes, "graph_edges": int(graph.indptr[-1]),
+             "graph_s": graph_s, "losses": losses, "step_ms": step_ms,
+             "sample_s_per_batch": statistics.median(sample_s), "real_edges": edges}, src)
+
+
+def gnn_phase(dev) -> dict:
+    """The EGNN at full width (4 layers x 64) on the card, each cut listed
+    under ``reduced``; then the segment-sum kernel at minibatch_lg's widths,
+    with a uniform and the sampler's src."""
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    n_cases = segment_sum_replays(dev)
+    log(f"gnn: kernel segment_sum.segment_sum: {n_cases} replay cases equal to the host's plain "
+        "version to the bit")
+    report = {"replay_cases": n_cases, "shapes": {}}
+    for shape in GNN_SHAPES:
+        rec = gnn_steps(dev, mesh, cpu_mesh, shape)
+        report["shapes"][shape] = rec
+        log(f"gnn: egnn {shape} {rec['dims']}: card {rec['card']}, host {rec['host']} (max rel "
+            f"diff {rec['rel_diff']:.2e}, rtol {GNN_RTOL}); a replay from the seed equal to the "
+            f"bit; ms per step {[round(x, 2) for x in rec['step_ms']]}; peak "
+            f"{rec['peak_bytes'] / 1e9:.3f} GB; {rec['segment_sums_per_step']:g} segment sums a "
+            f"step; host {rec['host_s']:.1f} s")
+    stream, sampler_src = gnn_stream(dev, mesh)
+    report["stream"] = stream
+    log(f"gnn: minibatch_lg from minibatch_stream over CSRGraph.random({stream['graph_nodes']}, "
+        f"avg_degree {REDDIT[1]}) = {stream['graph_edges']} edges ({stream['graph_s']:.1f} s): "
+        f"losses {[round(x, 5) for x in stream['losses']]}; ms per step "
+        f"{[round(x, 2) for x in stream['step_ms']]}; sampler "
+        f"{stream['sample_s_per_batch']:.3f} s a batch; real edges {stream['real_edges']}")
+    n = sampler_src.shape[0]
+    srcs = {"uniform": torch.from_numpy(np.random.default_rng(96).integers(
+        0, n, n).astype(np.int32)).to(dev), "sampler": sampler_src}
+    report["segment_sum"] = {}
+    for tag, src in srcs.items():
+        for C in SEG_WIDTHS:
+            rec = segment_sum_record(src, n, C, seed=C)
+            report["segment_sum"][f"{tag} C{C}"] = rec
+            log(f"gnn: kernel segment_sum {tag} src E={rec['E']} N={rec['N']} C={C}: kernel "
+                f"{rec['ms']:.4f} ms, plan {rec['plan_ms']:.4f} ms, wrapper {rec['wrapper_ms']:.4f} "
+                f"ms, plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB); "
+                "equal to the host's plain version to the bit")
+    report["reduced"] = [
+        {"what": "egnn ogb_products", "cut": "reckoned, not run",
+         "why": f"one layer's forward holds ~{OGB_PRODUCTS_GB} GB (61,859,328 padded edges: the "
+                "(E, 129) float32 edge input 31.9 GB, the edge MLP's hidden, its SiLU and the "
+                "message 15.8 GB each), over the 76 GB limit; the reference shards its edges"},
+        {"what": "egnn card against host", "cut": f"{GNN_STEPS} steps a shape",
+         "why": "a host step at minibatch_lg takes seconds"},
+        {"what": "all shapes", "cut": "random weights and graphs from a seed",
+         "why": "no checkpoints or datasets"}]
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"gnn: phase {report['seconds']:.1f} s; reduced: "
+        + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
+    return report
+
+
+# -- the search arch: build_search_step in the three payload modes ------------
+SEARCH_RUNS = (("qt1_p99", 64), ("qt1_serve", 64), ("qt1_heavy", 4))  # shape, rows checked on the host
+QT1_BULK_GB = 51.5  # qt1_bulk's B 32,768 x K 2 x L 65,536 x 3 int32 inputs
+
+
+def search_phase(dev) -> dict:
+    """proximity-search's QT1 step through build_search_step at full
+    width, raw, offsets and delta payloads: warm ms per step, and the
+    top-k records of the first rows equal, to the bit, to the same step on
+    the host over those rows."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.torch_search import QT1Batch, compress_qt1_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import SEARCH_MODES, build_step, materialize_inputs
+
+    t_phase = time.perf_counter()
+    arch = get_arch("proximity-search")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    saved = os.environ.get("REPRO_SEARCH_COMPRESSED")
+    report = {"shapes": {}}
+    try:
+        for shape, rows in SEARCH_RUNS:
+            os.environ["REPRO_SEARCH_COMPRESSED"] = ""
+            t = time.perf_counter()
+            raw = materialize_inputs(arch, shape, build_step(arch, shape, cpu_mesh), seed=MODEL_SEED)
+            draw_s = time.perf_counter() - t
+            recs = {}
+            for mode in SEARCH_MODES:
+                os.environ["REPRO_SEARCH_COMPRESSED"] = mode
+                card = build_step(arch, shape, mesh)
+                host = build_step(arch, shape, cpu_mesh)
+                args = raw if not mode else tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in
+                                                  compress_qt1_batch(QT1Batch(*(x.numpy() for x in raw), 1),
+                                                                     delta_g=mode == "delta"))
+                on_card = tuple(a.to(dev) for a in args)
+                out, first_ms = timed(lambda: card.fn(*on_card))
+                warm = median_ms(lambda: card.fn(*on_card))
+                want = host.fn(*(a[:rows] for a in args))
+                for name, g, w in zip(("score", "g", "lo", "hi"), out, want):
+                    if not torch.equal(g[:rows].cpu(), w):
+                        raise AssertionError(f"search {shape} {mode or 'raw'}: {name} of the first "
+                                             f"{rows} rows differs from the host's")
+                if not torch.isfinite(out[0]).all():
+                    raise AssertionError(f"search {shape} {mode or 'raw'}: scores not finite")
+                recs[mode or "raw"] = {"first_ms": first_ms, "warm_ms": warm,
+                                       "h2d_bytes": sum(a.numel() * a.element_size() for a in args)}
+                del on_card, out
+            torch.cuda.empty_cache()
+            B, K, L = raw[0].shape
+            report["shapes"][shape] = {"B": B, "K": K, "L": L, "host_rows": rows,
+                                       "draw_s": draw_s, "modes": recs}
+            log(f"search: {shape} B={B} K={K} L={L}: warm ms per step "
+                + ", ".join(f"{m} {r['warm_ms']:.3f} ({r['h2d_bytes'] / 1e9:.2f} GB in)"
+                            for m, r in recs.items())
+                + f"; top-k records of the first {rows} rows equal to the host's in every mode; "
+                f"inputs drawn in {draw_s:.1f} s")
+            del raw
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_SEARCH_COMPRESSED", None)
+        else:
+            os.environ["REPRO_SEARCH_COMPRESSED"] = saved
+    report["reduced"] = [
+        {"what": "search qt1_bulk", "cut": "reckoned, not run",
+         "why": f"B 32,768: {QT1_BULK_GB} GB of raw int32 inputs before the membership join's "
+                "int64 intermediates, over the 76 GB limit with them"},
+        {"what": "search card against host", "cut": ", ".join(f"{s} B -> {r} rows"
+                                                             for s, r in SEARCH_RUNS),
+         "why": "a host step over a full batch takes minutes"}]
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"search: phase {report['seconds']:.1f} s; reduced: "
         + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
     return report
 
@@ -2955,6 +3312,8 @@ def main() -> int:
     tuned = tune_phase(dev)
     models = models_phase(dev)
     train = train_phase(dev)
+    gnn = gnn_phase(dev)
+    search = search_phase(dev)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -3018,11 +3377,24 @@ def main() -> int:
                      "which the reference differentiates through XLA",
                      train["twotower"]["launches"]["embedding_bag.embedding_bag_backward"],
                      train["max_abs_err"], train["twotower"]["bag_backward"],
-                     {"matches_plain": f"within rtol {BAG_GRAD_RTOL}, atol {BAG_GRAD_ATOL} of the "
-                                       "added terms' magnitudes (float32 atomics)",
+                     {"matches_plain": "bitwise, against the plain version on the host",
                       "shape": {k: train["twotower"]["bag_backward"][k] for k in ("B", "S", "V", "D")},
                       **{k: train["twotower"]["bag_backward"][k] for k in (
-                          "zero_fill_ms", "distinct_rows", "bound_all_lookups_ms")}}),
+                          "plan_ms", "distinct_rows")}}),
+        kernel_entry("segment_sum.segment_sum", "segment_sum.cu",
+                     "none: jax.ops.segment_sum in src/repro/models/gnn.py:70-72, which XLA lowers",
+                     sum(rec["launches"]["segment_sum.segment_sum"]
+                         for rec in gnn["shapes"].values()), 0.0,
+                     gnn["segment_sum"]["sampler C64"],
+                     {"matches_plain": "bitwise, against the plain version on the host",
+                      "shape": {k: gnn["segment_sum"]["sampler C64"][k] for k in ("E", "N", "C")},
+                      "plan_ms": gnn["segment_sum"]["sampler C64"]["plan_ms"],
+                      "launches_per_step": {shape: rec["segment_sums_per_step"]
+                                            for shape, rec in gnn["shapes"].items()},
+                      "other_shapes": {tag: {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                                               "bound_ms", "bound_by", "library_ms")}
+                                       for tag, r in gnn["segment_sum"].items()
+                                       if tag != "sampler C64"}}),
     ]}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
@@ -3030,7 +3402,7 @@ def main() -> int:
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
              "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models,
-             "train": train},
+             "train": train, "gnn": gnn, "search": search},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

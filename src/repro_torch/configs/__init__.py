@@ -1,3 +1,3 @@
 """Architecture and shape registry of the model zoo (the reference's
-``configs/``): the LM and recsys families so far. ``registry``, the GNN
-family and the search config come with the training slice."""
+``configs/``): the LM, GNN and recsys families, the search arch, and
+``registry.get_arch`` over all of them."""

@@ -36,10 +36,13 @@ port's own kernel ``embedding_bag_bwd`` in ``csrc/embedding_bag.cu``
 (``embedding_bag_backward.launches`` counts it), on the CPU its plain
 version :func:`embedding_bag_backward_plain`. Departure: the backward
 takes float32 tables only; a bfloat16 table that requires a gradient
-raises TypeError. The kernel adds with float32 atomics, so its sums agree
-with the plain version's within rounding, not bit for bit. The weights'
-gradient, ``dot(row, g[b])`` per valid ``(b, s)``, is plain torch ops on
-both devices.
+raises TypeError. The kernel is the sorted segment sum of
+``csrc/segment_sum.cuh``: the wrapper stable-sorts the ids
+(:func:`repro_torch.kernels.segment_sum.segment_plan`), and each row's
+terms are added in ``(b, s)`` order, the plain version's order on the
+CPU, so the card's gradient equals the CPU's bit for bit and is the same
+in every run. The weights' gradient, ``dot(row, g[b])`` per valid
+``(b, s)``, is plain torch ops on both devices.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import as_tensor
+from repro_torch.kernels.segment_sum import segment_plan
 
 COMBINES = ("sum", "mean")
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's type codes
@@ -196,7 +200,7 @@ def embedding_bag_backward_plain(ids: torch.Tensor, grad_out: torch.Tensor, num_
     device: ids (B, S) int32, grad_out (B, D) float32 -> the table's
     gradient (num_rows, D) float32, ``w[b, s] * g'[b]`` added at row
     ``ids[b, s]`` for every id in [0, num_rows): in (b, s) order on the
-    CPU, with atomics on a card."""
+    CPU (``index_add_`` adds with atomics on a card)."""
     _check_backward(ids, grad_out, num_rows, weights, combine)
     g = _bag_grad(ids, grad_out, combine)
     valid = (ids >= 0) & (ids < num_rows)
@@ -211,19 +215,21 @@ def embedding_bag_backward(ids, grad_out, num_rows: int, weights=None,
                            combine: str = "sum") -> torch.Tensor:
     """The table's gradient of :func:`embedding_bag`: ids (B, S) int32,
     grad_out (B, D) float32, optional weights (B, S) float32 -> (num_rows,
-    D) float32. On a card the CUDA kernel ``embedding_bag_bwd`` adds into a
-    zeroed buffer with float32 atomics; on the CPU
-    :func:`embedding_bag_backward_plain`."""
+    D) float32. On a card the ids are stable-sorted and the CUDA kernel
+    ``embedding_bag_bwd`` sums each row's terms in ``(b, s)`` order, every
+    row written; on the CPU :func:`embedding_bag_backward_plain`. The two
+    agree bit for bit."""
     _check_backward(ids, grad_out, num_rows, weights, combine)
     if not grad_out.is_cuda:
         return embedding_bag_backward_plain(ids, grad_out, num_rows, weights, combine)
-    if num_rows >= 2**31 or grad_out.shape[1] > 2**23:
-        raise ValueError(f"a gradient of {num_rows} x {grad_out.shape[1]} exceeds the "
-                         "kernel's limits")
-    ids, grad_out = ids.contiguous(), grad_out.contiguous()
-    weights = None if weights is None else weights.contiguous()
-    out = torch.zeros((num_rows, grad_out.shape[1]), dtype=torch.float32, device=grad_out.device)
-    launch_embedding_bag_backward(ids, weights, grad_out, out, mean=combine == "mean")
+    if num_rows >= 2**31 - 1 or ids.numel() >= 2**31 - 1 or grad_out.shape[1] > 2**23:
+        raise ValueError(f"a gradient of {num_rows} x {grad_out.shape[1]} from "
+                         f"{ids.numel()} ids exceeds the kernel's limits")
+    g = _bag_grad(ids, grad_out, combine).contiguous()
+    plan = segment_plan(ids.reshape(-1), num_rows)
+    weights = None if weights is None else weights.contiguous().reshape(-1)
+    out = torch.empty((num_rows, grad_out.shape[1]), dtype=torch.float32, device=grad_out.device)
+    launch_embedding_bag_backward(plan, weights, g, out, ids.shape[1])
     embedding_bag_backward.launches += 1
     return out
 
@@ -245,14 +251,15 @@ def launch_embedding_bag(ids, table, weights, out, *, mean: bool, csrc=None) -> 
            table.device, CSRC if csrc is None else csrc)
 
 
-def launch_embedding_bag_backward(ids, weights, grad_out, grad_table, *, mean: bool) -> None:
-    """Launch the backward kernel, adding into a preallocated zeroed
-    ``grad_table`` on the current stream — no checks and no launch count
-    (for timing the kernel alone)."""
+def launch_embedding_bag_backward(plan, weights, g, grad_table, S: int) -> None:
+    """Launch the backward kernel into a preallocated ``grad_table``
+    (every row written) on the current stream, from the ids' segment plan
+    over the flattened (B * S) positions, the flattened weights (or None)
+    and g' (B, D) — no checks and no launch count (for timing the kernel
+    alone)."""
     from repro_torch.kernels.build import CSRC, launch
 
-    B, S = ids.shape
     V, D = grad_table.shape
     launch("embedding_bag", "embedding_bag_bwd",
-           [ids, weights, grad_out, grad_table, B, S, V, D, int(mean)],
-           grad_out.device, CSRC)
+           [g, plan.order, weights, plan.offsets, grad_table, V, D, S],
+           g.device, CSRC)

@@ -1,31 +1,33 @@
 """Step builders: (arch x shape x mesh) -> step + abstract inputs (the
 reference's ``launch/steps.py``).
 
-For every LM and recsys cell (train, LM prefill and decode, recsys serve
-and retrieval) :func:`build_step` returns a :class:`BuiltStep`: the step
+For every cell of the four families (LM train, prefill and decode; the
+EGNN's train steps; recsys train, serve and retrieval; the search arch's
+QT1 serve step) :func:`build_step` returns a :class:`BuiltStep`: the step
 function, its abstract arguments as tensors on the ``meta`` device (the
 torch counterpart of ``jax.eval_shape``: shapes and types, no memory) and
-metadata for the roofline (model params, layers, tokens; ``n_micro`` and
-``bf16_gather`` for LM training). The step runs on the mesh's device; the
-port has no sharding annotations, so a mesh matters through its data
-shards (the MoE capacity dispatch runs once per shard, the microbatch
-rule divides by them) and through its model axis, over which the
-reference shards experts and embedding tables, which raises until the
-multi-device model slice. :func:`materialize_inputs` makes concrete
-inputs: the port's own seeded init (float32 masters and ``init_opt_state``
-for training, bf16 weights for LM serving) and the reference's synthetic
-batch, the same numpy draws in the same order.
+metadata for the roofline (model params, layers, tokens or edges or
+postings; ``n_micro`` and ``bf16_gather`` for LM training). The step runs
+on the mesh's device; the port has no sharding annotations, so a mesh
+matters through its data shards (the MoE capacity dispatch runs once per
+shard, the microbatch rule divides by them) and through its model axis,
+over which the reference shards experts, embedding tables and the GNN's
+edges, which raises until the multi-device model slice; the search step
+alone runs doc-sharded over a mesh of several devices, as the serving
+path does. :func:`materialize_inputs` makes concrete inputs: the port's
+own seeded init (float32 masters and ``init_opt_state`` for training,
+bf16 weights for LM serving) and the reference's synthetic batch, the
+same numpy draws in the same order.
 
 A train step is ``(params, opt_state, batch) -> (params, opt_state,
 {"loss", "grad_norm"})``. It updates ``params`` and the moments in place
 and returns them: the reference's jitted step donates them, and at full
 width there is no room for a second copy.
 
-``build_lm_layer_probe``, ``build_gnn_step`` and ``build_search_step``
-raise ``NotImplementedError`` naming the slice that ports them.
-``REPRO_KV_INT8=1`` (the quantized decode cache), ``REPRO_PAD_HEADS=1``,
-``REPRO_MICRO_STACK_GIB`` and ``REPRO_BF16_GATHER`` are read where the
-reference reads them.
+``build_lm_layer_probe`` raises ``NotImplementedError`` naming the slice
+that ports it. ``REPRO_KV_INT8=1`` (the quantized decode cache),
+``REPRO_PAD_HEADS=1``, ``REPRO_MICRO_STACK_GIB``, ``REPRO_BF16_GATHER``
+and ``REPRO_SEARCH_COMPRESSED`` are read where the reference reads them.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.recsys_archs import N_NEG
+from repro_torch.kernels.common import SENTINEL
 from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
-from repro_torch.models import n_params, recsys, transformer, value_and_grad
+from repro_torch.models import gnn, n_params, recsys, transformer, value_and_grad
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
 F32 = torch.float32
@@ -48,6 +51,7 @@ I32 = torch.int32
 META = torch.device("meta")
 NP_INTS = {torch.int32: np.int32, torch.int8: np.int8}
 MULTI_DEVICE_SLICE = "the multi-device model slice"
+SEARCH_MODES = ("", "offsets", "delta")  # REPRO_SEARCH_COMPRESSED
 
 
 @dataclass
@@ -153,14 +157,92 @@ def build_lm_layer_probe(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "profiler-driven analysis slice")
 
 
+# ==========================================================================
+# GNN family (EGNN)
+# ==========================================================================
+GNN_EDGE_MULTIPLE = 512  # the reference pads the edge axis to shard over 256 or 512 devices
+
+
 def build_gnn_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
-    raise NotImplementedError("GNN steps come with the GNN slice (after training)")
+    """The EGNN train step: the batched (block-diagonal, ``molecule``)
+    or the unbatched loss, autograd, then AdamW (lr 1e-3, no weight
+    decay) in place. The unbatched edge axis is padded to a multiple of
+    512 (pad edges carry mask 0), as the reference pads it."""
+    dims = shape.dims
+    cfg = replace(arch.model_cfg, d_feat=dims["d_feat"])
+    params_abs = gnn.init_params(cfg, device=META)
+    opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.0)
+    meta = {
+        "n_layers": cfg.n_layers,
+        "model_params": n_params(params_abs),
+        "n_edges": dims["n_edges"] * dims.get("batch", 1),
+        "device": _device(mesh),
+    }
+    batched = bool(dims.get("batched"))
+    lead = (dims["batch"],) if batched else ()
+    N, E = dims["n_nodes"], dims["n_edges"]
+    if not batched:
+        E = -(-E // GNN_EDGE_MULTIPLE) * GNN_EDGE_MULTIPLE
+    nodes, edges = lead + (N,), lead + (E,)
+    batch_abs = {
+        "feats": _abstract(nodes + (dims["d_feat"],), F32),
+        "coords": _abstract(nodes + (3,), F32),
+        "src": _abstract(edges, I32),
+        "dst": _abstract(edges, I32),
+        "edge_mask": _abstract(edges, F32),
+        "node_mask": _abstract(nodes, F32),
+        "targets": _abstract(nodes, F32),
+    }
+
+    def loss(p, batch):
+        if batched:
+            return gnn.batched_loss(cfg, p, batch)
+        return gnn.loss_fn(cfg, p, batch, mesh=mesh, edge_axes=tuple(mesh.axis_names))
+
+    def step(params, opt_state, batch):
+        value, grads = value_and_grad(loss, params, batch)
+        params, opt_state, gnorm = adamw_update(opt_cfg, params, grads, opt_state)
+        return params, opt_state, {"loss": value, "grad_norm": gnorm}
+
+    return BuiltStep(step, (params_abs, init_opt_state(params_abs), batch_abs), meta)
 
 
+# ==========================================================================
+# search family (the paper's engine)
+# ==========================================================================
 def build_search_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
-    raise NotImplementedError(
-        "the search family's step builder comes with the GNN slice, beside "
-        "configs/proximity_search.py and the registry")
+    """The QT1 serve step over the arch's (B, K, L) posting rows.
+    ``REPRO_SEARCH_COMPRESSED``, read here: unset or empty for the raw
+    payload (three int32 streams), ``offsets`` for uint8 fragment offsets
+    beside the int32 keys, ``delta`` for offsets and block-delta16 uint16
+    keys. The step runs on the mesh's first device, or doc-sharded over a
+    mesh of several (``core/torch_search.py``)."""
+    from repro_torch.core.torch_search import (
+        make_qt1_serve_step,
+        make_qt1_serve_step_compressed,
+    )
+
+    cfg = arch.model_cfg
+    dims = shape.dims
+    B, L, K = dims["batch"], dims["postings"], cfg.n_keys
+    mode = os.environ.get("REPRO_SEARCH_COMPRESSED", "")
+    if mode not in SEARCH_MODES:
+        raise ValueError(f"REPRO_SEARCH_COMPRESSED={mode!r}: want one of {SEARCH_MODES}")
+    meta = {"n_layers": 1, "model_params": 0, "postings": B * K * L,
+            "search_mode": mode or "baseline", "device": mesh.devices.flat[0]}
+    vec = (_abstract((B,), F32), _abstract((B,), F32))
+    if mode == "delta":
+        fn = make_qt1_serve_step_compressed(top_k=cfg.top_k, delta_g=True, mesh=mesh)
+        args = (_abstract((B, K, L // 64), I32), _abstract((B, K, L), torch.uint16),
+                _abstract((B, K, L), torch.uint8), _abstract((B, K, L), torch.uint8)) + vec
+    elif mode == "offsets":
+        fn = make_qt1_serve_step_compressed(top_k=cfg.top_k, delta_g=False, mesh=mesh)
+        args = (_abstract((B, K, 1), I32), _abstract((B, K, L), I32),
+                _abstract((B, K, L), torch.uint8), _abstract((B, K, L), torch.uint8)) + vec
+    else:
+        fn = make_qt1_serve_step(top_k=cfg.top_k, mesh=mesh)
+        args = tuple(_abstract((B, K, L), I32) for _ in range(3)) + vec
+    return BuiltStep(fn, args, meta)
 
 
 # ==========================================================================
@@ -279,12 +361,13 @@ def build_step(arch: ArchSpec, shape_name: str, mesh) -> BuiltStep:
     return builder(arch, shape, mesh)
 
 
-def _synth(tree, arch: ArchSpec, rng, device):
+def _synth(tree, arch: ArchSpec, rng, device, dims=None):
     """The reference's synthetic leaves, drawn from ``rng`` in its order
-    (dict keys sorted): integers in the family's id range (wrapping into
-    narrow types as numpy's cast does), zero for a scalar; ones for a float
-    leaf named ``*mask*`` and zeros for ``log_q``, neither drawn; N(0, 0.5)
-    for the other floats."""
+    (dict keys sorted): integers in the family's id range (a GNN's
+    ``src``/``dst`` below the shape's ``n_nodes``; wrapping into narrow
+    types as numpy's cast does), zero for a scalar; ones for a float leaf
+    named ``*mask*`` and zeros for ``log_q``, neither drawn; N(0, 0.5) for
+    the other floats."""
     cfg = arch.model_cfg
 
     def leaf(name, x):
@@ -292,6 +375,8 @@ def _synth(tree, arch: ArchSpec, rng, device):
             hi = 4
             if arch.family == "lm":
                 hi = cfg.vocab
+            elif arch.family == "gnn":
+                hi = dims["n_nodes"] if name in ("src", "dst") else 4
             elif arch.family == "recsys":
                 hi = getattr(cfg, "n_cates", 4) if "cate" in name else getattr(cfg, "n_items", 4)
             if x.dim() == 0:
@@ -309,7 +394,7 @@ def _synth(tree, arch: ArchSpec, rng, device):
     if isinstance(tree, dict):
         drawn = {}
         for k in sorted(tree):
-            drawn[k] = (_synth(tree[k], arch, rng, device) if isinstance(tree[k], dict)
+            drawn[k] = (_synth(tree[k], arch, rng, device, dims) if isinstance(tree[k], dict)
                         else leaf(k, tree[k]))
         return {k: drawn[k] for k in tree}
     return leaf("", tree)
@@ -320,8 +405,43 @@ def materialize_batch(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: i
     the optimizer state), synthesised on the step's device from
     ``np.random.default_rng(seed)`` as the reference draws them."""
     rng = np.random.default_rng(seed)
-    first = 2 if arch.shapes[shape_name].kind == "train" else 1
-    return tuple(_synth(a, arch, rng, built.meta["device"]) for a in built.args[first:])
+    shape = arch.shapes[shape_name]
+    if arch.family == "search":
+        return _search_inputs(arch, shape, rng, built.meta["device"])
+    first = 2 if shape.kind == "train" else 1
+    return tuple(_synth(a, arch, rng, built.meta["device"], shape.dims)
+                 for a in built.args[first:])
+
+
+def _search_inputs(arch: ArchSpec, shape: ShapeSpec, rng, device) -> tuple:
+    """The reference's search inputs, its numpy draws in its order: per
+    query row, a sorted base of L/2 distinct keys below 4L, and per key a
+    sorted subset of L/4 to L/2 of them with fragment bounds 0-4 either
+    side, padded with SENTINEL; idf sums U(1, 5) and span 3. For a
+    compressed mode, the payload ``compress_qt1_batch`` makes of them (the
+    reference hands its compressed steps the raw arrays whatever the
+    mode)."""
+    from repro_torch.core.torch_search import QT1Batch, compress_qt1_batch
+
+    B, K, L = shape.dims["batch"], arch.model_cfg.n_keys, shape.dims["postings"]
+    g = np.full((B, K, L), SENTINEL, np.int32)
+    lo = g.copy()
+    hi = g.copy()
+    for b in range(B):
+        base = np.sort(rng.choice(L * 4, size=L // 2, replace=False)).astype(np.int32)
+        for k in range(K):
+            n = rng.integers(L // 4, L // 2)
+            sub = np.sort(rng.choice(base, size=n, replace=False))
+            g[b, k, :n] = sub
+            lo[b, k, :n] = sub - rng.integers(0, 5, n).astype(np.int32)
+            hi[b, k, :n] = sub + rng.integers(0, 5, n).astype(np.int32)
+    idf = rng.uniform(1, 5, B).astype(np.float32)
+    span = np.full(B, 3.0, np.float32)
+    mode = os.environ.get("REPRO_SEARCH_COMPRESSED", "")
+    args = (g, lo, hi, idf, span)
+    if mode:
+        args = compress_qt1_batch(QT1Batch(g, lo, hi, idf, span, 1), delta_g=mode == "delta")
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args)
 
 
 def materialize_inputs(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: int = 0):
@@ -337,7 +457,10 @@ def materialize_inputs(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: 
         params = transformer.init_params(cfg, seed, device=device, dtype=dtype)
     elif arch.family == "recsys":
         params = _INITS[_arch_kind(cfg)](cfg, seed, device=device)
-    else:
-        raise NotImplementedError(f"{arch.family} inputs come with the slice that ports its steps")
+    elif arch.family == "gnn":
+        dims = arch.shapes[shape_name].dims
+        params = gnn.init_params(replace(cfg, d_feat=dims["d_feat"]), seed, device=device)
+    else:  # search: the posting arrays only
+        return materialize_batch(arch, shape_name, built, seed)
     state = (params, init_opt_state(params)) if train else (params,)
     return state + materialize_batch(arch, shape_name, built, seed)

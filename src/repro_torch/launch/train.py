@@ -7,8 +7,8 @@
 
 Checkpoints go under ``--ckpt-dir`` (default: ``repro_torch_ckpt`` in the
 temporary directory); a directory that already holds one resumes from it.
-Architectures are looked up over ``configs.lm_archs`` and
-``configs.recsys_archs``; the registry comes with the GNN slice.
+``--arch`` is looked up in ``configs.registry`` (``get_arch``), as in the
+reference; the supervised loop feeds LM batches (``make_lm_batch_fn``).
 """
 
 from __future__ import annotations
@@ -21,8 +21,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.lm_archs import LM_ARCHS
-from repro_torch.configs.recsys_archs import RECSYS_ARCHS
+from repro_torch.configs.registry import get_arch
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import build_step, materialize_inputs
@@ -33,13 +32,6 @@ from repro_torch.train.fault_tolerance import (
 )
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
-
-
-def get_arch(arch_id: str):
-    for arch in LM_ARCHS + RECSYS_ARCHS:
-        if arch.arch_id == arch_id:
-            return arch
-    raise KeyError(f"unknown arch {arch_id!r}")
 
 
 def make_lm_batch_fn(vocab: int, batch: int, seq: int, seed: int = 0, *, device=None):

@@ -8,9 +8,10 @@ of ``embedding_bag_pallas``), so a table on a card runs
 Both add a bag's rows in float32 in the order s = 0..S-1; the reference
 sums with XLA's reduce, so the two agree within rounding, not bit for bit.
 The bag is differentiable with respect to a float32 table: its gradient
-is the entry point's backward (``embedding_bag_bwd`` on a card, float32
-atomics; ``embedding_bag_backward_plain`` on the CPU), dense like the
-reference's gradient of its gather and sum.
+is the entry point's backward (``embedding_bag_bwd`` on a card, a sorted
+segment sum in (b, s) order; ``embedding_bag_backward_plain`` on the CPU,
+equal to it bit for bit), dense like the reference's gradient of its
+gather and sum.
 The row-sharded lookups (``sharded_embedding_*``) come with the
 multi-device model slice.
 """

@@ -10,9 +10,13 @@ reference's draw for draw; the step's outputs have the shapes
 reference's materialized inputs (its weights carried across) agrees
 with the reference's step: LM logits by cosine >= 0.995 and argmax
 agreement >= 0.9 (bf16 serving weights), recsys outputs within rtol and
-atol 1e-5 with equal top-k ids. The train cells are held to the
-reference in ``test_torch_train_steps.py``; the builders the later
-slices bring raise ``NotImplementedError`` naming them.
+atol 1e-5 with equal top-k ids. The reduced EGNN cells' built train
+steps match the reference's over two steps (loss and grad_norm within
+rtol 1e-5, float32 sums in other orders); the search arch's built QT1
+step, under each ``REPRO_SEARCH_COMPRESSED`` mode at both smoke shapes,
+gives the reference's top-k records exactly; the registry lists the
+reference's arch ids. The LM and recsys train cells are held to the
+reference in ``test_torch_train_steps.py``.
 """
 
 import numpy as np
@@ -21,11 +25,15 @@ import torch
 
 jax = pytest.importorskip("jax")  # the reference side: a card host without JAX skips the file
 
+from repro.configs.gnn_archs import EGNN_ARCH as REF_EGNN_ARCH
 from repro.configs.lm_archs import LM_ARCHS as REF_LM_ARCHS
+from repro.configs.proximity_search import SEARCH_ARCH as REF_SEARCH_ARCH
 from repro.configs.recsys_archs import RECSYS_ARCHS as REF_RECSYS_ARCHS
 from repro.launch import steps as jsteps
 from repro.launch.mesh import make_mesh as jax_mesh
+from repro_torch.configs.gnn_archs import EGNN_ARCH
 from repro_torch.configs.lm_archs import LM_ARCHS
+from repro_torch.configs.proximity_search import SEARCH_ARCH
 from repro_torch.configs.recsys_archs import RECSYS_ARCHS
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import make_mesh
@@ -148,11 +156,104 @@ def test_built_recsys_step(arch_id, shape_name):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
-def test_other_builders_wait_for_their_slices():
-    mesh = _mesh11()
-    built = tsteps.build_step(RECSYS_ARCHS[0].reduced(), "train_batch", mesh)  # ported
+# -- GNN (EGNN) train steps -------------------------------------------------------
+GNN_RTOL = 1e-5  # float32 loss and grad_norm after two steps: sums in other orders
+GNN_SHAPES = list(EGNN_ARCH.reduced().shapes)
+
+
+@pytest.mark.parametrize("shape_name", GNN_SHAPES)
+def test_built_gnn_step(shape_name):
+    """build_step + materialize_inputs for every reduced EGNN shape: the
+    reference's meta and batch draw for draw, and two steps on the
+    reference's inputs (its weights and optimizer state carried across)
+    within GNN_RTOL of the reference's built step on a (1, 1) mesh."""
+    ref, port = REF_EGNN_ARCH.reduced(), EGNN_ARCH.reduced()
+    built = tsteps.build_step(port, shape_name, _mesh11())
+    assert all(t.device.type == "meta" for t in _leaves(built.args))
+    _, opt, batch = tsteps.materialize_inputs(port, shape_name, built, seed=1)
+    assert sorted(opt) == ["mu", "nu", "step"]
+    jbuilt, jargs, carried = _reference(ref, shape_name)
+    for name in jargs[2]:
+        np.testing.assert_array_equal(_np(batch[name]), np.asarray(jargs[2][name], np.float32))
+        assert batch[name].dtype == carried[2][name].dtype
+    assert {k: built.meta[k] for k in jbuilt.meta} == jbuilt.meta
+    jp, jo, jb = jargs
+    p, o, b = carried
+    for _ in range(2):
+        jp, jo, jm = jbuilt.fn(jp, jo, jb)
+        p, o, m = built.fn(p, o, b)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=GNN_RTOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=GNN_RTOL)
+
+
+def test_gnn_step_pads_edges_to_a_multiple_of_512():
+    built = tsteps.build_step(EGNN_ARCH, "full_graph_sm", _mesh11())
+    assert tuple(built.args[2]["src"].shape) == (10_752,)
+    assert built.meta["n_edges"] == 10_556
+    assert tuple(built.args[2]["feats"].shape) == (2_708, 1_433)
+
+
+# -- search (the paper's engine) ----------------------------------------------------
+SEARCH_SHAPES = list(REF_SEARCH_ARCH.reduced().shapes)
+
+
+@pytest.mark.parametrize("mode", ["", "offsets", "delta"])
+@pytest.mark.parametrize("shape_name", SEARCH_SHAPES)
+def test_built_search_step(monkeypatch, shape_name, mode):
+    """build_search_step under each REPRO_SEARCH_COMPRESSED mode at both
+    smoke shapes: the reference's argument shapes and types and meta;
+    materialize_inputs equal to the reference's raw draw, encoded for the
+    mode as the reference's compress_qt1_batch encodes it; the top-k
+    records equal to the reference's built step's on those inputs."""
+    from repro.core.jax_search import QT1Batch, compress_qt1_batch
+
+    ref, port = REF_SEARCH_ARCH.reduced(), SEARCH_ARCH.reduced()
+    monkeypatch.setenv("REPRO_SEARCH_COMPRESSED", "")
+    jraw = jsteps.materialize_inputs(ref, shape_name, jsteps.build_step(
+        ref, shape_name, jax_mesh((1, 1), ("data", "model"))), seed=1)
+    monkeypatch.setenv("REPRO_SEARCH_COMPRESSED", mode)
+    jbuilt = jsteps.build_step(ref, shape_name, jax_mesh((1, 1), ("data", "model")))
+    jargs = [np.asarray(a) for a in jraw]
+    if mode:
+        jargs = compress_qt1_batch(QT1Batch(*jargs, 1), delta_g=mode == "delta")
+    built = tsteps.build_step(port, shape_name, _mesh11())
+    assert built.meta["search_mode"] == jbuilt.meta["search_mode"] == (mode or "baseline")
+    assert {k: built.meta[k] for k in jbuilt.meta} == jbuilt.meta
+    args = tsteps.materialize_inputs(port, shape_name, built, seed=1)
+    for a, abstract, jabs, want in zip(args, built.args, jbuilt.args, jargs):
+        assert tuple(a.shape) == tuple(abstract.shape) == tuple(jabs.shape)
+        assert a.dtype == abstract.dtype
+        assert str(a.dtype).split(".")[-1] == str(jabs.dtype)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(want))
+    got = built.fn(*args)
+    want = jbuilt.fn(*jargs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_search_step_refuses_an_unknown_mode(monkeypatch):
+    monkeypatch.setenv("REPRO_SEARCH_COMPRESSED", "zstd")
+    with pytest.raises(ValueError, match="REPRO_SEARCH_COMPRESSED"):
+        tsteps.build_step(SEARCH_ARCH.reduced(), "qt1_serve", _mesh11())
+
+
+# -- the registry -------------------------------------------------------------------
+def test_registry_lists_the_reference_archs():
+    from repro.configs import registry as jreg
+    from repro_torch.configs import registry as treg
+
+    assert sorted(treg.ARCHS) == sorted(jreg.ARCHS)
+    assert [a.arch_id for a in treg.ALL_ARCHS] == [a.arch_id for a in jreg.ALL_ARCHS]
+    assert treg.ASSIGNED_ARCH_IDS == jreg.ASSIGNED_ARCH_IDS
+    for arch_id in jreg.ARCHS:
+        port, ref = treg.get_arch(arch_id), jreg.get_arch(arch_id)
+        assert (port.family, sorted(port.shapes), port.skips, port.source) == \
+            (ref.family, sorted(ref.shapes), ref.skips, ref.source)
+        assert {n: s.dims for n, s in port.shapes.items()} == {n: s.dims for n, s in ref.shapes.items()}
+    with pytest.raises(KeyError) as got:
+        treg.get_arch("nope")
+    with pytest.raises(KeyError) as want:
+        jreg.get_arch("nope")
+    assert str(got.value) == str(want.value)
+    built = tsteps.build_step(RECSYS_ARCHS[0].reduced(), "train_batch", _mesh11())
     assert sorted(built.args[1]) == ["mu", "nu", "step"]
-    with pytest.raises(NotImplementedError, match="GNN slice"):
-        tsteps.build_gnn_step(None, None, mesh)
-    with pytest.raises(NotImplementedError, match="GNN slice"):
-        tsteps.build_search_step(None, None, mesh)
