@@ -74,6 +74,9 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   F.embedding_bag's backward; 3 built steps with the counts set to 0 (one
   forward and one backward launch a step), then the same 3 steps from the
   state materialized anew from the seed (losses and grad norms equal);
+  two gradient calls from one state, every leaf compared with
+  ``torch.equal``, of stablelm-1.6b at B 8 x S 4096 and granite-moe at B
+  2 x S 2048 (full width, the bf16 gather, Zipf-drawn tokens);
   stablelm-1.6b train_4k at full width cut to B 8 x S 4096 (two
   microbatches), and cut to 2 layers in float32, one step's loss and
   gradients against the host's; every reduced train cell against the
@@ -90,8 +93,9 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   replay from the seeded state (to the bit); minibatch_lg fed by
   ``minibatch_stream`` over a Reddit-sized ``CSRGraph.random`` (losses
   finite and falling); then the kernel at minibatch_lg's widths (64, 3,
-  1) with a uniform and the sampler's src, timed against its bound, the
-  plain version and ``index_add_``;
+  1) with a uniform and the sampler's src, and at C 64 with a power-law
+  src, timed against its bounds (bytes, and the chain of the longest
+  segment's adds), the plain version and ``index_add_``;
 - the search arch: ``build_search_step`` at qt1_p99, qt1_serve and
   qt1_heavy, raw, offsets and delta payloads, timed warm, the top-k
   records of the first rows equal to the same step on the host.
@@ -103,9 +107,10 @@ the host issues them; each line also gives the wrapper minus the
 kernel, the host's share of a call. With ``--parent-csrc DIR``, the
 nearest-r, embedding-bag, raw and compressed intersect and proximity
 kernels built from ``DIR/{nearest_r,embedding_bag,intersect,proximity}.cu``
-(an earlier version with the same C entry points) are timed at each
-full-width shape too, in turns with the current ones: earlier, current,
-current, earlier.
+(an earlier version with the same C entry points) and the segment sum of
+``DIR/segment_sum.cu`` (an earlier entry point, with no long-segment list)
+are timed at each full-width shape too, in turns with the current ones:
+earlier, current, current, earlier.
 
 ogb_products and qt1_bulk are reckoned, not run (they do not fit one
 card). The second-to-last line of standard output is the kernels JSON line, the
@@ -166,7 +171,7 @@ FULL_SHAPES = (("kernel_bench", 131_072, 1_048_576), ("qt1_heavy", 1_048_576, 1_
 # than a block stages, so it drives the kernels' global branch.
 RARE_A = ("qt1 rare-a", 16_384)
 LIST_CAP = 4096  # b-values a block of csrc/sorted_window.cuh stages (kCap)
-PARENT_SOURCES = ("nearest_r", "embedding_bag", "intersect", "proximity")
+PARENT_SOURCES = ("nearest_r", "embedding_bag", "intersect", "proximity", "segment_sum")
 PROX_D = 5  # MaxDistance's default
 # two-tower-retrieval (configs/recsys_archs.py): n_items, embed_dim, hist_len;
 # batches: RECSYS_SHAPES serve_p99 and a larger one
@@ -593,10 +598,19 @@ def wrappers() -> dict:
 def reset_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "long_launches"):
+            fn.long_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Launches per wrapper, and ``<name> long`` for the wrappers that
+    count their long-segment launches apart."""
+    counts = {}
+    for name, fn in wrappers().items():
+        counts[name] = fn.launches
+        if hasattr(fn, "long_launches"):
+            counts[f"{name} long"] = fn.long_launches
+    return counts
 
 
 # -- the kernel library: intersect, compressed intersect, proximity, bag -------
@@ -2433,6 +2447,10 @@ def models_phase(dev) -> dict:
 # table gradients come after those are freed (PERF.md §4)
 TT_TRAIN_B = 32_768
 LM_TRAIN = {"seq_len": 4096, "global_batch": 8}  # stablelm train_4k, cut from B 256
+LM_ZIPF_A = 1.1  # the replays' token draw: the most frequent token ~10 % of a batch
+# the replays of two gradient calls: stablelm at the train shape, granite-moe
+# at the widest shape the script runs it (the models phase's prefill)
+LM_REPLAYS = (("stablelm-1.6b", LM_TRAIN), ("granite-moe-1b-a400m", {"seq_len": 2048, "global_batch": 2}))
 TRAIN_STEPS = 3
 # the two-tower gradients through the kernels against the plain bag under autograd (whose card
 # backward adds with atomics): of the sum of the added terms' magnitudes
@@ -2698,6 +2716,43 @@ def grads_close_bf16(got, want, what: str) -> dict:
     return out
 
 
+def lm_grads_twice(arch, dims: dict, mesh) -> dict:
+    """Two calls of the built train step's gradient function
+    (``lm_grads_microbatched`` with the step's n_micro and bf16 gather) from
+    one state and one batch of Zipf(LM_ZIPF_A) tokens, as text repeats its
+    frequent tokens: the elements that differ, per leaf (every leaf listed),
+    and whether the losses are equal."""
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import transformer
+    from repro_torch.train.checkpoint import _flatten_with_names
+
+    arch = cut_arch(arch, train_4k=("train", dims))
+    built = build_step(arch, "train_4k", mesh)
+    params, opt, _ = materialize_inputs(arch, "train_4k", built, seed=MODEL_SEED)
+    del opt
+    torch.cuda.empty_cache()
+    cfg = arch.model_cfg
+    rng = np.random.default_rng(MODEL_SEED)
+    B, S = dims["global_batch"], dims["seq_len"]
+    tokens, targets = (torch.from_numpy(np.minimum(rng.zipf(LM_ZIPF_A, (B, S)) - 1, cfg.vocab - 1)
+                                        .astype(np.int32)).to(params["embed"].device)
+                       for _ in range(2))
+    runs = []
+    for _ in range(2):
+        loss, grads = transformer.lm_grads_microbatched(
+            cfg, params, tokens, targets, built.meta["n_micro"], mesh, ("data",),
+            bf16_gather=built.meta["bf16_gather"])
+        runs.append((loss, dict(_flatten_with_names(grads))))
+        del grads
+    (loss_a, a), (loss_b, b) = runs
+    rec = {"dims": dims, "n_micro": built.meta["n_micro"], "bf16_gather": built.meta["bf16_gather"],
+           "top_token_count": int((tokens == 0).sum()), "loss_equal": bool(torch.equal(loss_a, loss_b)),
+           "differing": {n: int((a[n] != b[n]).sum()) for n in a}}
+    del params, runs, a, b
+    torch.cuda.empty_cache()
+    return rec
+
+
 def stablelm_train(dev, mesh, cpu_mesh) -> dict:
     """stablelm-1.6b train_4k at full width, cut to LM_TRAIN: TRAIN_STEPS
     steps on one batch (two microbatches), then the same config cut to 2
@@ -2913,6 +2968,22 @@ def train_phase(dev) -> dict:
         f"ids read once; {bag['distinct_rows']} distinct rows); unit-scale grad_out equal to the "
         "host's plain version to the bit")
 
+    from repro_torch.configs.lm_archs import LM_ARCHS
+
+    report["lm_replays"] = {}
+    for arch_id, dims in LM_REPLAYS:
+        arch = next(a for a in LM_ARCHS if a.arch_id == arch_id)
+        rep = lm_grads_twice(arch, dims, mesh)
+        report["lm_replays"][arch_id] = rep
+        differ = {n: k for n, k in rep["differing"].items() if k}
+        log(f"train: replay {arch_id} B={dims['global_batch']} S={dims['seq_len']} (n_micro "
+            f"{rep['n_micro']}, bf16 gather {rep['bf16_gather']}, Zipf({LM_ZIPF_A}) tokens, the "
+            f"most frequent {rep['top_token_count']} times): two gradient calls from one state: "
+            f"loss {'equal' if rep['loss_equal'] else 'DIFFERS'}; differing elements per leaf "
+            f"{rep['differing']}")
+        if differ or not rep["loss_equal"]:
+            raise AssertionError(f"{arch_id}: two gradient calls from one state differ: {differ}")
+
     lm = stablelm_train(dev, mesh, cpu_mesh)
     report["stablelm"] = lm
     ch = lm["card_vs_host"]
@@ -2968,6 +3039,8 @@ GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")  # ogb_products recko
 GNN_STEPS = 2
 GNN_RTOL = 1e-4  # card against host, float32: loss and grad norm after GNN_STEPS steps
 SEG_WIDTHS = (64, 3, 1)  # the EGNN's message, coordinate and degree sums
+ADD_LATENCY_CYCLES = 4  # a dependent float32 add, reckoned (not published by NVIDIA)
+ZIPF_A = 1.5  # the power-law src: rng.zipf(ZIPF_A) clipped to N - 1, hubs of many sizes
 REDDIT = (232_965, 492)  # gnn_archs.py's minibatch_lg source: nodes, average degree
 STREAM_STEPS = 6  # minibatch_lg steps fed by minibatch_stream
 OGB_PRODUCTS_GB = 79  # reckoned forward of one layer: the (E, 129) edge input + 3 (E, 64)
@@ -2975,11 +3048,14 @@ OGB_PRODUCTS_GB = 79  # reckoned forward of one layer: the (E, 129) edge input +
 
 def segment_sum_replays(dev) -> int:
     """The segment-sum kernel against its plain version on the host, to the
-    bit: ids past either end (dropped), empty segments, zipf ids (segments
-    past the block-wide length beside short ones), one segment holding
-    every term, no terms at all, widths off the group sizes and past one
-    pass of 8 x 32 columns, and misaligned data."""
+    bit: ids past either end (dropped), empty segments, zipf ids (long
+    segments beside short ones), one segment holding every term, no terms
+    at all, widths off the group sizes and past one pass, misaligned data;
+    segments of LONG_TERMS - 1, LONG_TERMS and LONG_TERMS + 1 terms (the
+    long path's threshold) at C 1, 4, 64 and 257, every segment of a
+    block's range long, and one long segment at C 600 on misaligned data."""
     from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+    from repro_torch.kernels.segment_sum.ops import LONG_TERMS
 
     rng = np.random.default_rng(95)
     cases = []
@@ -2992,6 +3068,16 @@ def segment_sum_replays(dev) -> int:
     cases.append(("one segment C64", np.full(4096, 5, np.int32), 9, 64, False))
     cases.append(("no terms C3", np.zeros(0, np.int32), 11, 3, False))
     cases.append(("misaligned C129", rng.integers(0, 90, 2000).astype(np.int32), 90, 129, True))
+    edge = np.repeat(np.arange(3, dtype=np.int32), [LONG_TERMS - 1, LONG_TERMS, LONG_TERMS + 1])
+    for C in (1, 4, 64, 257):  # the threshold's edges, shuffled among short segments
+        ids = np.concatenate([edge, rng.integers(3, 40, 500).astype(np.int32)])
+        cases.append((f"threshold edges C{C}", rng.permutation(ids), 40, C, False))
+    for C in (3, 64):  # 300 rows, each longer than the threshold (a short block's range)
+        ids = np.repeat(np.arange(300, dtype=np.int32), rng.integers(LONG_TERMS + 1, 200, 300))
+        cases.append((f"every row long C{C}", rng.permutation(ids), 300, C, False))
+    ids = np.concatenate([np.full(3000, 2, np.int32), rng.integers(0, 30, 400).astype(np.int32)])
+    cases.append(("long misaligned C600", rng.permutation(ids), 30, 600, True))
+    cases.append(("one segment C1", np.full(20000, 0, np.int32), 3, 1, False))
     for name, ids, R, C, shifted in cases:
         data = torch.from_numpy(rng.normal(size=(ids.shape[0], C)).astype(np.float32))
         on_card = data.to(dev)
@@ -3003,12 +3089,26 @@ def segment_sum_replays(dev) -> int:
     return len(cases)
 
 
-def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int) -> dict:
+def parent_segment_sum(parent: Path, data, plan, out) -> None:
+    """The segment sum of an earlier ``csrc/segment_sum.cu`` (built from
+    ``parent``), whose entry point takes no long-segment list."""
+    from repro_torch.kernels.build import launch
+
+    launch("segment_sum", "segment_sum",
+           [data, plan.order, plan.offsets, out, plan.num_segments, data.shape[1]], data.device,
+           parent)
+
+
+def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int, sm_hz: float,
+                       parent=None) -> dict:
     """The segment sum of (E, C) float32 rows by ``src`` into ``n`` rows:
     equal to the plain version on the host to the bit, then kernel (from a
     prebuilt plan), the plan, wrapper, the plain version on the card and
-    ``index_add_`` into a zeroed buffer timed, against the bound: rows,
-    index and offsets read once, the output written once."""
+    ``index_add_`` into a zeroed buffer timed, against the bound (rows,
+    index and offsets read once, the output written once) and, beside it,
+    the chain bound (the longest segment's terms, one dependent add each at
+    ``sm_hz``), which no reordering may shorten. With ``parent``, the
+    earlier kernel and this one in turns."""
     from repro_torch.kernels.segment_sum import segment_plan, segment_sum, segment_sum_plain
     from repro_torch.kernels.segment_sum.ops import launch_segment_sum
 
@@ -3018,17 +3118,32 @@ def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int) -> dict:
     assert_equal_host(segment_sum(data, src, n), segment_sum_plain(data_host, src.cpu(), n),
                       f"segment sum E{E} C{C}")
     plan = segment_plan(src, n)
+    longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
     out = torch.empty((n, C), dtype=torch.float32, device=src.device)
     lib = torch.zeros((n, C), dtype=torch.float32, device=src.device)
     idx = src.long()
-    return {"E": E, "N": n, "C": C, "max_abs_err": 0.0,
-            "ms": device_ms(lambda: launch_segment_sum(data, plan, out)),
-            "plan_ms": device_ms(lambda: segment_plan(src, n)),
-            "wrapper_ms": call_ms(lambda: segment_sum(data, src, n)),
-            "plain_ms": device_ms(lambda: segment_sum_plain(data, src, n)),
-            "library_ms": device_ms(lambda: lib.index_add_(0, idx, data)),
-            "library": "index_add_ (float32 atomics) into a zeroed buffer",
-            **window_bound(E * C * 4 + E * 4 + (n + 1) * 4, n * C * 4, 2 * E * C)}
+    rec = {"E": E, "N": n, "C": C, "max_abs_err": 0.0,
+           "ms": device_ms(lambda: launch_segment_sum(data, plan, out)),
+           "plan_ms": device_ms(lambda: segment_plan(src, n)),
+           "wrapper_ms": call_ms(lambda: segment_sum(data, src, n)),
+           "plain_ms": device_ms(lambda: segment_sum_plain(data, src, n)),
+           "library_ms": device_ms(lambda: lib.index_add_(0, idx, data)),
+           "library": "index_add_ (float32 atomics) into a zeroed buffer",
+           "long_segments": int((plan.long_rows >= 0).sum()), "longest": longest,
+           **window_bound(E * C * 4 + E * 4 + (n + 1) * 4, n * C * 4, 2 * E * C)}
+    rec["chain_bound_ms"] = longest * ADD_LATENCY_CYCLES / sm_hz * 1e3
+    if parent is not None:
+        rec.update(turns(lambda: parent_segment_sum(parent, data, plan, out),
+                         lambda: launch_segment_sum(data, plan, out)))
+    return rec
+
+
+def sm_clock_hz() -> float:
+    """The SM clock nvidia-smi reports as the card's highest (the chain
+    bound's clock: the least time)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def gnn_steps(dev, mesh, cpu_mesh, shape: str) -> dict:
@@ -3130,10 +3245,11 @@ def gnn_stream(dev, mesh) -> tuple[dict, torch.Tensor]:
              "sample_s_per_batch": statistics.median(sample_s), "real_edges": edges}, src)
 
 
-def gnn_phase(dev) -> dict:
+def gnn_phase(dev, parent=None) -> dict:
     """The EGNN at full width (4 layers x 64) on the card, each cut listed
     under ``reduced``; then the segment-sum kernel at minibatch_lg's widths,
-    with a uniform and the sampler's src."""
+    with a uniform and the sampler's src, and at C 64 with a power-law src
+    (with ``parent``: the earlier kernel in turns)."""
     from repro_torch.launch.mesh import make_mesh
 
     t_phase = time.perf_counter()
@@ -3151,7 +3267,8 @@ def gnn_phase(dev) -> dict:
             f"diff {rec['rel_diff']:.2e}, rtol {GNN_RTOL}); a replay from the seed equal to the "
             f"bit; ms per step {[round(x, 2) for x in rec['step_ms']]}; peak "
             f"{rec['peak_bytes'] / 1e9:.3f} GB; {rec['segment_sums_per_step']:g} segment sums a "
-            f"step; host {rec['host_s']:.1f} s")
+            f"step ({rec['launches']['segment_sum.segment_sum long'] / GNN_STEPS:g} with the "
+            f"long-segment kernel); host {rec['host_s']:.1f} s")
     stream, sampler_src = gnn_stream(dev, mesh)
     report["stream"] = stream
     log(f"gnn: minibatch_lg from minibatch_stream over CSRGraph.random({stream['graph_nodes']}, "
@@ -3160,18 +3277,27 @@ def gnn_phase(dev) -> dict:
         f"{[round(x, 2) for x in stream['step_ms']]}; sampler "
         f"{stream['sample_s_per_batch']:.3f} s a batch; real edges {stream['real_edges']}")
     n = sampler_src.shape[0]
-    srcs = {"uniform": torch.from_numpy(np.random.default_rng(96).integers(
-        0, n, n).astype(np.int32)).to(dev), "sampler": sampler_src}
+    rng = np.random.default_rng(96)
+    srcs = {"uniform": (torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(dev),
+                        SEG_WIDTHS),
+            "sampler": (sampler_src, SEG_WIDTHS),
+            "power-law": (torch.from_numpy(np.minimum(rng.zipf(ZIPF_A, n), n - 1).astype(
+                np.int32)).to(dev), (64,))}
+    sm_hz = sm_clock_hz()
     report["segment_sum"] = {}
-    for tag, src in srcs.items():
-        for C in SEG_WIDTHS:
-            rec = segment_sum_record(src, n, C, seed=C)
+    report["sm_clock_hz"] = sm_hz
+    for tag, (src, widths) in srcs.items():
+        for C in widths:
+            rec = segment_sum_record(src, n, C, seed=C, sm_hz=sm_hz, parent=parent)
             report["segment_sum"][f"{tag} C{C}"] = rec
             log(f"gnn: kernel segment_sum {tag} src E={rec['E']} N={rec['N']} C={C}: kernel "
                 f"{rec['ms']:.4f} ms, plan {rec['plan_ms']:.4f} ms, wrapper {rec['wrapper_ms']:.4f} "
-                f"ms, plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
-                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB); "
-                "equal to the host's plain version to the bit")
+                f"ms, plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms; bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB), "
+                f"chain bound {rec['chain_bound_ms']:.4f} ms (the longest segment "
+                f"{rec['longest']} terms x {ADD_LATENCY_CYCLES} cycles at {sm_hz / 1e6:.0f} MHz); "
+                f"{rec['long_segments']} long segments; equal to the host's plain version to the "
+                f"bit{in_turns(rec)}")
     report["reduced"] = [
         {"what": "egnn ogb_products", "cut": "reckoned, not run",
          "why": f"one layer's forward holds ~{OGB_PRODUCTS_GB} GB (61,859,328 padded edges: the "
@@ -3277,8 +3403,9 @@ def main() -> int:
     parser.add_argument("--report", help="also write the full report as JSON here")
     parser.add_argument("--parent-csrc", type=Path,
                         help="also time nearest_r.cu, embedding_bag.cu, intersect.cu (raw and "
-                             "compressed) and proximity.cu built from this directory, in turns "
-                             "with the current kernels")
+                             "compressed), proximity.cu and segment_sum.cu (the entry point with "
+                             "no long-segment list) "
+                             "built from this directory, in turns with the current kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3312,7 +3439,7 @@ def main() -> int:
     tuned = tune_phase(dev)
     models = models_phase(dev)
     train = train_phase(dev)
-    gnn = gnn_phase(dev)
+    gnn = gnn_phase(dev, parent)
     search = search_phase(dev)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
@@ -3378,6 +3505,8 @@ def main() -> int:
                      train["twotower"]["launches"]["embedding_bag.embedding_bag_backward"],
                      train["max_abs_err"], train["twotower"]["bag_backward"],
                      {"matches_plain": "bitwise, against the plain version on the host",
+                      "long_launches": train["twotower"]["launches"][
+                          "embedding_bag.embedding_bag_backward long"],
                       "shape": {k: train["twotower"]["bag_backward"][k] for k in ("B", "S", "V", "D")},
                       **{k: train["twotower"]["bag_backward"][k] for k in (
                           "plan_ms", "distinct_rows")}}),
@@ -3388,11 +3517,15 @@ def main() -> int:
                      gnn["segment_sum"]["sampler C64"],
                      {"matches_plain": "bitwise, against the plain version on the host",
                       "shape": {k: gnn["segment_sum"]["sampler C64"][k] for k in ("E", "N", "C")},
-                      "plan_ms": gnn["segment_sum"]["sampler C64"]["plan_ms"],
+                      "long_launches": sum(rec["launches"]["segment_sum.segment_sum long"]
+                                           for rec in gnn["shapes"].values()),
+                      **{k: gnn["segment_sum"]["sampler C64"][k] for k in (
+                          "plan_ms", "chain_bound_ms", "longest")},
                       "launches_per_step": {shape: rec["segment_sums_per_step"]
                                             for shape, rec in gnn["shapes"].items()},
-                      "other_shapes": {tag: {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms",
-                                                               "bound_ms", "bound_by", "library_ms")}
+                      "other_shapes": {tag: {k: r[k] for k in (
+                          "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                          "chain_bound_ms")}
                                        for tag, r in gnn["segment_sum"].items()
                                        if tag != "sampler C64"}}),
     ]}

@@ -55,8 +55,9 @@
 // per valid id and column.
 // Design: the sorted segment sum of csrc/segment_sum.cuh. The wrapper
 // stable-sorts the flattened ids (a pad or an id past the table sorts to
-// the end under the key V) and searches each row's offsets; the kernel then
-// sums each row's terms in (b, s) order, the order of
+// the end under the key V), searches each row's offsets and lists the rows
+// of more than 64 terms; the kernels then sum each row's terms in (b, s)
+// order (a long row on the header's long path), the order of
 // embedding_bag_backward_plain's index_add_ on the CPU, so the gradient
 // equals it bit for bit and is the same in every run. Every row is written,
 // so no zero-fill comes first. (An earlier backward added a float32
@@ -242,13 +243,16 @@ void launch(const int* ids, const float* weights, const void* table, void* out, 
 // sum of w[t] * g'[t / S, :] over the flat positions t = b * S + s whose id
 // is v, in t order (see the note at the top). order (B * S,) int32: the
 // positions, stable-sorted by id; offsets (V + 1,) int32: row v's terms are
-// order[offsets[v] .. offsets[v + 1]). weights (B * S,) float32 may be null
-// (every weight 1). g (B, D) float32 is g', divided for mean.
+// order[offsets[v] .. offsets[v + 1]); long_rows (n_long,) int32: the rows
+// of more than long_min terms, -1 after them (null when n_long is 0).
+// weights (B * S,) float32 may be null (every weight 1). g (B, D) float32
+// is g', divided for mean.
 extern "C" int embedding_bag_bwd(const float* g, const int* order, const float* weights,
-                                 const int* offsets, float* grad_table, int V, int D, int S,
+                                 const int* offsets, const int* long_rows, int n_long,
+                                 int long_min, float* grad_table, int V, int D, int S,
                                  void* stream) {
-  return segsum::launch(g, order, weights, offsets, grad_table, V, D, S,
-                        static_cast<cudaStream_t>(stream));
+  return segsum::launch(g, order, weights, offsets, long_rows, n_long, long_min, grad_table, V,
+                        D, S, static_cast<cudaStream_t>(stream));
 }
 
 // dtype: 0 = float32 table and output, 1 = bfloat16. weights may be null

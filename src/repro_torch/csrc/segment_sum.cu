@@ -14,18 +14,22 @@
 // csrc/segment_sum.cuh sets out with rows = data, div = 1 and no weights.
 // What bounds it, and the design: see the header.
 //
-// Interface. A plain C function that launches on the caller's stream and
-// returns cudaGetLastError(); the Python wrapper
-// (kernels/segment_sum/ops.py) sorts the ids, builds the offsets,
-// allocates the output, checks devices, types, shapes and sizes, and
-// raises when the code is not 0.
+// Interface. A plain C function that launches on the caller's stream (the
+// long rows on a second stream joined back to it) and returns the first
+// CUDA error; the Python wrapper (kernels/segment_sum/ops.py) sorts the
+// ids, builds the offsets and the list of long segments, allocates the
+// output, checks devices, types, shapes and sizes, and raises when the
+// code is not 0.
 
 #include "segment_sum.cuh"
 
 // data (E, C) float32; order (E,) int32, the stable sort of the segment
-// ids; offsets (R + 1,) int32; out (R, C) float32, every row written.
-extern "C" int segment_sum(const float* data, const int* order, const int* offsets, float* out,
-                           int R, int C, void* stream) {
-  return segsum::launch(data, order, nullptr, offsets, out, R, C, 1,
+// ids; offsets (R + 1,) int32; long_rows (n_long,) int32, the segments of
+// more than long_min terms and -1 after them (null when n_long is 0); out
+// (R, C) float32, every row written.
+extern "C" int segment_sum(const float* data, const int* order, const int* offsets,
+                           const int* long_rows, int n_long, int long_min, float* out, int R,
+                           int C, void* stream) {
+  return segsum::launch(data, order, nullptr, offsets, long_rows, n_long, long_min, out, R, C, 1,
                         static_cast<cudaStream_t>(stream));
 }

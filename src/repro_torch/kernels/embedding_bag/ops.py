@@ -33,7 +33,8 @@ buffer with ``w[b, s] * g[b]`` added at row ``ids[b, s]`` for every valid
 ``(b, s)`` (``g[b]`` divided first by the mean's denominator), as the
 reference's gradient of its gather and sum is. On a card that is the
 port's own kernel ``embedding_bag_bwd`` in ``csrc/embedding_bag.cu``
-(``embedding_bag_backward.launches`` counts it), on the CPU its plain
+(``embedding_bag_backward.launches`` counts it, ``.long_launches`` the
+calls that also launch its long-segment kernel), on the CPU its plain
 version :func:`embedding_bag_backward_plain`. Departure: the backward
 takes float32 tables only; a bfloat16 table that requires a gradient
 raises TypeError. The kernel is the sorted segment sum of
@@ -51,6 +52,7 @@ import torch
 
 from repro_torch.kernels.common import as_tensor
 from repro_torch.kernels.segment_sum import segment_plan
+from repro_torch.kernels.segment_sum.ops import long_args
 
 COMBINES = ("sum", "mean")
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's type codes
@@ -231,10 +233,13 @@ def embedding_bag_backward(ids, grad_out, num_rows: int, weights=None,
     out = torch.empty((num_rows, grad_out.shape[1]), dtype=torch.float32, device=grad_out.device)
     launch_embedding_bag_backward(plan, weights, g, out, ids.shape[1])
     embedding_bag_backward.launches += 1
+    if plan.long_rows.numel():
+        embedding_bag_backward.long_launches += 1
     return out
 
 
 embedding_bag_backward.launches = 0
+embedding_bag_backward.long_launches = 0
 
 
 def launch_embedding_bag(ids, table, weights, out, *, mean: bool, csrc=None) -> None:
@@ -261,5 +266,5 @@ def launch_embedding_bag_backward(plan, weights, g, grad_table, S: int) -> None:
 
     V, D = grad_table.shape
     launch("embedding_bag", "embedding_bag_bwd",
-           [g, plan.order, weights, plan.offsets, grad_table, V, D, S],
+           [g, plan.order, weights, plan.offsets, *long_args(plan), grad_table, V, D, S],
            g.device, CSRC)

@@ -8,15 +8,20 @@ reference has no Pallas kernel here: XLA lowers its segment sums and the
 gradients of its gathers to scatter-adds); on the CPU, the plain version
 :func:`segment_sum_plain`, ``index_add_`` in index order. There is no
 knob that routes a CUDA tensor to the plain version and no fallback from
-a failed kernel to it. ``segment_sum.launches`` counts the kernel
-launches.
+a failed kernel to it. ``segment_sum.launches`` counts the entry
+point's launches, ``segment_sum.long_launches`` those of them that also
+launch the long-segment kernel (a plan whose ids could hold a segment of
+more than :data:`LONG_TERMS` terms).
 
 The order of the sums is fixed. :func:`segment_plan` stable-sorts the
 ids and searches each segment's offsets, so the kernel adds each row's
 terms in their index order from 0.0, as ``index_add_`` does on the CPU:
 the card's result equals the CPU's bit for bit and is the same in every
 run, where ``index_add_`` on a card adds with atomics in an order that
-changes from run to run. A plan is made once per index vector and reused
+changes from run to run. The plan also lists, on the device, the segments
+of more than :data:`LONG_TERMS` terms, which the kernel sums on a path of
+their own (``csrc/segment_sum.cuh``); no step of the plan or the launch
+waits for the card. A plan is made once per index vector and reused
 (the EGNN makes one for ``src`` and one for ``dst`` per batch, for every
 layer and both passes).
 
@@ -34,19 +39,29 @@ from dataclasses import dataclass
 import torch
 
 INT32_MAX = 2**31 - 1
+LONG_TERMS = 64  # a segment of more terms goes to the kernel's long path
+
+
+def long_bound(n: int) -> int:
+    """The most segments of more than :data:`LONG_TERMS` terms that ``n``
+    terms can make: the length of a plan's ``long_rows``."""
+    return n // (LONG_TERMS + 1)
 
 
 @dataclass(frozen=True)
 class SegmentPlan:
     """The fixed order of a segment sum over ``ids``: ``order`` (n,)
     int32, the term indices stable-sorted by id (ids outside ``[0,
-    num_segments)`` last), and ``offsets`` (num_segments + 1,) int32,
-    segment r's terms being ``order[offsets[r]:offsets[r + 1]]``."""
+    num_segments)`` last), ``offsets`` (num_segments + 1,) int32,
+    segment r's terms being ``order[offsets[r]:offsets[r + 1]]``, and
+    ``long_rows`` (:func:`long_bound` (n),) int32, the segments of more
+    than :data:`LONG_TERMS` terms in increasing order, then -1."""
 
     ids: torch.Tensor
     order: torch.Tensor
     offsets: torch.Tensor
     num_segments: int
+    long_rows: torch.Tensor
 
 
 def _check_ids(ids: torch.Tensor, num_segments: int) -> None:
@@ -65,14 +80,20 @@ def segment_plan(segment_ids: torch.Tensor, num_segments: int) -> SegmentPlan:
     device: a stable sort of the ids, each out-of-range id keyed past the
     last segment, and each segment's first term found by
     ``torch.searchsorted``, an integer result that no order of work
-    changes."""
+    changes; then the segments of more than :data:`LONG_TERMS` terms,
+    gathered by ``torch.nonzero_static`` into a list as long as
+    :func:`long_bound` allows, so nothing waits for the card to count
+    them."""
     _check_ids(segment_ids, num_segments)
     ids = segment_ids.contiguous()
     keys = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
     sorted_keys, order = torch.sort(keys, stable=True)
     bounds = torch.arange(num_segments + 1, dtype=torch.int32, device=ids.device)
     offsets = torch.searchsorted(sorted_keys, bounds, out_int32=True)
-    return SegmentPlan(ids, order.to(torch.int32), offsets, int(num_segments))
+    is_long = (offsets[1:] - offsets[:-1]) > LONG_TERMS
+    long_rows = torch.nonzero_static(is_long, size=long_bound(ids.shape[0]), fill_value=-1)
+    return SegmentPlan(ids, order.to(torch.int32), offsets, int(num_segments),
+                       long_rows[:, 0].to(torch.int32))
 
 
 def _rows(data: torch.Tensor, n: int) -> torch.Tensor:
@@ -120,6 +141,8 @@ def _forward(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     out = torch.empty((plan.num_segments, rows.shape[1]), dtype=torch.float32, device=data.device)
     launch_segment_sum(rows, plan, out)
     segment_sum.launches += 1
+    if plan.long_rows.numel():
+        segment_sum.long_launches += 1
     return out.reshape((plan.num_segments,) + tuple(data.shape[1:]))
 
 
@@ -136,6 +159,7 @@ def segment_sum(data: torch.Tensor, segment_ids, num_segments: int | None = None
 
 
 segment_sum.launches = 0
+segment_sum.long_launches = 0
 
 
 def _gather(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
@@ -187,10 +211,18 @@ class GatherRows(torch.autograd.Function):
 
 
 def launch_segment_sum(rows: torch.Tensor, plan: SegmentPlan, out: torch.Tensor) -> None:
-    """Launch the CUDA kernel into a preallocated ``out`` (every row
+    """Launch the CUDA kernels into a preallocated ``out`` (every row
     written) on the current stream — no checks and no launch count: the
     wrapper's inner step, exposed for timing the kernel alone."""
     from repro_torch.kernels.build import launch
 
     launch("segment_sum", "segment_sum",
-           [rows, plan.order, plan.offsets, out, plan.num_segments, rows.shape[1]], rows.device)
+           [rows, plan.order, plan.offsets, *long_args(plan), out, plan.num_segments,
+            rows.shape[1]], rows.device)
+
+
+def long_args(plan: SegmentPlan) -> list:
+    """The long-segment arguments of a C entry point: the list (None when
+    it is empty), its length and :data:`LONG_TERMS`."""
+    n = plan.long_rows.numel()
+    return [plan.long_rows if n else None, n, LONG_TERMS]

@@ -11,7 +11,10 @@
 * ``segment_sum_plain`` equal, bit for bit, to a numpy loop in index
   order; the plan's order stable and its offsets the segments' starts.
 * ``GatherRows`` and ``SegmentSum`` gradients equal to autograd's own
-  ``x[ids]`` and ``index_add_`` on the CPU, to the bit.
+  ``x[ids]`` and ``index_add_`` on the CPU, to the bit (short segments:
+  autograd adds a long one in another order), and ``GatherRows``'s to the
+  index-order loop on every case (the plan's list of long segments and the
+  kernel's long path: ``tests/test_torch_segment_sum.py``).
 * ``-m cuda``: the kernel equal to the host's plain version to the bit,
   and an EGNN gradient the same in two runs.
 """
@@ -34,6 +37,7 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum,
     segment_sum_plain,
 )
+from repro_torch.kernels.segment_sum.ops import LONG_TERMS  # noqa: E402
 from repro_torch.kernels.segment_sum.ref import segment_sum_ref  # noqa: E402
 from repro_torch.models import carry_params, value_and_grad  # noqa: E402
 from repro_torch.models import gnn as tgnn  # noqa: E402
@@ -158,6 +162,10 @@ SEG_CASES = {  # name: (n terms, segments, width or None for 1-D data, id low, i
     "1-D data": (150, 9, None, -1, 10),
     "wide": (90, 6, 300, 0, 6),
     "no terms": (0, 5, 4, 0, 5),
+    # the kernel's long path: one segment just over LONG_TERMS, and three
+    # segments of ~1,700 terms each, more than the ring's 8 stages of 128
+    "just over the long threshold": (LONG_TERMS + 2, 1, 3, 0, 1),
+    "long over several stages": (5000, 3, 64, -1, 4),
 }
 
 
@@ -189,7 +197,14 @@ def test_segment_plan_is_a_stable_sort_with_segment_starts(case):
     assert plan.order.dtype == plan.offsets.dtype == torch.int32
 
 
-@pytest.mark.parametrize("case", [c for c in SEG_CASES if SEG_CASES[c][1] > 0])
+# autograd's own index backward on the CPU (index_put_ with accumulate)
+# adds a segment of more than ~100 terms in another order than the index
+# order, so it is the oracle for the short segments only; every case's
+# gradient is held to the index-order loop below
+GRAD_CASES = [c for c in SEG_CASES if SEG_CASES[c][1] > 0 and SEG_CASES[c][0] <= 300]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
 def test_gather_and_segment_sum_gradients_match_autograd(case):
     data, ids, R = _seg_inputs(case)
     keep = (ids >= 0) & (ids < R)
@@ -208,6 +223,16 @@ def test_gather_and_segment_sum_gradients_match_autograd(case):
     out = torch.zeros((R,) + data.shape[1:])
     out.index_add(0, inside.long(), b[torch.from_numpy(keep)]).backward(go)
     assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("case", [c for c in SEG_CASES if SEG_CASES[c][1] > 0])
+def test_gather_rows_gradient_adds_in_index_order(case):
+    data, ids, R = _seg_inputs(case)
+    keep = (ids >= 0) & (ids < R)
+    g = data[keep]
+    x = torch.zeros((R,) + data.shape[1:], requires_grad=True)
+    gather_rows(x, torch.from_numpy(ids[keep])).backward(torch.from_numpy(g))
+    assert np.array_equal(x.grad.numpy(), segment_sum_ref(g, ids[keep], R))
 
 
 def test_segment_sum_refuses_other_types():
