@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives ten paths:
+``nvcc`` per source, all started together) and drives eleven paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -98,7 +98,29 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   segment's adds), the plain version and ``index_add_``;
 - the search arch: ``build_search_step`` at qt1_p99, qt1_serve and
   qt1_heavy, raw, offsets and delta payloads, timed warm, the top-k
-  records of the first rows equal to the same step on the host.
+  records of the first rows equal to the same step on the host;
+- the multi-device model paths over a (1, 4) mesh of this card (and of
+  four cards when four are visible), each against the same step
+  unsharded on the card and timed against it, with the counts set to 0
+  around the sharded runs: two-tower-retrieval (V 10M x D 256) with its
+  tables row-sharded at serve_p99, serve_bulk (user vectors within
+  float32 rounding, the bag launched once per shard) and retrieval_cand
+  (top-k ids equal where not tied), its train_batch (B 32,768: 3 steps
+  within 1e-5 of the unsharded steps, the bag and its backward once per
+  shard a step, peak memory, a replay from the seed to the bit), each
+  shard's bag and backward kernel alone, at its shard's inputs equal to
+  its plain version to the bit; din and bert4rec at serve_p99 (equal to
+  the bit); the EGNN edge-sharded at full_graph_sm and minibatch_lg
+  (within 1e-4, 4x the segment sums, a replay to the bit) and on the
+  sampler's batches, each edge shard's segment sum alone and equal to
+  the host's plain version to the bit (node 0's long padding segment in
+  the last shard); granite-moe-1b-a400m's prefill with its 32 experts
+  over 4 ranks (cosine and argmax agreement against tp 1) and two
+  gradient calls (every leaf equal); the public compressed all-reduce
+  means equal to the host's; then the copies between distinct devices:
+  the reduced two-tower and EGNN train steps on a (1, 2) mesh of this
+  card and the host, replayed from the seed with every leaf equal to the
+  bit and within tolerance of the (1, 1) step on the card.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -3204,10 +3226,11 @@ def gnn_steps(dev, mesh, cpu_mesh, shape: str) -> dict:
             "replay_equal": True}
 
 
-def gnn_stream(dev, mesh) -> tuple[dict, torch.Tensor]:
+def gnn_stream(dev, mesh, keep: list) -> tuple[dict, torch.Tensor]:
     """minibatch_lg fed by minibatch_stream over a Reddit-sized
     CSRGraph.random: STREAM_STEPS built steps on fresh batches, losses
-    finite and falling; returns the record and one batch's src."""
+    finite and falling; returns the record and one batch's src, and keeps
+    the first MD_STREAM_STEPS batches (host arrays) in ``keep``."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.graph_data import CSRGraph, minibatch_stream
     from repro_torch.launch.steps import build_step, materialize_inputs
@@ -3231,6 +3254,8 @@ def gnn_stream(dev, mesh) -> tuple[dict, torch.Tensor]:
         t = time.perf_counter()
         batch = next(stream)
         sample_s.append(time.perf_counter() - t)
+        if len(keep) < MD_STREAM_STEPS:
+            keep.append(batch)
         edges.append(int(batch["edge_mask"].sum()))
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
         src = batch["src"] if src is None else src
@@ -3245,11 +3270,12 @@ def gnn_stream(dev, mesh) -> tuple[dict, torch.Tensor]:
              "sample_s_per_batch": statistics.median(sample_s), "real_edges": edges}, src)
 
 
-def gnn_phase(dev, parent=None) -> dict:
+def gnn_phase(dev, parent=None, keep=None) -> dict:
     """The EGNN at full width (4 layers x 64) on the card, each cut listed
     under ``reduced``; then the segment-sum kernel at minibatch_lg's widths,
     with a uniform and the sampler's src, and at C 64 with a power-law src
-    (with ``parent``: the earlier kernel in turns)."""
+    (with ``parent``: the earlier kernel in turns). The first sampled
+    batches go into ``keep``."""
     from repro_torch.launch.mesh import make_mesh
 
     t_phase = time.perf_counter()
@@ -3269,7 +3295,7 @@ def gnn_phase(dev, parent=None) -> dict:
             f"{rec['peak_bytes'] / 1e9:.3f} GB; {rec['segment_sums_per_step']:g} segment sums a "
             f"step ({rec['launches']['segment_sum.segment_sum long'] / GNN_STEPS:g} with the "
             f"long-segment kernel); host {rec['host_s']:.1f} s")
-    stream, sampler_src = gnn_stream(dev, mesh)
+    stream, sampler_src = gnn_stream(dev, mesh, [] if keep is None else keep)
     report["stream"] = stream
     log(f"gnn: minibatch_lg from minibatch_stream over CSRGraph.random({stream['graph_nodes']}, "
         f"avg_degree {REDDIT[1]}) = {stream['graph_edges']} edges ({stream['graph_s']:.1f} s): "
@@ -3302,7 +3328,8 @@ def gnn_phase(dev, parent=None) -> dict:
         {"what": "egnn ogb_products", "cut": "reckoned, not run",
          "why": f"one layer's forward holds ~{OGB_PRODUCTS_GB} GB (61,859,328 padded edges: the "
                 "(E, 129) float32 edge input 31.9 GB, the edge MLP's hidden, its SiLU and the "
-                "message 15.8 GB each), over the 76 GB limit; the reference shards its edges"},
+                "message 15.8 GB each), over the 76 GB limit; edge-sharded over four cards its "
+                f"backward still keeps ~{OGB_SAVED_GB} GB a card (the multidevice phase)"},
         {"what": "egnn card against host", "cut": f"{GNN_STEPS} steps a shape",
          "why": "a host step at minibatch_lg takes seconds"},
         {"what": "all shapes", "cut": "random weights and graphs from a seed",
@@ -3389,6 +3416,621 @@ def search_phase(dev) -> dict:
     return report
 
 
+# -- the multi-device model paths: row-sharded tables, expert parallelism, edges --
+MD_SHARDS = 4  # the model axis of the phase's (1, 4) meshes
+MD_SERVE = ("serve_p99", "serve_bulk", "retrieval_cand")  # two-tower's serving shapes
+MD_LOOKUP_ARCHS = ("din", "bert4rec")  # serve_p99 with row-sharded tables
+MD_EGNN_SHAPES = ("full_graph_sm", "minibatch_lg")
+MD_STREAM_STEPS = 2  # minibatch_lg batches from minibatch_stream through both steps
+MD_GRANITE = {"seq_len": 2048, "global_batch": 2}
+MD_LM_COS, MD_LM_AGREE = 0.999, 0.9  # granite's logits at tp 4 against tp 1
+MD_DP_ELEMS, MD_DP_TOPK = 1 << 20, 1 << 14  # each rank's tensor in the direct all-reduce check
+OGB_SAVED_GB = 127  # reckoned: one layer's tensors kept for the backward at 61,859,328 edges
+BAG_CHECK_ROWS = 16_384  # bags a slice when a shard's bag is held against its plain version
+MIXED_STEPS = 2  # train steps a run on the (1, 2) mesh of the card and the host
+
+
+def md_meshes(dev) -> list:
+    """(name, the (1, 1) mesh, the (1, MD_SHARDS) mesh): the shards on this
+    card, and on four cards when four are visible."""
+    from repro_torch.launch.mesh import make_mesh
+
+    cases = [("one card", [dev] * MD_SHARDS)]
+    if torch.cuda.device_count() >= MD_SHARDS:
+        cases.append(("four cards", [torch.device("cuda", i) for i in range(MD_SHARDS)]))
+    one = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    return [(name, one, make_mesh((1, MD_SHARDS), ("data", "model"), devices=d))
+            for name, d in cases]
+
+
+def counted(total: dict, fn):
+    """(fn(), the launches it made): every count set to 0 before the call
+    and read after it, and added into ``total``."""
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out, got
+
+
+def expect_launches(got: dict, want: dict, what: str) -> None:
+    for name, n in want.items():
+        if got[name] != n:
+            raise AssertionError(f"{what}: {got[name]} launches of {name}, want {n}")
+
+
+def peak_bytes(mesh) -> list:
+    return [torch.cuda.max_memory_allocated(d) for d in mesh.unique_devices()]
+
+
+def reset_peaks(mesh) -> None:
+    for d in mesh.unique_devices():
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def md_bag_shards(table, ids) -> list:
+    """The bag kernel on each table shard at its shard's share of ``ids``
+    (-1 for the rows it does not own): the wrapper's output equal to the
+    plain version's on the same inputs to the bit (on the card, in slices
+    of BAG_CHECK_ROWS bags: the float32 products and adds are the same
+    on the card and the host, and a host gather of 13 GB a shard would
+    take minutes), then the kernel alone against its bound."""
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
+    from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag
+    from repro_torch.models.embedding import local_ids
+
+    (B, S), rows, D = ids.shape, table.rows_per_shard, table.shape[1]
+    recs = []
+    for r, block in enumerate(table.shards):
+        local = local_ids(ids.to(block.device), r, rows).to(torch.int32)
+        valid = local >= 0
+        n_valid, distinct = int(valid.sum()), int(torch.unique(local[valid]).numel())
+        got = embedding_bag(local, block)
+        for b0 in range(0, B, BAG_CHECK_ROWS):
+            assert_bag(got[b0:b0 + BAG_CHECK_ROWS],
+                       embedding_bag_plain(local[b0:b0 + BAG_CHECK_ROWS], block), block.dtype,
+                       f"shard {r} of {len(table.shards)}, bags {b0}..")
+        del got
+        out = torch.empty((B, D), dtype=block.dtype, device=block.device)
+        recs.append({"shard": r, "rows": rows, "valid_ids": n_valid, "distinct_rows": distinct,
+                     "matches_plain": True, "ms": device_ms(lambda: launch_embedding_bag(local, block, None, out,
+                                                                  mean=False)),
+                     **window_bound(4 * B * S + distinct * D * 4, B * D * 4, n_valid * D)})
+    return recs
+
+
+def md_bag_backward_shards(table, ids) -> list:
+    """The bag's backward on each table shard, a (V / 4, D) gradient from
+    the shard's share of ``ids``: the wrapper's equal to the plain
+    version's on the host to the bit, then the kernel alone from a
+    prebuilt plan."""
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward,
+        embedding_bag_backward_plain,
+    )
+    from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag_backward
+    from repro_torch.kernels.segment_sum import segment_plan
+    from repro_torch.models.embedding import local_ids
+
+    (B, S), rows, D = ids.shape, table.rows_per_shard, table.shape[1]
+    g_host = torch.from_numpy(np.random.default_rng(91).normal(size=(B, D)).astype(np.float32))
+    recs = []
+    for r, block in enumerate(table.shards):
+        local = local_ids(ids.to(block.device), r, rows).to(torch.int32)
+        n_valid = int((local >= 0).sum())
+        g = g_host.to(block.device)
+        got = embedding_bag_backward(local, g, rows)
+        assert_equal_host(got, embedding_bag_backward_plain(local.cpu(), g_host, rows),
+                          f"bag backward, shard {r} of {len(table.shards)}")
+        del got
+        plan = segment_plan(local.reshape(-1), rows)
+        buf = torch.empty((rows, D), dtype=torch.float32, device=block.device)
+        recs.append({"shard": r, "rows": rows, "valid_ids": n_valid, "matches_plain": True,
+                     "ms": device_ms(lambda: launch_embedding_bag_backward(plan, None, g, buf, S),
+                                     runs=9),
+                     "long_rows": int((plan.long_rows >= 0).sum()),
+                     **window_bound(B * D * 4 + B * S * 4, rows * D * 4, 2 * n_valid * D)})
+        del buf, plan
+    torch.cuda.empty_cache()
+    return recs
+
+
+def md_twotower_serve(one, mesh, total: dict) -> dict:
+    """two-tower-retrieval at serve_p99, serve_bulk and retrieval_cand with
+    item_emb and cate_emb row-sharded over the mesh (row views of the
+    unsharded step's tables on one card): the user vectors within float32
+    rounding of the unsharded tower, the bag launched once per shard, the
+    scores within RECSYS_TOL and retrieval's top-k equal where not tied;
+    each step timed against the unsharded one; then the bag kernel alone on
+    each shard at serve_bulk."""
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.launch.steps import (
+        build_step,
+        materialize_batch,
+        materialize_inputs,
+        place_params,
+    )
+    from repro_torch.models import recsys
+
+    cfg = TWO_TOWER.model_cfg
+    b1 = {n: build_step(TWO_TOWER, n, one) for n in MD_SERVE}
+    bs = {n: build_step(TWO_TOWER, n, mesh) for n in MD_SERVE}
+    params, first = materialize_inputs(TWO_TOWER, MD_SERVE[0], b1[MD_SERVE[0]], seed=MODEL_SEED)
+    batches = {MD_SERVE[0]: first}
+    for i, n in enumerate(MD_SERVE[1:], 1):
+        (batches[n],) = materialize_batch(TWO_TOWER, n, b1[n], seed=MODEL_SEED + i)
+    sp = place_params(bs[MD_SERVE[0]], params)
+    if "item_emb" not in bs[MD_SERVE[0]].meta["sharded_tables"]:
+        raise AssertionError(f"two-tower sharded tables: {bs[MD_SERVE[0]].meta['sharded_tables']}")
+    rec = {"sharded_tables": list(bs[MD_SERVE[0]].meta["sharded_tables"]),
+           "views": all(s.data_ptr() == params["item_emb"][r * sp["item_emb"].rows_per_shard:]
+                        .data_ptr() for r, s in enumerate(sp["item_emb"].shards))}
+    for n in MD_SERVE:
+        batch = batches[n]
+        pspec = (None, None) if n == "retrieval_cand" else None
+        u1 = recsys.twotower_user(cfg, params, batch)
+        us, got = counted(total, lambda: recsys.twotower_user(cfg, sp, batch, mesh, ("data",),
+                                                             bag_pspec=pspec))
+        expect_launches(got, {"embedding_bag.embedding_bag": MD_SHARDS}, f"two-tower {n} tower")
+        u_diff = float((us - u1.to(us.device)).abs().max())
+        torch.testing.assert_close(us, u1.to(us.device), rtol=RECSYS_TOL, atol=RECSYS_TOL)
+        out1 = b1[n].fn(params, batch)
+        outs, got = counted(total, lambda: bs[n].fn(sp, batch))
+        expect_launches(got, {"embedding_bag.embedding_bag": MD_SHARDS}, f"two-tower {n} step")
+        r = {"B": int(batch["hist"].shape[0]), "user_max_abs_diff": u_diff,
+             "ms": median_ms(lambda: bs[n].fn(sp, batch)),
+             "unsharded_ms": median_ms(lambda: b1[n].fn(params, batch))}
+        if n == "retrieval_cand":
+            r["C"] = int(batch["cand_items"].shape[0])
+            r["tied_swaps"] = same_top_k(outs, tuple(t.cpu() for t in out1), f"two-tower {n}")
+        else:
+            r["score_max_abs_diff"] = float((outs - out1.to(outs.device)).abs().max())
+            torch.testing.assert_close(outs, out1.to(outs.device), rtol=RECSYS_TOL, atol=RECSYS_TOL)
+        rec[n] = r
+        del out1, outs, us, u1
+    rec["bag_shards_serve_bulk"] = md_bag_shards(sp["item_emb"], batches["serve_bulk"]["hist"])
+    del params, sp, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
+    """two-tower-retrieval's train_batch (B TT_TRAIN_B) with its tables
+    row-sharded: TRAIN_STEPS built steps timed, the bag and its backward
+    launched once per shard a step, losses and grad norms within
+    RECSYS_TOL of the train phase's unsharded steps from the same seed,
+    peak memory; the same steps again from the state materialized anew,
+    equal to the bit; then the backward kernel alone on each shard."""
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.launch.steps import build_step, materialize_inputs
+
+    arch = cut_arch(TWO_TOWER, train_batch=("train", {"batch": TT_TRAIN_B}))
+    built = build_step(arch, "train_batch", mesh)
+    params, opt, batch = materialize_inputs(arch, "train_batch", built, seed=MODEL_SEED)
+    reset_peaks(mesh)
+    losses, norms, step_ms = [], [], []
+
+    def steps():
+        nonlocal params, opt
+        for _ in range(TRAIN_STEPS):
+            (params, opt, m), ms = timed(lambda: built.fn(params, opt, batch))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            step_ms.append(ms)
+
+    _, got = counted(total, steps)
+    peaks = peak_bytes(mesh)
+    expect_launches(got, {"embedding_bag.embedding_bag": MD_SHARDS * TRAIN_STEPS,
+                          "embedding_bag.embedding_bag_backward": MD_SHARDS * TRAIN_STEPS},
+                    "two-tower sharded train")
+    want = np.array([unsharded["losses"], unsharded["grad_norms"]])
+    rel = np.abs(np.array([losses, norms]) / want - 1)
+    if not (np.isfinite(rel).all() and (rel <= RECSYS_TOL).all()):
+        raise AssertionError(f"two-tower sharded train: losses {losses}, norms {norms}; "
+                             f"unsharded {want.tolist()}")
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt, batch = materialize_inputs(arch, "train_batch", built, seed=MODEL_SEED)
+    again = []
+    for _ in range(TRAIN_STEPS):
+        params, opt, m = built.fn(params, opt, batch)
+        again.append((float(m["loss"]), float(m["grad_norm"])))
+    if again != list(zip(losses, norms)):
+        raise AssertionError(f"two-tower sharded train: a replay from the seed gives {again}, "
+                             f"the first run {list(zip(losses, norms))}")
+    del opt
+    torch.cuda.empty_cache()
+    shards = md_bag_backward_shards(params["item_emb"], batch["hist"])
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"B": TT_TRAIN_B, "losses": losses, "grad_norms": norms, "rel_diff": float(rel.max()),
+            "step_ms": step_ms, "unsharded_step_ms": unsharded["step_ms"],
+            "peak_bytes": peaks, "unsharded_peak_bytes": unsharded["peak_bytes"],
+            "launches": got, "replay_equal": True, "bag_backward_shards": shards}
+
+
+def md_lookups(one, mesh, total: dict) -> dict:
+    """din and bert4rec at serve_p99 with their tables row-sharded: the
+    built step's output equal to the unsharded step's to the bit (each
+    sharded lookup is its one owner's row); both timed."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_step, materialize_inputs, place_params
+
+    rec = {}
+    for arch_id in MD_LOOKUP_ARCHS:
+        arch = get_arch(arch_id)
+        b1, bs = build_step(arch, "serve_p99", one), build_step(arch, "serve_p99", mesh)
+        params, batch = materialize_inputs(arch, "serve_p99", b1, seed=MODEL_SEED)
+        sp = place_params(bs, params)
+        out1 = b1.fn(params, batch)
+        outs, _ = counted(total, lambda: bs.fn(sp, batch))
+        if not torch.equal(outs, out1.to(outs.device)):
+            raise AssertionError(f"{arch_id} serve_p99: the sharded lookups' output differs "
+                                 f"(max {float((outs - out1.to(outs.device)).abs().max())})")
+        rec[arch_id] = {"sharded_tables": list(bs.meta["sharded_tables"]), "bitwise": True,
+                        "ms": median_ms(lambda: bs.fn(sp, batch)),
+                        "unsharded_ms": median_ms(lambda: b1.fn(params, batch))}
+        del params, sp, batch, out1, outs
+        torch.cuda.empty_cache()
+    return rec
+
+
+def md_egnn(one, mesh, total: dict, gnn: dict, stream_batches: list) -> dict:
+    """The EGNN with its edges sharded over the mesh: GNN_STEPS built steps
+    at full_graph_sm and minibatch_lg (synthetic), within GNN_RTOL of the
+    gnn phase's unsharded steps from the same seed, MD_SHARDS times their
+    segment-sum launches, a replay from the seed equal to the bit; then
+    minibatch_lg on the sampler's batches through the sharded and the
+    unsharded step; then the segment-sum kernel alone on each edge shard
+    of a sampled batch at C 64, equal to the host's plain version to the
+    bit (the sampler's padding edges, all on node 0, make one long
+    segment in the last shard)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum, segment_sum_plain
+    from repro_torch.kernels.segment_sum.ops import launch_segment_sum
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import tree_leaves
+
+    arch = get_arch("egnn")
+    rec = {}
+    for shape in MD_EGNN_SHAPES:
+        built = build_step(arch, shape, mesh)
+        p, o, b = materialize_inputs(arch, shape, built, seed=MODEL_SEED)
+        reset_peaks(mesh)
+        got, step_ms = [], []
+
+        def steps():
+            nonlocal p, o
+            for _ in range(GNN_STEPS):
+                (p, o, m), ms = timed(lambda: built.fn(p, o, b))
+                got.append((float(m["loss"]), float(m["grad_norm"])))
+                step_ms.append(ms)
+
+        _, launches = counted(total, steps)
+        unsharded = gnn["shapes"][shape]
+        expect_launches(launches, {"segment_sum.segment_sum":
+                                   MD_SHARDS * unsharded["launches"]["segment_sum.segment_sum"]},
+                        f"egnn {shape} edge-sharded")
+        rel = np.abs(np.array(got) / np.array(unsharded["card"]) - 1)
+        if not (np.isfinite(rel).all() and (rel <= GNN_RTOL).all()):
+            raise AssertionError(f"egnn {shape} edge-sharded: {got} against {unsharded['card']}")
+        first = [t.clone() for t in tree_leaves(p)]
+        del p, o, b
+        p, o, b = materialize_inputs(arch, shape, built, seed=MODEL_SEED)
+        again = []
+        for _ in range(GNN_STEPS):
+            p, o, m = built.fn(p, o, b)
+            again.append((float(m["loss"]), float(m["grad_norm"])))
+        if again != got or not all(torch.equal(x, y) for x, y in zip(first, tree_leaves(p))):
+            raise AssertionError(f"egnn {shape} edge-sharded: a replay gives {again}, first {got}")
+        rec[shape] = {"steps": got, "unsharded": unsharded["card"], "rel_diff": float(rel.max()),
+                      "step_ms": step_ms, "unsharded_step_ms": unsharded["step_ms"],
+                      "peak_bytes": peak_bytes(mesh), "unsharded_peak_bytes":
+                      unsharded["peak_bytes"], "launches": launches, "replay_equal": True}
+        del p, o, b, first
+        torch.cuda.empty_cache()
+    b1, bs = build_step(arch, "minibatch_lg", one), build_step(arch, "minibatch_lg", mesh)
+    p1, o1, _ = materialize_inputs(arch, "minibatch_lg", b1, seed=MODEL_SEED)
+    ps, os_, _ = materialize_inputs(arch, "minibatch_lg", bs, seed=MODEL_SEED)
+    stream = {"losses": [], "unsharded_losses": [], "ms": [], "unsharded_ms": [], "launches": {}}
+    for host in stream_batches:
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.lead)
+                 for k, v in host.items()}
+        (p1, o1, m1), ms1 = timed(lambda: b1.fn(p1, o1, batch))
+        ((ps, os_, ms_), mss), got = counted(total, lambda: timed(lambda: bs.fn(ps, os_, batch)))
+        for k, v in got.items():
+            stream["launches"][k] = stream["launches"].get(k, 0) + v
+        stream["losses"].append(float(ms_["loss"]))
+        stream["unsharded_losses"].append(float(m1["loss"]))
+        stream["ms"].append(mss)
+        stream["unsharded_ms"].append(ms1)
+    rel = np.abs(np.array(stream["losses"]) / np.array(stream["unsharded_losses"]) - 1)
+    if not (np.isfinite(rel).all() and (rel <= GNN_RTOL).all()):
+        raise AssertionError(f"egnn sampled minibatch_lg edge-sharded: {stream['losses']} against "
+                             f"{stream['unsharded_losses']}")
+    stream["rel_diff"] = float(rel.max())
+    rec["stream"] = stream
+    del p1, o1, ps, os_
+    src = torch.from_numpy(np.ascontiguousarray(stream_batches[0]["src"]))
+    n = int(stream_batches[0]["feats"].shape[0])
+    sm_hz = gnn.get("sm_clock_hz") or sm_clock_hz()
+    shards = []
+    for r, (s_r, dev) in enumerate(zip(src.chunk(MD_SHARDS), list(mesh.grid()[0]))):
+        s_host, s_r = s_r, s_r.to(dev)
+        E = s_r.shape[0]
+        data_host = torch.from_numpy(np.random.default_rng(r).normal(size=(E, 64)).astype(np.float32))
+        data = data_host.to(dev)
+        assert_equal_host(segment_sum(data, s_r, n), segment_sum_plain(data_host, s_host, n),
+                          f"segment sum, edge shard {r} of {MD_SHARDS}")
+        plan = segment_plan(s_r, n)
+        out = torch.empty((n, 64), dtype=torch.float32, device=dev)
+        longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
+        shards.append({"shard": r, "E": E, "N": n, "C": 64, "longest": longest, "matches_plain": True,
+                       "chain_bound_ms": longest * ADD_LATENCY_CYCLES / sm_hz * 1e3,
+                       "long_segments": int((plan.long_rows >= 0).sum()),
+                       "ms": device_ms(lambda: launch_segment_sum(data, plan, out)),
+                       **window_bound(E * 64 * 4 + E * 4 + (n + 1) * 4, n * 64 * 4, 2 * E * 64)})
+    if not any(r["long_segments"] for r in shards):
+        raise AssertionError("egnn edge shards: no shard of the sampled batch holds a long segment")
+    rec["segment_sum_shards"] = shards
+    torch.cuda.empty_cache()
+    return rec
+
+
+def md_granite(one, mesh) -> dict:
+    """granite-moe-1b-a400m's prefill at MD_GRANITE with its 32 experts
+    over the mesh's 4 model ranks on one card: the logits of every
+    position against tp 1 (cosine and argmax agreement), both prefill
+    steps timed; then two gradient calls from one state, every leaf equal
+    to the bit."""
+    from repro_torch.configs.lm_archs import GRANITE_MOE
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import transformer
+
+    cut = cut_arch(GRANITE_MOE, prefill_32k=("prefill", MD_GRANITE))
+    cfg = GRANITE_MOE.model_cfg
+    b1, bs = build_step(cut, "prefill_32k", one), build_step(cut, "prefill_32k", mesh)
+    params, tokens = materialize_inputs(cut, "prefill_32k", b1, seed=MODEL_SEED)
+    l1 = transformer.forward(cfg, params, tokens, one, ("data",))[0]
+    ls = transformer.forward(cfg, params, tokens, mesh, ("data",))[0]
+    cos = cosine(ls, l1)
+    agree = float((ls.argmax(-1) == l1.argmax(-1)).double().mean())
+    if not (cos >= MD_LM_COS and agree >= MD_LM_AGREE):
+        raise AssertionError(f"granite tp {MD_SHARDS}: cosine {cos}, argmax agreement {agree}")
+    rec = {"B": MD_GRANITE["global_batch"], "S": MD_GRANITE["seq_len"],
+           "experts": cfg.moe.n_experts, "ranks": MD_SHARDS, "cosine": cos,
+           "argmax_agreement": agree,
+           "prefill_ms": median_ms(lambda: bs.fn(params, tokens), n=3),
+           "unsharded_prefill_ms": median_ms(lambda: b1.fn(params, tokens), n=3)}
+    del params, tokens, l1, ls
+    torch.cuda.empty_cache()
+    twice = lm_grads_twice(GRANITE_MOE, {"seq_len": MD_GRANITE["seq_len"],
+                                         "global_batch": MD_GRANITE["global_batch"]}, mesh)
+    if not twice["loss_equal"] or any(twice["differing"].values()):
+        raise AssertionError(f"granite tp {MD_SHARDS}: two gradient calls differ: {twice}")
+    rec["grads_twice"] = twice
+    return rec
+
+
+def md_compressed(devices) -> dict:
+    """The public int8_allreduce_mean and topk_allreduce_mean over
+    MD_SHARDS ranks on ``devices`` against the same calls on the host: the
+    int8 mean, the top-k mean and every rank's error state equal to the
+    bit."""
+    from repro_torch.train.grad_compression import int8_allreduce_mean, topk_allreduce_mean
+
+    rng = np.random.default_rng(MODEL_SEED)
+    xs = [torch.from_numpy(rng.normal(size=MD_DP_ELEMS).astype(np.float32))
+          for _ in range(MD_SHARDS)]
+    errs = [torch.from_numpy(rng.normal(0, 0.1, MD_DP_ELEMS).astype(np.float32))
+            for _ in range(MD_SHARDS)]
+    lead = torch.device(devices[0])
+    on = lambda ts: [t.to(d) for t, d in zip(ts, devices)]  # noqa: E731
+    card_i8, host_i8 = int8_allreduce_mean(on(xs), lead), int8_allreduce_mean(xs, "cpu")
+    (card_k, card_e), (host_k, host_e) = (topk_allreduce_mean(on(xs), on(errs), MD_DP_TOPK, lead),
+                                          topk_allreduce_mean(xs, errs, MD_DP_TOPK, "cpu"))
+    checks = {"int8": torch.equal(card_i8.cpu(), host_i8),
+              "topk": torch.equal(card_k.cpu(), host_k),
+              "topk_errors": all(torch.equal(a.cpu(), b) for a, b in zip(card_e, host_e))}
+    if not all(checks.values()):
+        raise AssertionError(f"compressed all-reduce means, card against host: {checks}")
+    return {"ranks": MD_SHARDS, "elements": MD_DP_ELEMS, "k": MD_DP_TOPK, **checks,
+            "int8_ms": median_ms(lambda: int8_allreduce_mean(on(xs), lead)),
+            "topk_ms": median_ms(lambda: topk_allreduce_mean(on(xs), on(errs), MD_DP_TOPK, lead))}
+
+
+def md_collectives(devices) -> tuple:
+    """``replicate``, ``split_rows`` and ``sum_to_lead`` of one card tensor
+    over ``devices``, and its gradient through all three."""
+    from repro_torch.parallel import replicate, split_rows, sum_to_lead
+
+    rng = np.random.default_rng(MODEL_SEED)
+    lead = torch.device(devices[0])
+    x = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32)).to(lead).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(4, 4)).astype(np.float32)).to(lead)
+    parts = [p[:4] * (i + 2) * b for i, (p, b) in enumerate(zip(replicate(x, devices),
+                                                                 split_rows(x, devices)))]
+    y = sum_to_lead(parts, lead)
+    y.backward(g)
+    return y.detach(), x.grad
+
+
+def md_mixed(dev, total: dict) -> dict:
+    """The collectives' copies between distinct devices, forward and
+    backward: ``replicate``, ``split_rows`` and ``sum_to_lead`` over this
+    card and the host equal to the same over the card twice, to the bit;
+    then the reduced two-tower and EGNN train steps on a (1, 2) mesh of
+    the card and the host (the host's shard runs each kernel's plain
+    version): MIXED_STEPS steps from the seed, twice, with equal losses,
+    grad norms and every leaf to the bit; within tolerance of the same
+    steps on a (1, 1) mesh of the card; the card's shard launching each
+    kernel as often as the (1, 1) step does."""
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import tree_leaves
+
+    one = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    mixed = make_mesh((1, 2), ("data", "model"), devices=[dev, torch.device("cpu")])
+    rec = {"devices": [str(d) for d in mixed.devices.flat]}
+    (y_mixed, g_mixed), (y_card, g_card) = (md_collectives([dev, torch.device("cpu")]),
+                                            md_collectives([dev, dev]))
+    if not (torch.equal(y_mixed, y_card) and torch.equal(g_mixed, g_card)):
+        raise AssertionError("the collectives over the card and the host differ from the same "
+                             "over the card")
+    rec["collectives_equal"] = True
+    cases = (("two-tower", TWO_TOWER.reduced(), "train_batch", RECSYS_TOL,
+              ("embedding_bag.embedding_bag", "embedding_bag.embedding_bag_backward")),
+             ("egnn", get_arch("egnn").reduced(), "full_graph_sm", GNN_RTOL,
+              ("segment_sum.segment_sum",)))
+    for name, arch, shape, tol, kernels in cases:
+        def run(mesh):
+            built = build_step(arch, shape, mesh)
+            p, o, b = materialize_inputs(arch, shape, built, seed=MODEL_SEED)
+            metrics = []
+            for _ in range(MIXED_STEPS):
+                p, o, m = built.fn(p, o, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            leaves = tree_leaves(p)
+            return metrics, [t.detach().cpu() for t in leaves], sum(
+                t.device.type == "cpu" for t in leaves)
+
+        (want, _, _), one_launches = counted({}, lambda: run(one))
+        (got, leaves, on_host), launches = counted(total, lambda: run(mixed))
+        (again, leaves_again, _), _ = counted({}, lambda: run(mixed))
+        if name == "two-tower" and not on_host:
+            raise AssertionError("two-tower (1, 2) mesh of the card and the host: no table shard "
+                                 "on the host")
+        if again != got or not all(torch.equal(a, b) for a, b in zip(leaves, leaves_again)):
+            raise AssertionError(f"{name} on the card and the host: a replay gives {again}, "
+                                 f"the first run {got}")
+        rel = np.abs(np.array(got) / np.array(want) - 1)
+        if not (np.isfinite(rel).all() and (rel <= tol).all()):
+            raise AssertionError(f"{name} on the card and the host: {got} against the card's "
+                                 f"(1, 1) step {want}")
+        expect_launches(launches, {k: one_launches[k] for k in kernels},
+                        f"{name} on the card and the host")
+        if not all(launches[k] for k in kernels):
+            raise AssertionError(f"{name} on the card and the host: launches {launches}")
+        rec[name] = {"steps": got, "one_card": want, "rel_diff": float(rel.max()),
+                     "replay_equal": True, "leaves": len(leaves), "host_leaves": on_host,
+                     "launches": {k: launches[k] for k in kernels}}
+    return rec
+
+
+def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict:
+    """The multi-device model paths over a (1, MD_SHARDS) mesh of this card
+    (and of four cards when four are visible), each case against the same
+    step unsharded on the card (see the module docstring); the launches of
+    the sharded runs alone under ``launches``."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report = {"device_count": torch.cuda.device_count(), "cases": {}, "launches": {}}
+    total = report["launches"]
+    for name, one, mesh in md_meshes(dev):
+        t0 = time.perf_counter()
+        rec = {"devices": [str(d) for d in mesh.devices.flat]}
+        rec["twotower_serve"] = tt = md_twotower_serve(one, mesh, total)
+        for n in MD_SERVE:
+            r = tt[n]
+            log(f"multidevice {name}: two-tower {n} B {r['B']}: sharded {r['ms']:.3f} ms against "
+                f"unsharded {r['unsharded_ms']:.3f} ms; user vectors max diff "
+                f"{r['user_max_abs_diff']:.2e}"
+                + (f", top-k ids equal but {r['tied_swaps']} tied swaps" if "C" in r else
+                   f", scores max diff {r['score_max_abs_diff']:.2e}")
+                + f"; bag launched {MD_SHARDS}x a tower call (table shards are views: "
+                f"{tt['views']})")
+        log(f"multidevice {name}: bag kernel per shard at serve_bulk (V/{MD_SHARDS} rows): "
+            + ", ".join(f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['valid_ids']} ids)"
+                        for r in tt["bag_shards_serve_bulk"]))
+        rec["twotower_train"] = tr = md_twotower_train(mesh, total, train["twotower"])
+        log(f"multidevice {name}: two-tower train B {tr['B']}: losses {tr['losses']} (max rel "
+            f"diff {tr['rel_diff']:.2e} to unsharded); ms per step "
+            f"{[round(x, 2) for x in tr['step_ms']]} against unsharded "
+            f"{[round(x, 2) for x in tr['unsharded_step_ms']]}; peak "
+            f"{[round(b / 1e9, 3) for b in tr['peak_bytes']]} GB against "
+            f"{tr['unsharded_peak_bytes'] / 1e9:.3f} GB; replay equal to the bit; backward kernel "
+            "per shard " + ", ".join(f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
+                                     for r in tr["bag_backward_shards"]))
+        rec["lookups"] = lk = md_lookups(one, mesh, total)
+        for arch_id, r in lk.items():
+            log(f"multidevice {name}: {arch_id} serve_p99, tables {r['sharded_tables']} sharded: "
+                f"output equal to the unsharded step's to the bit; {r['ms']:.3f} ms against "
+                f"{r['unsharded_ms']:.3f} ms")
+        rec["egnn"] = eg = md_egnn(one, mesh, total, gnn, stream_batches)
+        for shape in MD_EGNN_SHAPES:
+            r = eg[shape]
+            log(f"multidevice {name}: egnn {shape} edge-sharded: {r['steps']} against unsharded "
+                f"{r['unsharded']} (max rel diff {r['rel_diff']:.2e}); replay equal to the bit; "
+                f"ms per step {[round(x, 2) for x in r['step_ms']]} against "
+                f"{[round(x, 2) for x in r['unsharded_step_ms']]}; segment sums "
+                f"{r['launches']['segment_sum.segment_sum']} "
+                f"({r['launches']['segment_sum.segment_sum long']} with the long kernel); peak "
+                f"{[round(b / 1e9, 3) for b in r['peak_bytes']]} GB")
+        st = eg["stream"]
+        log(f"multidevice {name}: egnn minibatch_lg on {len(stream_batches)} sampled batches: "
+            f"losses {st['losses']} against {st['unsharded_losses']}; ms "
+            f"{[round(x, 2) for x in st['ms']]} against {[round(x, 2) for x in st['unsharded_ms']]}"
+            f"; segment sums {st['launches'].get('segment_sum.segment_sum')} "
+            f"({st['launches'].get('segment_sum.segment_sum long')} long)")
+        log(f"multidevice {name}: segment sum per edge shard of a sampled batch, C 64: "
+            + ", ".join(f"E {r['E']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, chain "
+                        f"{r['chain_bound_ms']:.4f}: longest {r['longest']})"
+                        for r in eg["segment_sum_shards"]))
+        if len(mesh.unique_devices()) == 1:
+            rec["granite"] = gr = md_granite(one, mesh)
+            log(f"multidevice {name}: granite-moe prefill B {gr['B']} x S {gr['S']}, "
+                f"{gr['experts']} experts over {gr['ranks']} ranks: cosine {gr['cosine']:.6f}, "
+                f"argmax agreement {gr['argmax_agreement']:.4f} against tp 1; prefill "
+                f"{gr['prefill_ms']:.2f} ms against {gr['unsharded_prefill_ms']:.2f} ms; two "
+                f"gradient calls equal in all {len(gr['grads_twice']['differing'])} leaves")
+        else:
+            log(f"multidevice {name}: granite-moe skipped: an LM step over distinct cards "
+                "comes with the LM tensor-parallel slice")
+        rec["compressed"] = cp = md_compressed(list(mesh.devices.flat))
+        log(f"multidevice {name}: int8_allreduce_mean and topk_allreduce_mean over "
+            f"{cp['ranks']} ranks of {cp['elements']} elements equal to the host's to the bit "
+            f"({cp['int8_ms']:.3f} / {cp['topk_ms']:.3f} ms)")
+        rec["seconds"] = time.perf_counter() - t0
+        report["cases"][name] = rec
+    report["mixed"] = mx = md_mixed(dev, total)
+    log("multidevice: replicate, split_rows and sum_to_lead over the card and the host, and "
+        "their gradient, equal to the same over the card to the bit")
+    for name in ("two-tower", "egnn"):
+        r = mx[name]
+        log(f"multidevice: {name} reduced on a (1, 2) mesh of the card and the host: "
+            f"{r['steps']} against the card's (1, 1) {r['one_card']} (max rel diff "
+            f"{r['rel_diff']:.2e}); a replay equal in all {r['leaves']} leaves "
+            f"({r['host_leaves']} on the host); card launches {r['launches']}, as the (1, 1) step's")
+    if torch.cuda.device_count() < MD_SHARDS:
+        log("multidevice: fewer than four cards visible; the shards share one card and no "
+            "cross-card copy was exercised")
+    for name in ("embedding_bag.embedding_bag", "embedding_bag.embedding_bag_backward",
+                 "segment_sum.segment_sum"):
+        if not total.get(name):
+            raise AssertionError(f"multidevice: {name} was not launched")
+    report["reduced"] = [
+        {"what": "egnn ogb_products", "cut": "reckoned, not run",
+         "why": f"the backward keeps ~{OGB_SAVED_GB} GB a layer at 61,859,328 edges (the (E, 129) "
+                "float32 input 31.9 GB; the edge MLP's hidden, its SiLU and output, the masked "
+                "message, the coordinate MLP's hidden and its SiLU, 15.8 GB each), ~510 GB for 4 "
+                f"layers: ~{OGB_SAVED_GB} GB a card over four cards, over the 76 GB limit; the "
+                "reference built it for its 256-device mesh"},
+        {"what": "granite-moe", "cut": f"prefill B {MD_GRANITE['global_batch']} x S "
+                                       f"{MD_GRANITE['seq_len']}, one card",
+         "why": "an LM step over distinct cards needs the dense layers' tensor parallelism"},
+        {"what": "din, bert4rec", "cut": "serve_p99", "why": "the lookups are bitwise; their "
+                                                             "retrieval runs in the models phase"}]
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"multidevice: phase {report['seconds']:.1f} s; launches of the sharded runs "
+        f"{ {k: v for k, v in total.items() if v} }; reduced: "
+        + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
+    return report
+
+
 def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
     """One kernel of the kernels line, from its primary shape's record."""
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -3439,8 +4081,11 @@ def main() -> int:
     tuned = tune_phase(dev)
     models = models_phase(dev)
     train = train_phase(dev)
-    gnn = gnn_phase(dev, parent)
+    stream_batches = []
+    gnn = gnn_phase(dev, parent, stream_batches)
     search = search_phase(dev)
+    multi = multidevice_phase(dev, train, gnn, stream_batches)
+    del stream_batches
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -3496,6 +4141,7 @@ def main() -> int:
                      {**others("embedding_bag", bag),
                       "launches_models": models["launches"]["embedding_bag.embedding_bag"],
                       "launches_train": train["twotower"]["launches"]["embedding_bag.embedding_bag"],
+                      "launches_multidevice": multi["launches"]["embedding_bag.embedding_bag"],
                       "models_serve_bulk": {k: models["bag_serve_bulk"][k] for k in (
                           "B", "S", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
                           "bound_by", "bound_all_lookups_ms")}}),
@@ -3505,6 +4151,8 @@ def main() -> int:
                      train["twotower"]["launches"]["embedding_bag.embedding_bag_backward"],
                      train["max_abs_err"], train["twotower"]["bag_backward"],
                      {"matches_plain": "bitwise, against the plain version on the host",
+                      "launches_multidevice": multi["launches"][
+                          "embedding_bag.embedding_bag_backward"],
                       "long_launches": train["twotower"]["launches"][
                           "embedding_bag.embedding_bag_backward long"],
                       "shape": {k: train["twotower"]["bag_backward"][k] for k in ("B", "S", "V", "D")},
@@ -3516,6 +4164,8 @@ def main() -> int:
                          for rec in gnn["shapes"].values()), 0.0,
                      gnn["segment_sum"]["sampler C64"],
                      {"matches_plain": "bitwise, against the plain version on the host",
+                      "launches_multidevice": multi["launches"]["segment_sum.segment_sum"],
+                      "long_launches_multidevice": multi["launches"]["segment_sum.segment_sum long"],
                       "shape": {k: gnn["segment_sum"]["sampler C64"][k] for k in ("E", "N", "C")},
                       "long_launches": sum(rec["launches"]["segment_sum.segment_sum long"]
                                            for rec in gnn["shapes"].values()),
@@ -3535,7 +4185,7 @@ def main() -> int:
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
              "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models,
-             "train": train, "gnn": gnn, "search": search},
+             "train": train, "gnn": gnn, "search": search, "multidevice": multi},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

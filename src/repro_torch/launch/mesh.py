@@ -10,6 +10,9 @@ mesh (single-controller, as ``shard_map`` is): there is no process group.
 when there are fewer; it never repeats a card. A caller that wants
 several shards on one card, or CPU devices, says so with ``devices=``
 (``["cpu"] * 4``, ``[torch.device("cuda", 0)] * 4``).
+
+The model paths over a mesh move tensors between its shards through the
+collectives of :mod:`repro_torch.parallel`.
 """
 
 from __future__ import annotations
@@ -46,6 +49,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def lead(self) -> torch.device:
+        """The mesh's first entry: where partial results meet."""
+        return self.devices.flat[0]
 
     def grid(self) -> np.ndarray:
         """The devices as a (batch shards, model shards) array: the batch

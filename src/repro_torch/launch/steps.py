@@ -7,17 +7,32 @@ QT1 serve step) :func:`build_step` returns a :class:`BuiltStep`: the step
 function, its abstract arguments as tensors on the ``meta`` device (the
 torch counterpart of ``jax.eval_shape``: shapes and types, no memory) and
 metadata for the roofline (model params, layers, tokens or edges or
-postings; ``n_micro`` and ``bf16_gather`` for LM training). The step runs
-on the mesh's device; the port has no sharding annotations, so a mesh
-matters through its data shards (the MoE capacity dispatch runs once per
-shard, the microbatch rule divides by them) and through its model axis,
-over which the reference shards experts, embedding tables and the GNN's
-edges, which raises until the multi-device model slice; the search step
-alone runs doc-sharded over a mesh of several devices, as the serving
-path does. :func:`materialize_inputs` makes concrete inputs: the port's
-own seeded init (float32 masters and ``init_opt_state`` for training,
-bf16 weights for LM serving) and the reference's synthetic batch, the
-same numpy draws in the same order.
+postings; ``n_micro`` and ``bf16_gather`` for LM training) and
+``meta["device"]``, the mesh's lead device, where the inputs go and the
+outputs come back. The port has no sharding annotations; each family
+places its work on the mesh (``launch/mesh.py``, one process driving
+every device):
+
+* LM: the whole step on one device. The MoE capacity dispatch runs once
+  per data shard and its experts over the model axis (expert
+  parallelism), the microbatch rule divides by the data shards. A mesh
+  over several distinct devices raises: the dense layers' tensor
+  parallelism and FSDP come with the LM tensor-parallel slice.
+* GNN: the unbatched loss with its edges sharded over every mesh axis
+  (the reference's ``all_axes``), the batched (molecule) loss with its
+  graphs split over the data axes.
+* recsys: each table that the reference row-shards over the model axis
+  (``recsys.row_sharded``) is a ``ShardedRows``, block r on the model
+  column r's first device (row views of one table where that is one
+  device), replicated over the data shards inside the step; the towers
+  and the batch on the lead device. Retrieval splits its candidates over
+  the data axes when they divide them.
+* search: doc-sharded over the model axis, as the serving path is.
+
+:func:`materialize_inputs` makes concrete inputs: the port's own seeded
+init (float32 masters and ``init_opt_state`` for training, bf16 weights
+for LM serving), placed by :func:`place_params`, and the reference's
+synthetic batch, the same numpy draws in the same order.
 
 A train step is ``(params, opt_state, batch) -> (params, opt_state,
 {"loss", "grad_norm"})``. It updates ``params`` and the moments in place
@@ -43,6 +58,7 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.recsys_archs import N_NEG
 from repro_torch.kernels.common import SENTINEL
 from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
+from repro_torch.parallel import ShardedRows
 from repro_torch.models import gnn, n_params, recsys, transformer, value_and_grad
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -50,7 +66,7 @@ F32 = torch.float32
 I32 = torch.int32
 META = torch.device("meta")
 NP_INTS = {torch.int32: np.int32, torch.int8: np.int8}
-MULTI_DEVICE_SLICE = "the multi-device model slice"
+LM_TP_SLICE = "the LM tensor-parallel slice"
 SEARCH_MODES = ("", "offsets", "delta")  # REPRO_SEARCH_COMPRESSED
 
 
@@ -65,13 +81,14 @@ def _abstract(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-def _device(mesh) -> torch.device:
-    """The one device a model step runs on; a mesh over several devices
-    needs the multi-device model slice."""
+def _lm_device(mesh) -> torch.device:
+    """The one device an LM step runs on; a mesh over several distinct
+    devices needs the dense layers' tensor parallelism."""
     devices = mesh.unique_devices()
     if len(devices) != 1:
         raise NotImplementedError(
-            f"a model step over {len(devices)} devices comes with {MULTI_DEVICE_SLICE}")
+            f"an LM step over {len(devices)} distinct devices (Megatron tensor parallelism "
+            f"of the dense layers, FSDP) comes with {LM_TP_SLICE}")
     return devices[0]
 
 
@@ -102,7 +119,7 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "active_params": cfg.active_param_count(),
         "n_layers": cfg.n_layers,
         "tokens": B * S if shape.kind != "decode" else B,
-        "device": _device(mesh),
+        "device": _lm_device(mesh),
     }
     if shape.kind == "train":
         params_abs = transformer.init_params(cfg, device=META)
@@ -165,9 +182,10 @@ GNN_EDGE_MULTIPLE = 512  # the reference pads the edge axis to shard over 256 or
 
 def build_gnn_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
     """The EGNN train step: the batched (block-diagonal, ``molecule``)
-    or the unbatched loss, autograd, then AdamW (lr 1e-3, no weight
-    decay) in place. The unbatched edge axis is padded to a multiple of
-    512 (pad edges carry mask 0), as the reference pads it."""
+    loss over the data axes or the unbatched loss with its edges sharded
+    over every mesh axis, autograd, then AdamW (lr 1e-3, no weight decay)
+    in place on the lead device. The unbatched edge axis is padded to a
+    multiple of 512 (pad edges carry mask 0), as the reference pads it."""
     dims = shape.dims
     cfg = replace(arch.model_cfg, d_feat=dims["d_feat"])
     params_abs = gnn.init_params(cfg, device=META)
@@ -176,7 +194,7 @@ def build_gnn_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "n_layers": cfg.n_layers,
         "model_params": n_params(params_abs),
         "n_edges": dims["n_edges"] * dims.get("batch", 1),
-        "device": _device(mesh),
+        "device": mesh.lead,
     }
     batched = bool(dims.get("batched"))
     lead = (dims["batch"],) if batched else ()
@@ -196,7 +214,7 @@ def build_gnn_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
 
     def loss(p, batch):
         if batched:
-            return gnn.batched_loss(cfg, p, batch)
+            return gnn.batched_loss(cfg, p, batch, mesh, dp_axes_of(mesh))
         return gnn.loss_fn(cfg, p, batch, mesh=mesh, edge_axes=tuple(mesh.axis_names))
 
     def step(params, opt_state, batch):
@@ -258,13 +276,25 @@ _INITS = {"seqrec": recsys.seqrec_init, "din": recsys.din_init,
           "twotower": recsys.twotower_init}
 
 
-def _tables_sharded(params_abs, tp: int) -> bool:
-    """Whether the reference row-shards an embedding table over the model
-    axis (``_recsys_param_pspecs``): rows divisible by tp and at least
-    64 per shard."""
-    return tp > 1 and any(
-        "emb" in name and t.dim() == 2 and t.shape[0] % tp == 0 and t.shape[0] >= 64 * tp
-        for name, t in params_abs.items() if isinstance(t, torch.Tensor))
+def _sharded_tables(params_abs, tp: int) -> tuple:
+    """The tables the reference row-shards over the model axis
+    (``_recsys_param_pspecs``)."""
+    return tuple(name for name, t in params_abs.items()
+                 if isinstance(t, torch.Tensor) and recsys.row_sharded(name, t.shape, tp))
+
+
+def place_params(built: BuiltStep, params):
+    """A recsys step's parameters where it expects them: each table it
+    keeps row-sharded as a ``ShardedRows`` over the model columns' first
+    devices (row views of the table where that device is the table's, so
+    a mesh of one device copies nothing). Other families' parameters pass
+    through."""
+    names = built.meta.get("sharded_tables", ())
+    if not names:
+        return params
+    columns = list(built.meta["mesh"].grid()[0])
+    return {k: ShardedRows.of(v, columns) if k in names and isinstance(v, torch.Tensor) else v
+            for k, v in params.items()}
 
 
 def _recsys_batch(cfg, arch_kind: str, kind: str, dims: dict) -> dict:
@@ -308,11 +338,14 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
     kind = shape.kind
     arch_kind = _arch_kind(cfg)
     params_abs = _INITS[arch_kind](cfg, device=META)
-    use_mesh = mesh if _tables_sharded(params_abs, tp_size(mesh)) else None
+    sharded = _sharded_tables(params_abs, tp_size(mesh))
+    use_mesh = mesh if sharded else None
     meta = {
         "n_layers": getattr(cfg, "n_blocks", 1),
         "model_params": n_params(params_abs),
-        "device": _device(mesh),
+        "device": mesh.lead,
+        "mesh": mesh,
+        "sharded_tables": sharded,
     }
     batch_abs = _recsys_batch(cfg, arch_kind, kind, shape.dims)
 
@@ -337,13 +370,17 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         }[arch_kind]
         return BuiltStep(serve_fn, (params_abs, batch_abs), meta)
 
-    # retrieval (B=1): one user against the candidate axis
+    # retrieval (B=1): one user against the candidate axis, split over dp
+    dp = dp_size(mesh)
+    cand = (dp_ax,) if dp > 1 and shape.dims.get("n_candidates", 0) % dp == 0 else ()
     if arch_kind == "seqrec":
         retr = lambda p, b: recsys.seqrec_score(cfg, p, b, use_mesh, ())  # noqa: E731
     elif arch_kind == "din":
-        retr = lambda p, b: recsys.din_retrieval(cfg, p, b, 100, use_mesh, ())  # noqa: E731
+        retr = lambda p, b: recsys.din_retrieval(  # noqa: E731
+            cfg, p, b, 100, use_mesh, (), cand_pspec=cand)
     else:
-        retr = lambda p, b: recsys.twotower_retrieve(cfg, p, b, 100, use_mesh, ())  # noqa: E731
+        retr = lambda p, b: recsys.twotower_retrieve(  # noqa: E731
+            cfg, p, b, 100, use_mesh, (), cand_pspec=cand)
     return BuiltStep(retr, (params_abs, batch_abs), meta)
 
 
@@ -456,7 +493,7 @@ def materialize_inputs(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: 
         dtype = torch.float32 if train else torch.bfloat16
         params = transformer.init_params(cfg, seed, device=device, dtype=dtype)
     elif arch.family == "recsys":
-        params = _INITS[_arch_kind(cfg)](cfg, seed, device=device)
+        params = place_params(built, _INITS[_arch_kind(cfg)](cfg, seed, device=device))
     elif arch.family == "gnn":
         dims = arch.shapes[shape_name].dims
         params = gnn.init_params(replace(cfg, d_feat=dims["d_feat"]), seed, device=device)

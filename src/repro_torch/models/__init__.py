@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.parallel import ShardedRows
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -95,7 +96,9 @@ def layer_slice(tree, i: int):
 def tree_leaves(tree) -> list:
     """The leaves of a tree of dicts, lists and tuples in the reference's
     ``jax.tree.leaves`` order: dict keys sorted, sequences by index, None
-    an empty subtree."""
+    an empty subtree; a :class:`ShardedRows` gives its shards in order."""
+    if isinstance(tree, ShardedRows):
+        return list(tree.shards)
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -106,6 +109,8 @@ def tree_leaves(tree) -> list:
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
     ``rest``), keeping the nesting."""
+    if isinstance(tree, ShardedRows):
+        return ShardedRows([fn(s, *(r.shards[i] for r in rest)) for i, s in enumerate(tree.shards)])
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -122,6 +127,8 @@ def tree_unflatten(tree, leaves):
 def _build(node, it):
     # a module-level recursion: a recursive closure would be a reference
     # cycle holding ``it``, and with it every leaf, until the cyclic GC runs
+    if isinstance(node, ShardedRows):
+        return ShardedRows([next(it) for _ in node.shards])
     if isinstance(node, dict):
         out = {k: _build(node[k], it) for k in sorted(node)}
         return {k: out[k] for k in node}
@@ -172,6 +179,8 @@ def remat(fn, *args):
 
 
 def n_params(tree) -> int:
+    if isinstance(tree, ShardedRows):
+        return tree.numel()
     if isinstance(tree, dict):
         return sum(n_params(v) for v in tree.values())
     return int(tree.numel())

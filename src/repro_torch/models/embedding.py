@@ -12,13 +12,30 @@ is the entry point's backward (``embedding_bag_bwd`` on a card, a sorted
 segment sum in (b, s) order; ``embedding_bag_backward_plain`` on the CPU,
 equal to it bit for bit), dense like the reference's gradient of its
 gather and sum.
-The row-sharded lookups (``sharded_embedding_*``) come with the
-multi-device model slice.
+
+The row-sharded lookups (``sharded_embedding_lookup``,
+``sharded_embedding_bag``) are the reference's ``shard_map``s on the
+port's single-controller mesh (``launch/mesh.py``, with the collectives
+of ``parallel.py``): the table's rows are ``tp`` contiguous blocks over
+the model axis, a :class:`ShardedRows` (one leaf per block, on the model
+column's first device) or a plain tensor split by ``split_rows``. Shard ``(d, r)`` of the mesh's (data,
+model) grid takes data shard d's ids and block r (``replicate``d over the
+data shards), looks up or bags the ids it owns, and ``sum_to_lead`` adds
+the ``tp`` partials of each data shard on the lead device in rank order,
+where the data shards' results are concatenated. ``ids_pspec`` is the
+reference's partition spec of the ids, a tuple of None, an axis name or
+a tuple of axis names per axis: the axis it names is split over those
+axes' data shards (default: the first axis over ``dp_axes``).
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
+
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.parallel import ShardedRows, replicate, split_rows, sum_to_lead
 
 
 def embedding_lookup(table, ids):
@@ -41,3 +58,119 @@ def embedding_bag_sum(table, ids, weights=None):
     w = None if weights is None else weights.reshape(-1, S)
     out = embedding_bag(ids.reshape(-1, S), table, w, "sum")
     return out.reshape(*lead, table.shape[1])
+
+
+def _owned(ids, rank: int, rows_per_shard: int):
+    """Shard ``rank``'s row for each id, and whether the shard owns it."""
+    local = ids - rank * rows_per_shard
+    return local, (local >= 0) & (local < rows_per_shard) & (ids >= 0)
+
+
+def _local_lookup(table_l, ids, rank: int, rows_per_shard: int):
+    """Shard ``rank``'s lookup: its rows of ``ids``, zeros for an id it
+    does not own. Such an id reads row ``position mod rows`` (the
+    reference clamps it to the first or last row): in the backward each
+    adds its zero to its own row, where clamped ids would make two long
+    runs of one row that CUDA's sorted ``index_put_`` adds one by one."""
+    local, valid = _owned(ids, rank, rows_per_shard)
+    spread = torch.arange(ids.numel(), device=ids.device).reshape(ids.shape) % rows_per_shard
+    safe = torch.where(valid, local.long(), spread)
+    return table_l[safe] * valid[..., None].to(table_l.dtype)
+
+
+def local_ids(ids, rank: int, rows_per_shard: int):
+    """Shard ``rank``'s rows for ``ids``, -1 (the bag's pad) for an id it
+    does not own."""
+    local, valid = _owned(ids, rank, rows_per_shard)
+    return torch.where(valid, local, torch.full_like(local, -1))
+
+
+def _names(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _ids_split(ids, mesh, tp_axis: str, dp_axes, ids_pspec) -> tuple:
+    """(axis of ``ids`` split over data shards or None, number of data
+    shards) from the reference's partition spec of the ids."""
+    spec = tuple(ids_pspec) if ids_pspec is not None else (tuple(dp_axes),)
+    split = [(i, _names(e)) for i, e in enumerate(spec) if _names(e)]
+    if any(tp_axis in names for _, names in split):
+        raise ValueError(f"ids sharded over {tp_axis!r} ({spec}): the psum over table shards "
+                         "would add different rows' partials")
+    if len(split) > 1:
+        raise ValueError(f"ids split over more than one axis: {spec}")
+    if not split:
+        return None, 1
+    axis, names = split[0]
+    n = math.prod(mesh.shape[a] for a in names)
+    if ids.shape[axis] % n:
+        raise ValueError(f"ids axis {axis} of {ids.shape[axis]} does not split over {n} shards")
+    return axis, n
+
+
+def _table_blocks(table, mesh, tp_axis: str) -> list:
+    """The table's ``tp`` row blocks, block r on the model column's first
+    device."""
+    if tp_axis != "model":
+        raise ValueError(f"tables are sharded over the model axis, not {tp_axis!r}")
+    tp = mesh.shape[tp_axis]
+    if table.shape[0] % tp:
+        raise ValueError(f"{table.shape[0]} table rows do not split over {tp} shards")
+    if isinstance(table, ShardedRows):
+        if len(table.shards) != tp:
+            raise ValueError(f"a table in {len(table.shards)} shards on a model axis of {tp}")
+        return list(table.shards)
+    return split_rows(table, list(mesh.grid()[0]))
+
+
+def _sharded(per_shard, table, ids, mesh, tp_axis, dp_axes, ids_pspec, *others):
+    """Run ``per_shard(block, ids, *others, rank, rows_per_shard)`` on every
+    (data, model) shard and add each data shard's partials on the lead
+    device; ``others`` are split like ``ids``."""
+    blocks = _table_blocks(table, mesh, tp_axis)
+    rows = blocks[0].shape[0]
+    axis, n = _ids_split(ids, mesh, tp_axis, dp_axes, ids_pspec)
+    grid = mesh.grid()
+    per_data = [replicate(b, list(grid[:n, r])) for r, b in enumerate(blocks)]
+    pieces = [(ids, *others)] if axis is None else list(zip(
+        *(t.chunk(n, dim=axis) if t is not None else [None] * n for t in (ids, *others))))
+    outs = []
+    for d, (ids_d, *others_d) in enumerate(pieces):
+        parts = []
+        for r in range(len(blocks)):
+            dev = grid[d, r]
+            moved = [None if t is None else t.to(dev) for t in others_d]
+            parts.append(per_shard(per_data[r][d], ids_d.to(dev), *moved, r, rows))
+        outs.append(sum_to_lead(parts, mesh.lead))
+    return outs[0] if axis is None else torch.cat(outs, dim=axis)
+
+
+def sharded_embedding_lookup(table, ids, mesh, tp_axis="model", dp_axes=("data",),
+                             ids_pspec=None):
+    """The lookup of ``ids`` in a table row-sharded over the model axis:
+    every shard gathers the ids it owns, zeros elsewhere, and the partials
+    are added, so each result row is its one owner's row (-1 and ids past
+    the table give zeros). On the lead device."""
+    return _sharded(_local_lookup, table, ids, mesh, tp_axis, dp_axes, ids_pspec)
+
+
+def sharded_embedding_bag(table, ids, mesh, weights=None, tp_axis="model", dp_axes=("data",),
+                          ids_pspec=None):
+    """The (weighted) bag-sum of ``ids`` (..., S) in a table row-sharded
+    over the model axis: each shard sets the ids it does not own to -1 and
+    runs the embedding-bag entry point (the kernel and, under autograd,
+    its backward, on a card) over its block; the (..., D) partials are
+    added on the lead device. Ids must not be split over the model axis."""
+    S = ids.shape[-1]
+
+    def per_shard(block, ids_l, w_l, rank, rows):
+        local = local_ids(ids_l, rank, rows).to(torch.int32)
+        w = None if w_l is None else w_l.reshape(-1, S)
+        out = embedding_bag(local.reshape(-1, S), block, w, "sum")
+        return out.reshape(*local.shape[:-1], block.shape[1])
+
+    if ids.dim() < 2 or (ids_pspec is not None and len(tuple(ids_pspec)) == ids.dim()
+                         and _names(tuple(ids_pspec)[-1])):
+        raise ValueError(f"ids {tuple(ids.shape)} (spec {ids_pspec}) need a batch axis and "
+                         "an unsplit bag axis")
+    return _sharded(per_shard, table, ids, mesh, tp_axis, dp_axes, ids_pspec, weights)

@@ -22,19 +22,31 @@ across. :func:`forward` loops over the unstacked layers, as the
 reference's ``scan(unroll=True)`` does. :func:`batched_forward` runs a
 batch of small graphs as one block-diagonal graph (node ids offset by
 graph), where the reference vmaps: each node's sums have the same terms
-in the same order. The edge-sharded path (a ``mesh`` of more than one
-entry) raises until the multi-device model slice.
+in the same order.
+
+Over a ``mesh`` of more than one entry the edges are sharded, as the
+reference's ``shard_map`` shards them over ``edge_axes``: the edge arrays
+split into equal contiguous shards, one per entry of the mesh in the
+row-major order of those axes, each on its entry's device with its own
+segment plans. Every layer replicates its parameters, ``h`` and ``x``
+to the shards (``parallel.py`` ``replicate``), each shard computes its
+partial aggregations through the segment sum, and ``sum_to_lead`` adds
+them in shard order on the lead device (the reference's psum), where the
+node update runs. :func:`batched_loss` over a mesh splits the graphs over
+its data axes the same way.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.segment_sum import gather_rows, segment_plan, segment_sum
-from repro_torch.models import make_generator, model_device, unstack
+from repro_torch.parallel import replicate, sum_to_lead
+from repro_torch.models import make_generator, model_device, tree_leaves, tree_unflatten, unstack
 from repro_torch.models.layers import dense, init_dense
 
 
@@ -92,21 +104,47 @@ def _egnn_layer(p_l, h, x, src, dst, edge_mask):
     return msg_agg, coord_agg, deg
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"the EGNN with its edges sharded over a mesh of {mesh.size} comes with the "
-            "multi-device model slice")
+def _replicate_tree(tree, devices) -> list:
+    """One copy of a parameter tree per device (``replicate`` per leaf)."""
+    per_leaf = [replicate(t, devices) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [c[i] for c in per_leaf]) for i in range(len(devices))]
 
 
-def _propagate(cfg: EGNNConfig, params, feats, coords, src, dst, edge_mask):
-    """Node embeddings and coordinates after every layer."""
+def _edge_devices(mesh, edge_axes) -> list:
+    """The devices of the edge shards: the mesh's entries in the row-major
+    order of ``edge_axes`` (every axis by default), the first entry of any
+    other axis."""
+    names = list(mesh.axis_names)
+    axes = names if edge_axes is None else list(edge_axes)
+    rest = [a for a in names if a not in axes]
+    grid = mesh.devices.transpose([names.index(a) for a in axes + rest])
+    n = math.prod(mesh.shape[a] for a in axes)
+    return list(grid.reshape(n, -1)[:, 0])
+
+
+def _propagate(cfg: EGNNConfig, params, feats, coords, src, dst, edge_mask, devices=None):
+    """Node embeddings and coordinates after every layer; with
+    ``devices``, the edges sharded over them (see the module docstring)."""
     n_nodes = feats.shape[0]
-    src_plan, dst_plan = segment_plan(src, n_nodes), segment_plan(dst, n_nodes)
+    n = 1 if devices is None else len(devices)
+    if n == 1:
+        plans = [(segment_plan(src, n_nodes), segment_plan(dst, n_nodes), edge_mask)]
+    else:
+        if src.shape[0] % n:
+            raise ValueError(f"{src.shape[0]} edges do not split over {n} shards")
+        shards = [[t.to(d) for t in ts] for d, *ts in zip(
+            devices, src.chunk(n), dst.chunk(n), edge_mask.chunk(n))]
+        plans = [(segment_plan(s, n_nodes), segment_plan(t, n_nodes), m) for s, t, m in shards]
     h = dense(params["embed"], feats)
     x = coords
     for p_l in unstack(params["layers"], cfg.n_layers):
-        msg_agg, coord_agg, deg = _egnn_layer(p_l, h, x, src_plan, dst_plan, edge_mask)
+        if n == 1:
+            msg_agg, coord_agg, deg = _egnn_layer(p_l, h, x, *plans[0])
+        else:
+            ps, hs, xs = _replicate_tree(p_l, devices), replicate(h, devices), replicate(x, devices)
+            outs = [_egnn_layer(ps[r], hs[r], xs[r], *plans[r]) for r in range(n)]
+            msg_agg, coord_agg, deg = (sum_to_lead([o[i] for o in outs], h.device)
+                                       for i in range(3))
         denom = torch.clamp_min(deg, 1.0)[:, None]
         x = x + coord_agg / denom  # E(n)-equivariant coordinate update
         h = h + _mlp2(p_l["node_mlp"], torch.cat([h, msg_agg / denom], dim=-1))
@@ -115,10 +153,12 @@ def _propagate(cfg: EGNNConfig, params, feats, coords, src, dst, edge_mask):
 
 def forward(cfg: EGNNConfig, params, feats, coords, src, dst, edge_mask, mesh=None,
             edge_axes=None):
-    """feats (N, F), coords (N, 3), src/dst (E,) int32, edge_mask (E,).
-    Returns (node embeddings (N, Dh), coords (N, 3), graph scalar)."""
-    _check_mesh(mesh)
-    h, x = _propagate(cfg, params, feats, coords, src, dst, edge_mask)
+    """feats (N, F), coords (N, 3), src/dst (E,) int32, edge_mask (E,),
+    the edges sharded over ``mesh``'s ``edge_axes`` when it has more than
+    one entry. Returns (node embeddings (N, Dh), coords (N, 3), graph
+    scalar), on the lead device."""
+    devices = None if mesh is None or mesh.size == 1 else _edge_devices(mesh, edge_axes)
+    h, x = _propagate(cfg, params, feats, coords, src, dst, edge_mask, devices)
     energy = dense(params["readout"], h).sum()
     return h, x, energy
 
@@ -148,9 +188,27 @@ def batched_forward(cfg: EGNNConfig, params, batch):
     return h.reshape(Bt, N, -1), x.reshape(Bt, N, 3), energy
 
 
-def batched_loss(cfg: EGNNConfig, params, batch):
+def _batched_sums(cfg: EGNNConfig, params, batch):
     h, _, _ = batched_forward(cfg, params, batch)
     pred = dense(params["readout"], h)[..., 0]
     mask = batch["node_mask"].to(pred.dtype)
     err = (pred - batch["targets"]) ** 2 * mask
-    return err.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return err.sum(), mask.sum()
+
+
+def batched_loss(cfg: EGNNConfig, params, batch, mesh=None, dp_axes=()):
+    """The masked MSE over a batch of small graphs; over a mesh with data
+    axes ``dp_axes`` the graphs split over the data shards, each on its
+    device, and the shards' error and mask sums are added in shard order
+    on the lead device."""
+    dp = 1 if mesh is None else math.prod(mesh.shape[a] for a in dp_axes)
+    if dp == 1:
+        err, mask = _batched_sums(cfg, params, batch)
+    else:
+        devices = list(mesh.grid()[:dp, 0])
+        if batch["feats"].shape[0] % dp:
+            raise ValueError(f"{batch['feats'].shape[0]} graphs do not split over {dp} shards")
+        sums = [_batched_sums(cfg, p_r, {k: v.chunk(dp)[r].to(dev) for k, v in batch.items()})
+                for r, (dev, p_r) in enumerate(zip(devices, _replicate_tree(params, devices)))]
+        err, mask = (sum_to_lead([s[i] for s in sums], mesh.lead) for i in range(2))
+    return err / torch.clamp_min(mask, 1.0)

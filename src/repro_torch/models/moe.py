@@ -6,9 +6,15 @@ every expert for every token and combines the top-k exactly; it is what
 a transformer block runs without a mesh. :func:`moe_block` is the
 capacity-dispatch path (GShard-style dropping, one trash slot) that a
 block runs on a mesh: per data shard, C = ceil(T_local * top_k *
-capacity_factor / E) slots per expert. Expert parallelism over a model
-axis larger than 1 (``shard_map`` with a psum of expert partials) comes
-with the multi-device model slice; until then such a mesh raises.
+capacity_factor / E) slots per expert. Over a model axis of tp > 1 the
+experts are split over the ranks (expert parallelism, the reference's
+``shard_map``): rank r owns experts [r E/tp, (r+1) E/tp), runs the
+dispatch for them on its device at the same capacity, and the ranks'
+partial outputs are added in rank order on the lead device
+(``parallel.py`` ``sum_to_lead``, the reference's psum). Each (data,
+model) shard runs on its own device of the mesh's grid; the router and
+the tokens reach it through ``replicate`` and the experts through
+``split_rows``, so every gradient across shards is added in shard order.
 
 The gates' top-k is a stable descending sort, so the lower expert comes
 first among equal probabilities, as ``lax.top_k`` orders them.
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import replicate, split_rows, sum_to_lead
 from repro_torch.models import normal
 
 
@@ -111,26 +118,40 @@ def _local_moe(p, x, *, cfg: MoEConfig, n_local_experts: int, expert_offset: int
 
 def moe_block(p, x, *, cfg: MoEConfig, mesh, dp_axes: tuple, tp_axis: str = "model"):
     """x: (B, S, D) -> (y, aux) through capacity dispatch, one dispatch
-    per data shard of the mesh (its aux averaged over them)."""
+    per data shard of the mesh (its aux averaged over them), each over
+    the experts of every rank of ``tp_axis`` (see the module docstring).
+    The result is on the mesh's lead device."""
     B, S, D = x.shape
     tp = mesh.shape[tp_axis]
-    if tp > 1:
-        raise NotImplementedError(
-            f"expert parallelism over a model axis of {tp} (shard_map, the experts "
-            "split over ranks and a psum of their partials) comes with the "
-            "multi-device model slice")
+    if cfg.n_experts % tp:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {tp} ranks")
+    n_local = cfg.n_experts // tp
     dp = math.prod(mesh.shape[a] for a in dp_axes)
     if B % dp:
         raise ValueError(f"batch {B} does not split over {dp} data shards")
     t_local = (B // dp) * S
     capacity = int(np.ceil(t_local * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
     capacity = max(capacity, 1)
+    grid = mesh.grid()
+    if len(mesh.unique_devices()) == 1:  # every shard where x is: views, no copies
+        grid = np.full(grid.shape, x.device, dtype=object)
+    experts = {k: split_rows(p[k], list(grid[0])) for k in ("w_gate", "w_up", "w_down")}
+    experts = {k: [replicate(b, list(grid[:dp, r])) for r, b in enumerate(v)]
+               for k, v in experts.items()}
+    routers = replicate(p["router"], [grid[d, r] for d in range(dp) for r in range(tp)])
+    lead = grid[0, 0]
     ys, auxes = [], []
-    for x_l in x.reshape(dp, B // dp, S, D):
-        y, aux = _local_moe(p, x_l.reshape(-1, D), cfg=cfg, n_local_experts=cfg.n_experts,
-                            expert_offset=0, capacity=capacity)
-        ys.append(y.reshape(B // dp, S, D))
-        auxes.append(aux)
+    for d, x_d in enumerate(x.reshape(dp, B // dp, S, D)):
+        xs = replicate(x_d.reshape(-1, D), list(grid[d, :tp]))
+        parts = []
+        for r in range(tp):
+            p_r = {"router": routers[d * tp + r], **{k: v[r][d] for k, v in experts.items()}}
+            y, aux = _local_moe(p_r, xs[r], cfg=cfg, n_local_experts=n_local,
+                                expert_offset=r * n_local, capacity=capacity)
+            parts.append(y)
+            if r == 0:  # every rank routes the same tokens: rank 0's aux is the shard's
+                auxes.append(aux.to(lead))
+        ys.append(sum_to_lead(parts, lead).reshape(B // dp, S, D))
     return torch.cat(ys), torch.stack(auxes).mean()
 
 

@@ -2,11 +2,17 @@
 reference's ``models/recsys.py``): serving, and the training losses
 (``seqrec_loss``, ``din_loss``, ``twotower_loss``).
 
-Embedding tables are unsharded here: a mesh whose model axis would
-row-shard a table raises, and the sharded lookups come with the
-multi-device model slice. The two-tower user tower reduces its history
-with :func:`repro_torch.models.embedding.embedding_bag_sum`, the port's
-embedding-bag kernel on a card, forward and backward. Retrieval's top-k is a stable descending
+With a mesh whose model axis is larger than 1, the lookups of a table
+whose rows split over it are row-sharded
+(:func:`repro_torch.models.embedding.sharded_embedding_lookup`), as the
+reference's ``_lookup`` shards them; a table may come as a plain tensor
+or as the :class:`ShardedRows` that the built steps place
+(:func:`row_sharded`, the reference's ``_recsys_param_pspecs`` rule).
+The two-tower user tower reduces its history with the port's
+embedding-bag kernel on a card, forward and backward: unsharded through
+:func:`repro_torch.models.embedding.embedding_bag_sum`, and over a model
+axis larger than 1 once per table shard through
+:func:`repro_torch.models.embedding.sharded_embedding_bag`. Retrieval's top-k is a stable descending
 sort (the lower candidate first among equal scores, as ``lax.top_k``),
 returning (scores, int32 indices).
 """
@@ -18,8 +24,14 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import ShardedRows
 from repro_torch.models import layer_slice, make_generator, model_device, normal
-from repro_torch.models.embedding import embedding_bag_sum, embedding_lookup
+from repro_torch.models.embedding import (
+    embedding_bag_sum,
+    embedding_lookup,
+    sharded_embedding_bag,
+    sharded_embedding_lookup,
+)
 from repro_torch.models.layers import (
     apply_norm,
     attention_block,
@@ -35,16 +47,24 @@ from repro_torch.models.moe import top_k_stable
 NEG_MASK = -1e30
 
 
-def _sharded(table, mesh) -> bool:
-    tp = 1 if mesh is None else mesh.shape.get("model", 1)
-    return tp > 1 and table.shape[0] % tp == 0
+def row_sharded(name: str, shape, tp: int) -> bool:
+    """Whether a built step keeps a parameter row-sharded over a model axis
+    of ``tp``: an embedding table (``emb`` in its name, 2-D) whose rows
+    divide by ``tp`` and make at least 64 a shard (the reference's
+    ``_recsys_param_pspecs``)."""
+    return (tp > 1 and "emb" in name and len(shape) == 2 and shape[0] % tp == 0
+            and shape[0] >= 64 * tp)
 
 
-def _lookup(table, ids, mesh, dp_axes):
-    if _sharded(table, mesh):
-        raise NotImplementedError(
-            "row-sharded embedding lookups over a model axis come with the "
-            "multi-device model slice")
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def _lookup(table, ids, mesh, dp_axes, ids_pspec=None):
+    """The reference's ``_lookup``: sharded over the model axis when it is
+    larger than 1 and divides the rows."""
+    if isinstance(table, ShardedRows) or (_tp(mesh) > 1 and table.shape[0] % _tp(mesh) == 0):
+        return sharded_embedding_lookup(table, ids, mesh, dp_axes=dp_axes, ids_pspec=ids_pspec)
     return embedding_lookup(table, ids)
 
 
@@ -201,9 +221,15 @@ def din_loss(cfg: DINConfig, params, batch, mesh=None, dp_axes=("data",)):
 def din_retrieval(cfg: DINConfig, params, batch, top_k: int = 100, mesh=None,
                   dp_axes=("data",), cand_pspec=None):
     """Score one user against C candidates (retrieval_cand shape): the
-    history embedding is computed once -> (scores (1, k), ids (1, k))."""
-    eh = _din_emb(cfg, params, batch["hist_items"], batch["hist_cates"], mesh, dp_axes)  # (1, S, d)
-    et = _din_emb(cfg, params, batch["cand_items"], batch["cand_cates"], mesh, dp_axes)  # (C, d)
+    history embedding is computed once, the candidates' lookups split as
+    ``cand_pspec`` says -> (scores (1, k), ids (1, k))."""
+    unsplit = (None, None)
+    eh = torch.cat([_lookup(params["item_emb"], batch["hist_items"], mesh, dp_axes, unsplit),
+                    _lookup(params["cate_emb"], batch["hist_cates"], mesh, dp_axes, unsplit)],
+                   dim=-1)  # (1, S, d)
+    et = torch.cat([_lookup(params["item_emb"], batch["cand_items"], mesh, dp_axes, cand_pspec),
+                    _lookup(params["cate_emb"], batch["cand_cates"], mesh, dp_axes, cand_pspec)],
+                   dim=-1)  # (C, d)
     C = et.shape[0]
     ehb = eh[0][None].expand((C,) + eh.shape[1:])  # (C, S, d)
     et_b = et[:, None, :]  # (C, 1, d)
@@ -255,11 +281,15 @@ def _tower(p, x):
 
 def twotower_user(cfg, params, batch, mesh=None, dp_axes=("data",), bag_pspec=None):
     """The user tower over the history's bag-sum (the embedding-bag
-    kernel on a card) and the user features -> (B, D), unit norm."""
-    if _sharded(params["item_emb"], mesh):
-        raise NotImplementedError(
-            "the row-sharded embedding bag comes with the multi-device model slice")
-    hist = embedding_bag_sum(params["item_emb"], batch["hist"])
+    kernel on a card; once per table shard over a model axis larger than
+    1, whose size must divide the rows) and the user features -> (B, D),
+    unit norm."""
+    table = params["item_emb"]
+    if isinstance(table, ShardedRows) or _tp(mesh) > 1:
+        hist = sharded_embedding_bag(table, batch["hist"], mesh, dp_axes=dp_axes,
+                                     ids_pspec=bag_pspec)
+    else:
+        hist = embedding_bag_sum(table, batch["hist"])
     x = torch.cat([hist, batch["user_feats"].to(hist.dtype)], dim=-1)
     return _tower(params["user_tower"], x)
 
@@ -291,7 +321,13 @@ def twotower_retrieve(cfg: TwoTowerConfig, params, batch, top_k: int = 100,
                       mesh=None, dp_axes=("data",), cand_pspec=None):
     """One query against a large candidate set: the item tower over every
     candidate, then a (1, C) score vector and its top-k."""
-    u = twotower_user(cfg, params, batch, mesh, dp_axes)  # (1, D)
-    v = twotower_item(cfg, params, batch["cand_items"], batch["cand_cates"], mesh, dp_axes)
+    u = twotower_user(cfg, params, batch, mesh, dp_axes, bag_pspec=(None, None))  # (1, D)
+    if isinstance(params["item_emb"], ShardedRows) or _tp(mesh) > 1:
+        ei, ec = (sharded_embedding_lookup(params[name], batch[ids], mesh, dp_axes=dp_axes,
+                                           ids_pspec=cand_pspec)
+                  for name, ids in (("item_emb", "cand_items"), ("cate_emb", "cand_cates")))
+        v = _tower(params["item_tower"], torch.cat([ei, ec], dim=-1))
+    else:
+        v = twotower_item(cfg, params, batch["cand_items"], batch["cand_cates"])
     scores = torch.einsum("qd,cd->qc", u, v)
     return _top_k(scores, top_k)

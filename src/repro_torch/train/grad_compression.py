@@ -16,7 +16,9 @@ copies each shard's payload (int8 values and scale, or top-k values and
 indices) onto the lead shard's device, which forms the mean and makes the
 update there, where the state lives. Every other shard would form the
 same mean from the same payloads and make the same update, so the port
-makes it once (the reference makes it on every rank).
+makes it once (the reference makes it on every rank). The collectives are
+public over a list of per-rank tensors: :func:`int8_allreduce_mean` and
+:func:`topk_allreduce_mean` (the reference's, over a mesh axis).
 
 The error-feedback state is per shard: the reference returns each rank's
 own residual under a replicated out-spec with replication checking off,
@@ -70,25 +72,60 @@ def _sum(xs):
     return total
 
 
-def _shard_means(gs, errs, lead, scheme: str, topk_frac: float):
-    """One leaf's mean over the shards' gradients ``gs``, formed on
-    ``lead`` from the gathered payloads, and each shard's new error."""
-    n = len(gs)
-    if scheme == "int8":
-        payloads = [quantize_int8(g) for g in gs]
-        qs = torch.stack([q.to(lead) for q, _ in payloads])
-        ss = torch.stack([s.to(lead) for _, s in payloads])
-        deq = qs.float() * ss.reshape((-1,) + (1,) * (qs.dim() - 1))
-        return deq.mean(dim=0), errs
-    if scheme == "topk":
-        k = max(1, int(gs[0].numel() * topk_frac))
-        picks = [topk_sparsify(g, e, k) for g, e in zip(gs, errs)]
-        vals = torch.cat([v.to(lead) for v, _, _ in picks])
-        idx = torch.cat([i.to(lead) for _, i, _ in picks])
-        dense = torch.zeros(gs[0].numel(), dtype=torch.float32, device=lead)
-        dense.index_put_((idx.long(),), vals, accumulate=True)
-        return (dense / n).reshape(gs[0].shape), [e for _, _, e in picks]
-    return _sum(g.to(lead) for g in gs) / n, errs  # exact baseline
+def int8_allreduce_mean(xs, lead, generator=None) -> torch.Tensor:
+    """The mean of the ranks' tensors ``xs`` (one per rank, each on its
+    rank's device) exchanging int8: each rank quantizes its own, the int8
+    payloads and scales are copied to ``lead``, dequantized and averaged
+    there. Without a generator the rounding is half to even, the
+    reference's ``key=None``; ``generator`` (one ``torch.Generator``, or
+    one per rank on the rank's device) rounds stochastically, each rank
+    drawing in rank order. The dequantized payloads are added rank by rank
+    from zero, each with one rounding, then divided by the rank count: the
+    reference's compiled step, to the bit."""
+    gens = generator if isinstance(generator, (list, tuple)) else [generator] * len(xs)
+    total = torch.zeros(xs[0].shape, dtype=torch.float32, device=lead)
+    for q, s in (quantize_int8(x, g) for x, g in zip(xs, gens)):
+        # q * scale added with one rounding, the fused multiply-add XLA makes
+        # of the reference's dequantize-and-mean: in float64 the product (8 by
+        # 24 bits) is exact, and so is its sum with the float32 total unless
+        # the two lie more than 2^22 apart in magnitude
+        total = (total.double() + q.to(lead).double() * s.to(lead).double()).float()
+    return total / len(xs)
+
+
+def topk_allreduce_mean(xs, errs, k: int, lead):
+    """The mean of the ranks' tensors ``xs`` exchanging each rank's k
+    largest-magnitude entries of ``x + err`` (values and int32 indices,
+    copied to ``lead`` and added there into a dense buffer, rank by rank);
+    returns (the mean on ``lead``, each rank's new error state on its
+    device)."""
+    picks = [topk_sparsify(x, e, k) for x, e in zip(xs, errs)]
+    vals = torch.cat([v.to(lead) for v, _, _ in picks])
+    idx = torch.cat([i.to(lead) for _, i, _ in picks])
+    dense = torch.zeros(xs[0].numel(), dtype=torch.float32, device=lead)
+    dense.index_put_((idx.long(),), vals, accumulate=True)
+    return (dense / len(xs)).reshape(xs[0].shape), [e for _, _, e in picks]
+
+
+def _tree_compress_mean(grads, errs, lead, scheme: str, topk_frac: float):
+    """Per leaf, the mean over the ranks' gradient trees ``grads`` on
+    ``lead`` (int8, top-k or exact) and each rank's new error tree."""
+    flat_g = [tree_leaves(g) for g in grads]
+    flat_e = [tree_leaves(e) for e in errs]
+    means, new_errs = [], [[] for _ in grads]
+    for j in range(len(flat_g[0])):
+        gs, es = [g[j].float() for g in flat_g], [e[j] for e in flat_e]
+        if scheme == "int8":
+            m = int8_allreduce_mean(gs, lead)
+        elif scheme == "topk":
+            m, es = topk_allreduce_mean(gs, es, max(1, int(gs[0].numel() * topk_frac)), lead)
+        else:  # exact baseline
+            m = _sum(g.to(lead) for g in gs) / len(gs)
+        means.append(m)
+        for r, e in enumerate(es):
+            new_errs[r].append(e)
+    return (tree_unflatten(grads[0], means),
+            [tree_unflatten(e_r, new) for e_r, new in zip(errs, new_errs)])
 
 
 def make_compressed_dp_train_step(loss_fn, opt_cfg, mesh, dp_axis="data",
@@ -117,20 +154,12 @@ def make_compressed_dp_train_step(loss_fn, opt_cfg, mesh, dp_axis="data",
             local = tree_map(lambda x: x.chunk(n, dim=0)[r].to(dev), batch)
             loss, g = value_and_grad(loss_fn, tree_map(lambda p: p.to(dev), params), local)
             losses.append(loss)
-            grads.append(tree_leaves(g))
-        flat_e = [tree_leaves(tree_map(lambda e: e.to(dev), e_r))
-                  for e_r, dev in zip(errs, devices)]
-        means, new_errs = [], [[] for _ in devices]
-        for j in range(len(grads[0])):
-            m, es = _shard_means([g[j].float() for g in grads], [e[j] for e in flat_e],
-                                 lead, scheme, topk_frac)
-            means.append(m)
-            for r, e in enumerate(es):
-                new_errs[r].append(e)
+            grads.append(g)
+        errs = [tree_map(lambda e: e.to(dev), e_r) for e_r, dev in zip(errs, devices)]
+        means, errs = _tree_compress_mean(grads, errs, lead, scheme, topk_frac)
         loss = _sum(x.to(lead) for x in losses) / n
-        params, opt_state, gnorm = adamw_update(opt_cfg, params, tree_unflatten(params, means), opt_state)
-        return (params, opt_state, [tree_unflatten(params, e) for e in new_errs],
-                {"loss": loss, "grad_norm": gnorm})
+        params, opt_state, gnorm = adamw_update(opt_cfg, params, means, opt_state)
+        return params, opt_state, errs, {"loss": loss, "grad_norm": gnorm}
 
     return step
 

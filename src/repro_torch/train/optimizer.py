@@ -14,6 +14,13 @@ no room for a second copy (two-tower-retrieval's parameters and moments
 are 31 GB). A large leaf is updated in slices of :data:`CHUNK` elements,
 so the update's temporaries stay small; elementwise, slicing changes no
 rounding.
+
+A row-sharded table (``parallel.py`` ``ShardedRows``) is one leaf per
+shard, each on its own device: each is updated in place where it lives,
+with the clip scale and bias corrections copied there, and the global
+norm adds each shard's sum of squares on the first leaf's device in leaf
+(shard) order. The reference's norm runs over the whole array at once,
+so the two agree within rounding.
 """
 
 from __future__ import annotations
@@ -63,7 +70,7 @@ def init_opt_state(params):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, the leaves added
-    in tree order."""
+    in tree order on the first leaf's device."""
     total = None
     for leaf in tree_leaves(tree):
         sq = None
@@ -72,7 +79,7 @@ def global_norm(tree) -> torch.Tensor:
             sq = s if sq is None else sq + s
         if sq is None:
             sq = torch.zeros((), dtype=torch.float32, device=leaf.device)
-        total = sq if total is None else total + sq
+        total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
 
 
@@ -89,9 +96,13 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     lr, eps, wd = _f32(cfg.lr), _f32(cfg.eps), _f32(cfg.weight_decay)
     bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
     bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
+    on = {gnorm.device: (scale, bc1, bc2)}  # the step's scalars, per device
     with torch.no_grad():
         for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
                                 tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+            if p.device not in on:
+                on[p.device] = tuple(v.to(p.device) for v in on[gnorm.device])
+            scale, bc1, bc2 = on[p.device]
             for ps, gs, ms, ns in zip(_slices(p), _slices(g), _slices(mu), _slices(nu)):
                 gf = gs.float() * scale
                 ms.mul_(b1).add_(gf * omb1)

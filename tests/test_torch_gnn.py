@@ -143,15 +143,27 @@ def test_egnn_equivariance():
 
 
 def test_edge_sharded_egnn_waits_for_the_multi_device_slice():
+    """The edge-sharded EGNN, once pinned to raise, on a (1, 2) CPU mesh:
+    its forward, loss and gradients against the reference's unsharded
+    ones (the same sums in two shards; the reference's sharded path is in
+    ``tests/test_torch_multidevice.py``)."""
     from repro_torch.launch.mesh import make_mesh
 
-    cfg = tgnn.EGNNConfig(n_layers=1, d_hidden=4, d_feat=2)
-    params = tgnn.init_params(cfg, 0, device=CPU)
+    jcfg, tcfg, dims, jparams, tparams, jb, tb = _setup("full_graph_sm")
     mesh = make_mesh((1, 2), ("data", "model"), devices=[CPU] * 2)
-    e = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="multi-device model slice"):
-        tgnn.forward(cfg, params, torch.zeros(3, 2), torch.zeros(3, 3), e, e, torch.ones(4),
-                     mesh=mesh)
+    args = ("feats", "coords", "src", "dst", "edge_mask")
+    want = jgnn.forward(jcfg, jparams, *(jb[k] for k in args))
+    got = tgnn.forward(tcfg, tparams, *(tb[k] for k in args), mesh=mesh,
+                       edge_axes=("data", "model"))
+    for name, g, w in zip(("h", "coords", "energy"), got, want):
+        _close(g, w, name)
+    want_loss, want_grads = jax.value_and_grad(lambda p: jgnn.loss_fn(jcfg, p, jb))(jparams)
+    got_loss, got_grads = value_and_grad(
+        lambda p: tgnn.loss_fn(tcfg, p, tb, mesh=mesh, edge_axes=("data", "model")), tparams)
+    _close(got_loss, want_loss, "loss")
+    want, got = _flat(jax.tree.map(np.asarray, want_grads)), _flat(got_grads)
+    for name in want:
+        _close(got[name], want[name], name)
 
 
 # -- the segment sum ------------------------------------------------------------

@@ -314,10 +314,17 @@ def test_moe_gate_ties_take_the_lower_expert():
 
 
 def test_moe_block_refuses_expert_parallelism():
-    _, cfg_t, _, tp, _, tx = _moe_setup("float32")
+    """Expert parallelism, once pinned to raise, on a (1, 2) CPU mesh: each
+    rank dispatches its two experts at the one-rank capacity, so the
+    result is the reference's (1, 1) block within the float32 tolerance
+    (the reference's own tp > 1 is in ``tests/test_torch_multidevice.py``)."""
+    cfg_j, cfg_t, jp, tp, jx, tx = _moe_setup("float32")
+    want_y, want_aux = jax.jit(lambda p, x: jmoe.moe_block(
+        p, x, cfg=cfg_j, mesh=jax_mesh((1, 1), ("data", "model")), dp_axes=("data",)))(jp, jx)
     mesh = make_mesh((1, 2), ("data", "model"), devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="multi-device model slice"):
-        tmoe.moe_block(tp, tx, cfg=cfg_t, mesh=mesh, dp_axes=("data",))
+    got_y, got_aux = tmoe.moe_block(tp, tx, cfg=cfg_t, mesh=mesh, dp_axes=("data",))
+    _close(got_y, want_y)
+    _close(got_aux, want_aux, rtol=1e-6, atol=1e-6)
 
 
 # -- the transformer ------------------------------------------------------------

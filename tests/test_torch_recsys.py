@@ -36,6 +36,7 @@ try:
     from repro.configs.recsys_archs import RECSYS_SHAPES as REF_SHAPES
     from repro.models import embedding as jemb
     from repro.models import recsys as jr
+    from repro.launch import steps as jsteps
 except ImportError:  # a card host without JAX runs only the card test
     jax = None
 
@@ -252,12 +253,38 @@ def test_retrieval_ties_keep_the_lower_candidate(ref):
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)
 def test_sharded_tables_wait_for_the_multi_device_slice(ref, arch_id):
-    _, pc, _, pp, _, tb = _both(arch_id, "serve")
+    """Row-sharded tables, once pinned to raise, on a (1, 2) CPU mesh: the
+    serve scores against the reference's unsharded ones (each lookup is
+    its one owner's row; the two-tower bag adds two shards' partials). The
+    reference's own sharded path is in ``tests/test_torch_multidevice.py``."""
+    rc, pc, params, pp, jb, tb = _both(arch_id, "serve")
     mesh = make_mesh((1, 2), ("data", "model"), devices=[CPU] * 2)
-    fn = {"bert4rec": tr.seqrec_score, "sasrec": tr.seqrec_score, "din": tr.din_forward,
-          "two-tower-retrieval": tr.twotower_score}[arch_id]
-    with pytest.raises(NotImplementedError, match="multi-device model slice"):
-        fn(pc, pp, tb, mesh)
+    name = {"bert4rec": "seqrec_score", "sasrec": "seqrec_score", "din": "din_forward",
+            "two-tower-retrieval": "twotower_score"}[arch_id]
+    want = jax.jit(functools.partial(getattr(jr, name), rc))(params, jb)
+    _close(getattr(tr, name)(pc, pp, tb, mesh), want)
+
+
+def test_placement_rule_is_the_reference_rule(ref):
+    """``recsys.row_sharded`` and the reference's ``_recsys_param_pspecs``
+    shard the same tables, full width and reduced, at tp 1 to 16 (the
+    reference shards only where tp > 1, its ``table_sharded``)."""
+
+    class ShapeOnly:  # what _recsys_param_pspecs reads of a mesh
+        def __init__(self, tp):
+            self.shape = {"data": 1, "model": tp}
+            self.axis_names = ("data", "model")
+
+    for arch in REF_ARCHS:
+        init = getattr(jr, f"{INITS[arch.arch_id]}_init")
+        for a in (arch, arch.reduced()):
+            abs_params = jax.eval_shape(lambda: init(a.model_cfg, jax.random.key(0)))
+            for tp in (1, 2, 4, 16):
+                specs = jsteps._recsys_param_pspecs(abs_params, ShapeOnly(tp))
+                for name, leaf in abs_params.items():
+                    if hasattr(leaf, "shape"):
+                        want = tp > 1 and specs[name] == jax.sharding.PartitionSpec("model", None)
+                        assert tr.row_sharded(name, leaf.shape, tp) == want, (a.arch_id, name, tp)
 
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)
