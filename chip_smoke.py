@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives eleven paths:
+``nvcc`` per source, all started together) and drives twelve paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -120,7 +120,17 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   means equal to the host's; then the copies between distinct devices:
   the reduced two-tower and EGNN train steps on a (1, 2) mesh of this
   card and the host, replayed from the seed with every leaf equal to the
-  bit and within tolerance of the (1, 1) step on the card.
+  bit and within tolerance of the (1, 1) step on the card;
+- the LM's tensor parallelism and FSDP (the tp phase, no kernel on its
+  path): qwen1.5-32b at full width, its depth cut to 16 layers, through
+  its built prefill (B 2 x S 4096) and decode steps (B 4 on an S 16,384
+  cache, bf16 and int8) on a (1, 4) mesh of this card against the (1, 1)
+  steps (logits' cosine and top-1 agreement, the caches' cosine per kv
+  head); stablelm-1.6b's train step on a (2, 2) mesh (FSDP x TP) against
+  the (1, 1) step (loss and grad norm), replayed from one state to the
+  bit; the reduced stablelm and phi3.5-moe in float32 on a (1, 2) mesh of
+  this card and the host (train, prefill, decode) within 1e-5 of the
+  (1, 1) card steps, replayed to the bit.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -2757,14 +2767,14 @@ def lm_grads_twice(arch, dims: dict, mesh) -> dict:
     rng = np.random.default_rng(MODEL_SEED)
     B, S = dims["global_batch"], dims["seq_len"]
     tokens, targets = (torch.from_numpy(np.minimum(rng.zipf(LM_ZIPF_A, (B, S)) - 1, cfg.vocab - 1)
-                                        .astype(np.int32)).to(params["embed"].device)
+                                        .astype(np.int32)).to(built.meta["device"])
                        for _ in range(2))
     runs = []
     for _ in range(2):
         loss, grads = transformer.lm_grads_microbatched(
             cfg, params, tokens, targets, built.meta["n_micro"], mesh, ("data",),
             bf16_gather=built.meta["bf16_gather"])
-        runs.append((loss, dict(_flatten_with_names(grads))))
+        runs.append((loss, dict(block_leaves(_flatten_with_names(grads)))))
         del grads
     (loss_a, a), (loss_b, b) = runs
     rec = {"dims": dims, "n_micro": built.meta["n_micro"], "bf16_gather": built.meta["bf16_gather"],
@@ -2773,6 +2783,15 @@ def lm_grads_twice(arch, dims: dict, mesh) -> dict:
     del params, runs, a, b
     torch.cuda.empty_cache()
     return rec
+
+
+def block_leaves(named) -> list:
+    """[(name, tensor)] with each ``Sharded`` leaf's blocks as
+    ``name#i``."""
+    from repro_torch.parallel import Sharded
+
+    return [(f"{n}#{i}", b) for n, leaf in named
+            for i, b in enumerate(leaf.shards if isinstance(leaf, Sharded) else [leaf])]
 
 
 def stablelm_train(dev, mesh, cpu_mesh) -> dict:
@@ -3477,6 +3496,8 @@ def md_bag_shards(table, ids) -> list:
     of BAG_CHECK_ROWS bags: the float32 products and adds are the same
     on the card and the host, and a host gather of 13 GB a shard would
     take minutes), then the kernel alone against its bound."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
     from repro_torch.kernels.embedding_bag.ops import launch_embedding_bag
     from repro_torch.models.embedding import local_ids
@@ -3488,16 +3509,25 @@ def md_bag_shards(table, ids) -> list:
         valid = local >= 0
         n_valid, distinct = int(valid.sum()), int(torch.unique(local[valid]).numel())
         got = embedding_bag(local, block)
+        plain_ms = 0.0
         for b0 in range(0, B, BAG_CHECK_ROWS):
-            assert_bag(got[b0:b0 + BAG_CHECK_ROWS],
-                       embedding_bag_plain(local[b0:b0 + BAG_CHECK_ROWS], block), block.dtype,
+            want, ms = timed(lambda: embedding_bag_plain(local[b0:b0 + BAG_CHECK_ROWS], block))
+            plain_ms += ms
+            assert_bag(got[b0:b0 + BAG_CHECK_ROWS], want, block.dtype,
                        f"shard {r} of {len(table.shards)}, bags {b0}..")
-        del got
+        del got, want
         out = torch.empty((B, D), dtype=block.dtype, device=block.device)
+        lib_ids, lib_w = local.clamp(min=0), valid.to(block.dtype)
         recs.append({"shard": r, "rows": rows, "valid_ids": n_valid, "distinct_rows": distinct,
                      "matches_plain": True, "ms": device_ms(lambda: launch_embedding_bag(local, block, None, out,
                                                                   mean=False)),
+                     "plain_ms": plain_ms, "plain": f"in slices of {BAG_CHECK_ROWS} bags, summed",
+                     "library_ms": device_ms(lambda: F.embedding_bag(
+                         lib_ids, block, per_sample_weights=lib_w, mode="sum")),
+                     "library": "F.embedding_bag(mode='sum', per_sample_weights 0 on the ids "
+                                "the shard does not own)",
                      **window_bound(4 * B * S + distinct * D * 4, B * D * 4, n_valid * D)})
+        del lib_ids, lib_w
     return recs
 
 
@@ -3506,6 +3536,8 @@ def md_bag_backward_shards(table, ids) -> list:
     the shard's share of ``ids``: the wrapper's equal to the plain
     version's on the host to the bit, then the kernel alone from a
     prebuilt plan."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.embedding_bag import (
         embedding_bag_backward,
         embedding_bag_backward_plain,
@@ -3527,12 +3559,21 @@ def md_bag_backward_shards(table, ids) -> list:
         del got
         plan = segment_plan(local.reshape(-1), rows)
         buf = torch.empty((rows, D), dtype=torch.float32, device=block.device)
+        ms = device_ms(lambda: launch_embedding_bag_backward(plan, None, g, buf, S), runs=9)
+        del buf
+        lib_table = block.detach().requires_grad_()
+        lib_out = F.embedding_bag(local.clamp(min=0).long(), lib_table,
+                                  per_sample_weights=(local >= 0).float(), mode="sum")
         recs.append({"shard": r, "rows": rows, "valid_ids": n_valid, "matches_plain": True,
-                     "ms": device_ms(lambda: launch_embedding_bag_backward(plan, None, g, buf, S),
-                                     runs=9),
-                     "long_rows": int((plan.long_rows >= 0).sum()),
+                     "ms": ms, "long_rows": int((plan.long_rows >= 0).sum()),
+                     "plain_ms": device_ms(lambda: embedding_bag_backward_plain(local, g, rows),
+                                           runs=5),
+                     "library_ms": device_ms(lambda: torch.autograd.grad(
+                         lib_out, lib_table, g, retain_graph=True), runs=5),
+                     "library": "backward of F.embedding_bag(mode='sum'), dense",
                      **window_bound(B * D * 4 + B * S * 4, rows * D * 4, 2 * n_valid * D)})
-        del buf, plan
+        del plan, lib_out, lib_table
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return recs
 
@@ -3766,11 +3807,15 @@ def md_egnn(one, mesh, total: dict, gnn: dict, stream_batches: list) -> dict:
                           f"segment sum, edge shard {r} of {MD_SHARDS}")
         plan = segment_plan(s_r, n)
         out = torch.empty((n, 64), dtype=torch.float32, device=dev)
+        lib, idx = torch.zeros((n, 64), dtype=torch.float32, device=dev), s_r.long()
         longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
         shards.append({"shard": r, "E": E, "N": n, "C": 64, "longest": longest, "matches_plain": True,
                        "chain_bound_ms": longest * ADD_LATENCY_CYCLES / sm_hz * 1e3,
                        "long_segments": int((plan.long_rows >= 0).sum()),
                        "ms": device_ms(lambda: launch_segment_sum(data, plan, out)),
+                       "plain_ms": device_ms(lambda: segment_sum_plain(data, s_r, n)),
+                       "library_ms": device_ms(lambda: lib.index_add_(0, idx, data)),
+                       "library": "index_add_ (float32 atomics) into a zeroed buffer",
                        **window_bound(E * 64 * 4 + E * 4 + (n + 1) * 4, n * 64 * 4, 2 * E * 64)})
     if not any(r["long_segments"] for r in shards):
         raise AssertionError("egnn edge shards: no shard of the sampled batch holds a long segment")
@@ -3944,7 +3989,8 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
                 + f"; bag launched {MD_SHARDS}x a tower call (table shards are views: "
                 f"{tt['views']})")
         log(f"multidevice {name}: bag kernel per shard at serve_bulk (V/{MD_SHARDS} rows): "
-            + ", ".join(f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, {r['valid_ids']} ids)"
+            + ", ".join(f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                        f"library {r['library_ms']:.4f}, {r['valid_ids']} ids)"
                         for r in tt["bag_shards_serve_bulk"]))
         rec["twotower_train"] = tr = md_twotower_train(mesh, total, train["twotower"])
         log(f"multidevice {name}: two-tower train B {tr['B']}: losses {tr['losses']} (max rel "
@@ -3953,7 +3999,8 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
             f"{[round(x, 2) for x in tr['unsharded_step_ms']]}; peak "
             f"{[round(b / 1e9, 3) for b in tr['peak_bytes']]} GB against "
             f"{tr['unsharded_peak_bytes'] / 1e9:.3f} GB; replay equal to the bit; backward kernel "
-            "per shard " + ", ".join(f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
+            "per shard " + ", ".join(f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain "
+                                     f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})"
                                      for r in tr["bag_backward_shards"]))
         rec["lookups"] = lk = md_lookups(one, mesh, total)
         for arch_id, r in lk.items():
@@ -3978,18 +4025,15 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
             f"({st['launches'].get('segment_sum.segment_sum long')} long)")
         log(f"multidevice {name}: segment sum per edge shard of a sampled batch, C 64: "
             + ", ".join(f"E {r['E']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, chain "
-                        f"{r['chain_bound_ms']:.4f}: longest {r['longest']})"
+                        f"{r['chain_bound_ms']:.4f}: longest {r['longest']}; plain "
+                        f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})"
                         for r in eg["segment_sum_shards"]))
-        if len(mesh.unique_devices()) == 1:
-            rec["granite"] = gr = md_granite(one, mesh)
-            log(f"multidevice {name}: granite-moe prefill B {gr['B']} x S {gr['S']}, "
-                f"{gr['experts']} experts over {gr['ranks']} ranks: cosine {gr['cosine']:.6f}, "
-                f"argmax agreement {gr['argmax_agreement']:.4f} against tp 1; prefill "
-                f"{gr['prefill_ms']:.2f} ms against {gr['unsharded_prefill_ms']:.2f} ms; two "
-                f"gradient calls equal in all {len(gr['grads_twice']['differing'])} leaves")
-        else:
-            log(f"multidevice {name}: granite-moe skipped: an LM step over distinct cards "
-                "comes with the LM tensor-parallel slice")
+        rec["granite"] = gr = md_granite(one, mesh)
+        log(f"multidevice {name}: granite-moe prefill B {gr['B']} x S {gr['S']}, "
+            f"{gr['experts']} experts and its attention and vocabulary over {gr['ranks']} ranks: "
+            f"cosine {gr['cosine']:.6f}, argmax agreement {gr['argmax_agreement']:.4f} against "
+            f"tp 1; prefill {gr['prefill_ms']:.2f} ms against {gr['unsharded_prefill_ms']:.2f} "
+            f"ms; two gradient calls equal in all {len(gr['grads_twice']['differing'])} leaves")
         rec["compressed"] = cp = md_compressed(list(mesh.devices.flat))
         log(f"multidevice {name}: int8_allreduce_mean and topk_allreduce_mean over "
             f"{cp['ranks']} ranks of {cp['elements']} elements equal to the host's to the bit "
@@ -4020,13 +4064,432 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
                 f"layers: ~{OGB_SAVED_GB} GB a card over four cards, over the 76 GB limit; the "
                 "reference built it for its 256-device mesh"},
         {"what": "granite-moe", "cut": f"prefill B {MD_GRANITE['global_batch']} x S "
-                                       f"{MD_GRANITE['seq_len']}, one card",
-         "why": "an LM step over distinct cards needs the dense layers' tensor parallelism"},
+                                       f"{MD_GRANITE['seq_len']}",
+         "why": "the expert-parallel path's check; the LM meshes run in the tp phase"},
         {"what": "din, bert4rec", "cut": "serve_p99", "why": "the lookups are bitwise; their "
                                                              "retrieval runs in the models phase"}]
     report["seconds"] = time.perf_counter() - t_phase
     log(f"multidevice: phase {report['seconds']:.1f} s; launches of the sharded runs "
         f"{ {k: v for k, v in total.items() if v} }; reduced: "
+        + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
+    return report
+
+
+# -- the LM's tensor parallelism and FSDP (no kernel on this path) -------------------
+TP_SHARDS = 4  # qwen's model axis on one card
+TP_QWEN_LAYERS = 16  # qwen1.5-32b's depth, cut from 64: 19.9 GB of bf16 weights
+TP_PREFILL = {"seq_len": 4096, "global_batch": 2}
+TP_DECODE = {"seq_len": 16384, "global_batch": 4}  # a 21.5 GB bf16 cache
+TP_DECODE_STEPS = 3  # decode steps at the cache's last positions, the (1, 1) greedy tokens
+TP_COS = 0.999  # (1, 4) logits against (1, 1)
+TP_TIE = 4.0  # a row's top-1 may differ only where (1, 1)'s top-2 gap < TP_TIE x the rows' rms diff
+TP_HEAD_COS = 0.999  # each kv head's cache against (1, 1)
+# stablelm on (2, 2), cut from the train phase's B 8: at B 8 the (2, 2) step peaked at 70.28 GB
+TP_TRAIN = {"seq_len": 4096, "global_batch": 4}
+TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-3, 1e-2  # the (2, 2) step's first loss and grad norm
+TP_MIXED_TOL = 1e-5  # float32, (1, 2) of the card and the host against (1, 1) on the card
+TP_MIXED_ARCHS = ("stablelm-1.6b", "phi3.5-moe-42b-a6.6b")
+
+
+def with_env(name: str, value: str, fn):
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def tp_meshes(dev) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+
+    return {shape: make_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
+            for shape in ((1, 1), (1, TP_SHARDS), (2, 2))}
+
+
+def tp_cache(built, cfg, B: int, S: int, quantized: bool, seed: int):
+    """The decode step's cache on its mesh (zeros, ``Sharded`` per
+    ``cache_pspecs`` over several shards), every layer then drawn from a
+    generator seeded by (seed, layer): the same values in either layout,
+    one layer's draw alive at a time."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel import Sharded
+
+    grid = built.meta["mesh"].grid()
+    dev = grid[0, 0]
+    shapes = transformer.init_cache(cfg, B, S, quantized=quantized, device="meta")
+    cols = grid.shape[1] if built.meta["cache_pspecs"]["k"][3] == "model" else 1
+    if grid.shape[0] != 1:
+        raise ValueError("tp_cache fills caches of one data shard")
+    if cols == 1:
+        cache = transformer.init_cache(cfg, B, S, quantized=quantized, device=dev)
+    else:
+        spans = transformer.head_spans(cfg, cols)[1]
+        cache = {k: Sharded([torch.zeros((*v.shape[:3], b - a, *v.shape[4:]), dtype=v.dtype,
+                                         device=grid[0, r]) for r, (a, b) in enumerate(spans)],
+                            (1, cols), (1, 3), spans) for k, v in shapes.items()}
+    for layer in range(cfg.n_layers):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + layer)
+        for name in sorted(cache):
+            shape = tuple(shapes[name].shape[1:])
+            if shapes[name].dtype == torch.int8:
+                x = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            elif "scale" in name:
+                x = torch.rand(shape, generator=gen, device=dev).mul_(0.02).add_(1e-3)
+            else:
+                x = torch.randn(shape, generator=gen, device=dev).mul_(0.5).to(torch.bfloat16)
+            c = cache[name]
+            if isinstance(c, Sharded):
+                for r, (a, b) in enumerate(c.spans):
+                    c.block(0, r)[layer].copy_(x.narrow(2, a, b - a))
+            else:
+                c[layer].copy_(x)
+            del x
+    return cache
+
+
+def cache_rows(cache: dict, positions: list) -> dict:
+    """Each name's rows at ``positions`` (L, B, P, H[, Dh]) whole on the
+    first block's device."""
+    from repro_torch.parallel import Sharded
+
+    idx = torch.tensor(positions)
+    out = {}
+    for k, c in cache.items():
+        if isinstance(c, Sharded):
+            out[k] = Sharded([b.index_select(2, idx.to(b.device)) for b in c.shards], c.grid,
+                             c.axes, c.spans).full()
+        else:
+            out[k] = c.index_select(2, idx.to(c.device))
+    return out
+
+
+def head_cosines(a, b) -> list:
+    """The cosine of each kv head (axis 3) of two (L, B, S, H[, Dh])
+    caches, summed layer by layer in float64."""
+    H = a.shape[3]
+    dot, na, nb = (torch.zeros(H, dtype=torch.float64, device=a.device) for _ in range(3))
+    for la, lb in zip(a, b):
+        la = la.to(torch.float64).transpose(0, 2).reshape(H, -1)
+        lb = lb.to(a.device, torch.float64).transpose(0, 2).reshape(H, -1)
+        dot += (la * lb).sum(1)
+        na += la.square().sum(1)
+        nb += lb.square().sum(1)
+    return (dot / (na.sqrt() * nb.sqrt())).tolist()
+
+
+def tp_qwen(meshes) -> dict:
+    """qwen1.5-32b at full width, its depth cut to TP_QWEN_LAYERS: the
+    built prefill and decode steps (bf16 and int8 caches) on the (1, 1)
+    mesh, then, with the weights placed TP-split (one contiguous block per
+    model shard), on the (1, TP_SHARDS) mesh of the same card: logits and
+    caches against the (1, 1) steps', times and peaks. One set of weights
+    and one decode cache live at a time."""
+    from dataclasses import replace
+
+    from repro_torch.configs.lm_archs import QWEN_32B
+    from repro_torch.launch.steps import build_step, materialize_inputs, place_params
+    from repro_torch.parallel import Sharded
+
+    arch = replace(QWEN_32B, model_cfg=replace(QWEN_32B.model_cfg, n_layers=TP_QWEN_LAYERS))
+    arch = cut_arch(arch, prefill_32k=("prefill", TP_PREFILL), decode_32k=("decode", TP_DECODE))
+    cfg = arch.model_cfg
+    B, S = TP_DECODE["global_batch"], TP_DECODE["seq_len"]
+    positions = list(range(S - TP_DECODE_STEPS, S))
+    first = torch.from_numpy(np.random.default_rng(MODEL_SEED).integers(
+        0, cfg.vocab, (B, 1)).astype(np.int32))
+    rec = {"layers": cfg.n_layers, "prefill": dict(TP_PREFILL), "decode": dict(TP_DECODE),
+           "decode_steps": TP_DECODE_STEPS}
+    params = tokens = None
+    runs = {}
+    for shape in ((1, 1), (1, TP_SHARDS)):
+        mesh = meshes[shape]
+        dev = mesh.lead
+        pre = build_step(arch, "prefill_32k", mesh)
+        decs = {"bf16": build_step(arch, "decode_32k", mesh),
+                "int8": with_env("REPRO_KV_INT8", "1", lambda: build_step(arch, "decode_32k", mesh))}
+        t0 = time.perf_counter()
+        if params is None:
+            params, tokens = materialize_inputs(arch, "prefill_32k", pre, seed=MODEL_SEED)
+            rec["weight_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(params))
+        else:
+            params = place_params(pre, params)
+            if not isinstance(params["layers"]["attn"]["wq"], Sharded):
+                raise AssertionError("qwen (1, 4): the attention weights are not split")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"place_s": time.perf_counter() - t0}
+        pre.fn(params, tokens)  # first call: the allocator's pools
+        (logits, cache), run["prefill_ms"] = timed(lambda: pre.fn(params, tokens))
+        run["prefill_logits"] = logits.float()
+        run["prefill_cache"] = {k: (v.full() if isinstance(v, Sharded) else v).to(dev)
+                                for k, v in cache.items()}
+        del cache
+        torch.cuda.empty_cache()
+        for kind, dec in decs.items():
+            cache = tp_cache(dec, cfg, B, S, kind == "int8", MODEL_SEED)
+            fed = [first.to(dev)] + ([t.to(dev) for t in runs[(1, 1)][f"fed_{kind}"][1:]]
+                                    if (1, 1) in runs else [])
+            logits, ms = [], []
+            for i, pos in enumerate(positions):
+                (lg, cache), t = timed(lambda: dec.fn(params, fed[i], cache, pos))
+                logits.append(lg.float())
+                ms.append(t)
+                if len(fed) <= i + 1:
+                    fed.append(lg.argmax(-1, keepdim=True).to(torch.int32))
+            run[f"decode_{kind}_logits"] = torch.stack(logits)
+            run[f"decode_{kind}_ms"] = ms
+            run[f"decode_{kind}_rows"] = cache_rows(cache, positions)
+            run[f"fed_{kind}"] = fed
+            del cache
+            torch.cuda.empty_cache()
+        run["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        runs[shape] = run
+    del params
+    torch.cuda.empty_cache()
+    one, tp = runs[(1, 1)], runs[(1, TP_SHARDS)]
+    checks = {}
+    for key in ("prefill_logits", "decode_bf16_logits", "decode_int8_logits"):
+        a, b = tp[key].reshape(-1, tp[key].shape[-1]), one[key].reshape(-1, one[key].shape[-1])
+        same = a.argmax(-1) == b.argmax(-1)
+        top2 = b.topk(2, dim=-1).values
+        noise = (a - b).square().mean(-1).sqrt()
+        checks[key] = {"cosine": cosine(a, b), "top1": float(same.double().mean()),
+                       "flips_outside_ties": int((~same & (top2[:, 0] - top2[:, 1]
+                                                           > TP_TIE * noise)).sum())}
+    top1 = min(c["top1"] for c in checks.values())
+    head = {"prefill": {k: min(head_cosines(tp["prefill_cache"][k], one["prefill_cache"][k]))
+                        for k in ("k", "v")}}
+    for kind in ("bf16", "int8"):
+        a, b = tp[f"decode_{kind}_rows"], one[f"decode_{kind}_rows"]
+        if kind == "int8":  # the dequantised rows the step reads
+            a = {n: a[n].float() * a[f"{n}_scale"][..., None] for n in ("k", "v")}
+            b = {n: b[n].float() * b[f"{n}_scale"][..., None] for n in ("k", "v")}
+        head[f"decode_{kind}"] = {n: min(head_cosines(a[n], b[n])) for n in ("k", "v")}
+    rec.update(checks=checks, top1_agreement=top1, head_cosine_min=head)
+    for shape, run in runs.items():
+        rec[f"{shape[0]}x{shape[1]}"] = {
+            "prefill_ms": run["prefill_ms"], "place_s": run["place_s"],
+            "decode_bf16_ms": run["decode_bf16_ms"], "decode_int8_ms": run["decode_int8_ms"],
+            "peak_bytes": run["peak_bytes"]}
+    bad = [k for k, c in checks.items() if c["cosine"] < TP_COS or c["flips_outside_ties"]]
+    bad += [f"{k} {n}" for k, v in head.items() for n, c in v.items() if c < TP_HEAD_COS]
+    if bad:
+        raise AssertionError(f"qwen (1, {TP_SHARDS}) against (1, 1): {bad}, top-1 {top1}; {rec}")
+    return rec
+
+
+def tp_train(meshes) -> dict:
+    """stablelm-1.6b train_4k at TP_TRAIN: one step on the (1, 1) mesh,
+    then on the (2, 2) mesh (FSDP over 2 data shards x TP over 2 model
+    shards, one microbatch) two steps from the seed, the state copied to
+    the host after the first; then the first step again from the seed,
+    every leaf equal to the copy."""
+    from repro_torch.configs.lm_archs import STABLELM_1_6B
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import tree_leaves
+    from repro_torch.parallel import Sharded
+
+    arch = cut_arch(STABLELM_1_6B, train_4k=("train", TP_TRAIN))
+    one, grid = meshes[(1, 1)], meshes[(2, 2)]
+    b1, b22 = build_step(arch, "train_4k", one), build_step(arch, "train_4k", grid)
+    rec = {"dims": dict(TP_TRAIN), "n_micro": {"1x1": b1.meta["n_micro"],
+                                               "2x2": b22.meta["n_micro"]}}
+    p, o, batch = materialize_inputs(arch, "train_4k", b1, seed=MODEL_SEED)
+    reset_peaks(one)
+    (p, o, m), ms = timed(lambda: b1.fn(p, o, batch))
+    rec["1x1"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms,
+                  "peak_bytes": torch.cuda.max_memory_allocated(one.lead)}
+    del p, o, m
+    torch.cuda.empty_cache()
+    host, runs = None, []
+    for steps in (2, 1):
+        p, o, batch = materialize_inputs(arch, "train_4k", b22, seed=MODEL_SEED)
+        if not isinstance(p["layers"]["mlp"]["w_up"], Sharded) or p["embed"].grid != (2, 2):
+            raise AssertionError("stablelm (2, 2): the parameters are not FSDP x TP split")
+        reset_peaks(grid)
+        run = {"metrics": [], "step_ms": []}
+        for step in range(steps):
+            (p, o, m), ms = timed(lambda: b22.fn(p, o, batch))
+            run["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+            run["step_ms"].append(ms)
+            if step == 0:
+                leaves = tree_leaves((p, o))
+                if host is None:
+                    host = [t.detach().to("cpu", copy=True) for t in leaves]
+                    run["blocks"] = len(host)
+                else:
+                    run["differing"] = sum(int((t.detach().cpu() != h).sum())
+                                           for t, h in zip(leaves, host))
+                del leaves
+        run["peak_bytes"] = torch.cuda.max_memory_allocated(grid.lead)
+        runs.append(run)
+        del p, o, m
+        torch.cuda.empty_cache()
+    del host
+    rec["2x2"] = runs
+    first = runs[0]["metrics"][0]
+    rel = (abs(first[0] / rec["1x1"]["loss"] - 1), abs(first[1] / rec["1x1"]["grad_norm"] - 1))
+    rec["rel_diff"] = rel
+    if rel[0] > TP_LOSS_RTOL or rel[1] > TP_GNORM_RTOL or runs[1]["differing"] \
+            or runs[1]["metrics"][0] != first:
+        raise AssertionError(f"stablelm (2, 2) train: {rec}")
+    return rec
+
+
+def tp_mixed(dev) -> dict:
+    """The reduced stablelm and phi3.5-moe in float32 on a (1, 2) mesh of
+    this card and the host (the only run whose collectives copy between
+    distinct devices): two train steps, prefill and a decode step against
+    the (1, 1) steps on the card within TP_MIXED_TOL, each run twice on the
+    mixed mesh with every output and leaf equal to the bit. Then stablelm's
+    prefill and decode on a (2, 1) mesh of the card and the host, whose
+    every weight is a replica per data shard (no step copies weights
+    between them), against the same (1, 1) steps."""
+    from dataclasses import replace
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, materialize_inputs, place_caches
+    from repro_torch.models import transformer, tree_leaves
+    from repro_torch.parallel import Sharded
+
+    one = make_mesh((1, 1), ("data", "model"), devices=[dev])
+    mixed = make_mesh((1, 2), ("data", "model"), devices=[dev, torch.device("cpu")])
+    rows = make_mesh((2, 1), ("data", "model"), devices=[dev, torch.device("cpu")])
+    rec = {}
+
+    def host(x):
+        return (x.full("cpu") if isinstance(x, Sharded) else x.detach().cpu()).float()
+
+    def close(a, b) -> float:
+        a, b = host(a), host(b)
+        if not torch.allclose(a, b, rtol=TP_MIXED_TOL, atol=TP_MIXED_TOL):
+            return float("inf")
+        return float((a - b).abs().max())
+
+    for arch_id in TP_MIXED_ARCHS:
+        arch = get_arch(arch_id).reduced()
+        arch = replace(arch, model_cfg=replace(arch.model_cfg, dtype="float32"))
+        cfg = arch.model_cfg
+
+        def train(mesh):
+            b = build_step(arch, "train_4k", mesh)
+            p, o, batch = materialize_inputs(arch, "train_4k", b, seed=MODEL_SEED)
+            out = []
+            for _ in range(2):
+                p, o, m = b.fn(p, o, batch)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            return out, [host(t) for t in tree_leaves((p, o))], sum(
+                t.device.type == "cpu" for t in tree_leaves(p))
+
+        def serve(mesh):
+            pre = build_step(arch, "prefill_32k", mesh)
+            dec = build_step(arch, "decode_32k", mesh)
+            params, tokens = materialize_inputs(arch, "prefill_32k", pre, seed=MODEL_SEED)
+            logits, cache = pre.fn(params, tokens)
+            B, S = (arch.shapes["decode_32k"].dims[k] for k in ("global_batch", "seq_len"))
+            rng = np.random.default_rng(MODEL_SEED)
+            whole = transformer.init_cache(cfg, B, S, dtype=torch.float32, device="cpu")
+            for v in whole.values():
+                v.copy_(torch.from_numpy(rng.normal(0, 0.5, v.shape).astype(np.float32)))
+            token = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32))
+            placed = place_caches(dec, {k: v.to(dev) for k, v in whole.items()})
+            dl, dc = transformer.decode_step(cfg, params, token.to(dev), placed, S // 2, mesh)
+            replicas = sum(isinstance(x, Sharded) and x.grid[0] == 2
+                           and x.block(1, 0).device.type == "cpu" for x in _leaves(params))
+            outs = [logits, dl] + [cache[k] for k in sorted(cache)] + [dc[k] for k in sorted(dc)]
+            return outs, (replicas, len(_leaves(params)))
+
+        (want, _, _), (got, leaves, on_host), (again, leaves2, _) = (train(one), train(mixed),
+                                                                     train(mixed))
+        rel = np.abs(np.array(got)[:, 0] / np.array(want)[:, 0] - 1)
+        (s_one, _), (s_mixed, _), (s_again, _) = serve(one), serve(mixed), serve(mixed)
+        diffs = [close(a, b) for a, b in zip(s_mixed, s_one)]
+        replay = (again == got and all(torch.equal(a, b) for a, b in zip(leaves, leaves2))
+                  and all(torch.equal(host(a), host(b)) for a, b in zip(s_mixed, s_again)))
+        r = {"steps": got, "one_card": want, "loss_rel_diff": float(rel.max()),
+             "serve_max_abs_diff": max(diffs), "replay_equal": replay, "host_leaves": on_host,
+             "leaves": len(leaves)}
+        ok = rel.max() <= TP_MIXED_TOL and max(diffs) <= TP_MIXED_TOL and replay and on_host
+        if arch_id == "stablelm-1.6b":  # dense: its capacity does not depend on the data shards
+            s_rows, (replicas, n_leaves) = serve(rows)
+            r["rows_serve_max_abs_diff"] = max(close(a, b) for a, b in zip(s_rows, s_one))
+            r["rows_replica_leaves"] = [replicas, n_leaves]
+            ok = ok and r["rows_serve_max_abs_diff"] <= TP_MIXED_TOL and replicas == n_leaves
+        rec[arch_id] = r
+        if not ok:
+            raise AssertionError(f"{arch_id} on the card and the host: {r}")
+    return rec
+
+
+def tp_phase(dev, smi: str) -> dict:
+    """The LM's tensor parallelism and FSDP (see the module docstring);
+    each cut listed under ``reduced``. No kernel runs on this path: the
+    counts are read around the phase and must stay at 0."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    meshes = tp_meshes(dev)
+    reset_counts()
+    report = {"qwen": tp_qwen(meshes)}
+    q = report["qwen"]
+    one, tp = q["1x1"], q[f"1x{TP_SHARDS}"]
+    log(f"tp: qwen1.5-32b ({q['layers']} layers, {q['weight_bytes'] / 1e9:.2f} GB bf16) prefill B "
+        f"{TP_PREFILL['global_batch']} x S {TP_PREFILL['seq_len']}: (1, {TP_SHARDS}) "
+        f"{tp['prefill_ms']:.1f} ms against (1, 1) {one['prefill_ms']:.1f} ms; decode B "
+        f"{TP_DECODE['global_batch']} on {TP_DECODE['seq_len']} rows, ms per step bf16 "
+        f"{[round(x, 2) for x in tp['decode_bf16_ms']]} against "
+        f"{[round(x, 2) for x in one['decode_bf16_ms']]}, int8 "
+        f"{[round(x, 2) for x in tp['decode_int8_ms']]} against "
+        f"{[round(x, 2) for x in one['decode_int8_ms']]}; peak {tp['peak_bytes'] / 1e9:.2f} "
+        f"against {one['peak_bytes'] / 1e9:.2f} GB ({smi})")
+    log("tp: qwen (1, 4) against (1, 1): " + ", ".join(
+        f"{k} cosine {c['cosine']:.6f} top-1 {c['top1']:.3f} ({c['flips_outside_ties']} "
+        "flips outside near-ties)" for k, c in q["checks"].items())
+        + "; least kv-head cosine "
+        + ", ".join(f"{k} {min(v.values()):.6f}" for k, v in q["head_cosine_min"].items()))
+    report["train"] = tr = tp_train(meshes)
+    runs, one = tr["2x2"], tr["1x1"]
+    log(f"tp: stablelm-1.6b train B {TP_TRAIN['global_batch']} x S {TP_TRAIN['seq_len']} on "
+        f"(2, 2) (FSDP x TP, n_micro {tr['n_micro']['2x2']}): steps {runs[0]['metrics']}, ms "
+        f"{[round(x, 1) for x in runs[0]['step_ms']]}, peak {runs[0]['peak_bytes'] / 1e9:.2f} "
+        f"GB; (1, 1) first step loss {one['loss']:.6f} grad norm {one['grad_norm']:.6f}, "
+        f"{one['ms']:.1f} ms, peak {one['peak_bytes'] / 1e9:.2f} GB; rel diff "
+        f"{tr['rel_diff']}; the first step again from the seed differs in "
+        f"{runs[1]['differing']} elements of {runs[0]['blocks']} blocks ({smi})")
+    report["mixed"] = mx = tp_mixed(dev)
+    for arch_id, r in mx.items():
+        log(f"tp: {arch_id} reduced, float32, on a (1, 2) mesh of the card and the host: train "
+            f"{r['steps']} against the card's (1, 1) {r['one_card']} (loss rel diff "
+            f"{r['loss_rel_diff']:.2e}); prefill and decode max abs diff "
+            f"{r['serve_max_abs_diff']:.2e}; replays equal to the bit ({r['host_leaves']} of "
+            f"{r['leaves']} parameter blocks on the host)"
+            + (f"; on a (2, 1) mesh of the card and the host, prefill and decode max abs diff "
+               f"{r['rows_serve_max_abs_diff']:.2e}, {r['rows_replica_leaves'][0]} of "
+               f"{r['rows_replica_leaves'][1]} weights a replica per data shard"
+               if "rows_replica_leaves" in r else ""))
+    report["launches"] = {k: v for k, v in read_counts().items() if v}
+    if report["launches"]:
+        raise AssertionError(f"tp: the LM path launched {report['launches']}")
+    report["reduced"] = [
+        {"what": "qwen1.5-32b", "cut": f"{TP_QWEN_LAYERS} of 64 layers; prefill B "
+                                       f"{TP_PREFILL['global_batch']} x S {TP_PREFILL['seq_len']},"
+                                       f" decode B {TP_DECODE['global_batch']} on "
+                                       f"{TP_DECODE['seq_len']} rows",
+         "why": "64 layers are 70.4 GB of bf16 weights, over the card's 76 GB with a cache; "
+                "the (1, 1) step it is held to must fit the same card"},
+        {"what": "stablelm-1.6b train_4k on (2, 2)", "cut": f"B {TP_TRAIN['global_batch']} "
+                                                            "(the train phase's B 8 halved)",
+         "why": "one card holds all four shards: at B 8, one microbatch of 8, the (2, 2) step "
+                "peaked at 70.28 GB, over a 70 GB margin under the 76 GB limit"},
+        {"what": "the (1, 2) mesh of the card and the host", "cut": "reduced configs, float32",
+         "why": "the host's share of a full-width step would take minutes"}]
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"tp: phase {report['seconds']:.1f} s; no kernel launched; reduced: "
         + "; ".join(f"{r['what']}: {r['cut']}" for r in report["reduced"]))
     return report
 
@@ -4086,6 +4549,7 @@ def main() -> int:
     search = search_phase(dev)
     multi = multidevice_phase(dev, train, gnn, stream_batches)
     del stream_batches
+    tp = tp_phase(dev, smi)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -4185,7 +4649,7 @@ def main() -> int:
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
              "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models,
-             "train": train, "gnn": gnn, "search": search, "multidevice": multi},
+             "train": train, "gnn": gnn, "search": search, "multidevice": multi, "tp": tp},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

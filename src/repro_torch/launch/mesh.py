@@ -75,12 +75,20 @@ class Mesh:
         return out
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means (``cuda:<current>``), so a mesh's
+    entries compare equal to its tensors' devices."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def make_mesh(shape: tuple, axes: tuple, devices=None) -> Mesh:
     """A mesh of ``shape`` named ``axes``. With ``devices=None`` it takes
     the first ``prod(shape)`` visible cards and raises when there are
     fewer; otherwise ``devices`` (any sequence of ``prod(shape)`` device
     names or ``torch.device`` entries, repeats allowed) fills the mesh in
-    row-major order."""
+    row-major order (``cuda`` taken as the current card)."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     if devices is None:
@@ -91,7 +99,7 @@ def make_mesh(shape: tuple, axes: tuple, devices=None) -> Mesh:
                 "visible; pass devices= to place several shards on one "
                 "device or to build a CPU mesh")
         devices = [torch.device("cuda", i) for i in range(n)]
-    devices = [torch.device(d) for d in devices]
+    devices = [_indexed(torch.device(d)) for d in devices]
     if len(devices) != n:
         raise ValueError(f"a mesh of shape {shape} takes {n} devices, "
                          f"got {len(devices)}")

@@ -13,16 +13,23 @@ outputs come back. The port has no sharding annotations; each family
 places its work on the mesh (``launch/mesh.py``, one process driving
 every device):
 
-* LM: the whole step on one device. The MoE capacity dispatch runs once
-  per data shard and its experts over the model axis (expert
-  parallelism), the microbatch rule divides by the data shards. A mesh
-  over several distinct devices raises: the dense layers' tensor
-  parallelism and FSDP come with the LM tensor-parallel slice.
+* LM: Megatron tensor parallelism over the model axis and, for
+  training, FSDP over the data axis, as the reference's
+  ``param_pspecs``/``fsdpify`` place them (``transformer.py`` names the
+  departures). :func:`place_params` keeps each split leaf as a
+  ``Sharded`` grid of blocks, block (i, j) on ``grid[i, j]`` (FSDP blocks
+  on the first pod's data rows); the step gathers a layer's blocks inside
+  the layer (``parallel.gather_blocks``), runs each model shard's heads,
+  ``d_ff`` columns or experts on its device, and adds the partials on
+  each data shard's first device. Serving keeps the weights TP-split, a
+  replica per data shard where their devices differ, the decode cache
+  per ``cache_pspecs``. A mesh of one shard runs the one-device path.
+  The microbatch rule divides by the data shards.
 * GNN: the unbatched loss with its edges sharded over every mesh axis
   (the reference's ``all_axes``), the batched (molecule) loss with its
   graphs split over the data axes.
 * recsys: each table that the reference row-shards over the model axis
-  (``recsys.row_sharded``) is a ``ShardedRows``, block r on the model
+  (``recsys.row_sharded``) is a ``Sharded``, block r on the model
   column r's first device (row views of one table where that is one
   device), replicated over the data shards inside the step; the towers
   and the batch on the lead device. Retrieval splits its candidates over
@@ -58,7 +65,7 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.recsys_archs import N_NEG
 from repro_torch.kernels.common import SENTINEL
 from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
-from repro_torch.parallel import ShardedRows
+from repro_torch.parallel import Sharded
 from repro_torch.models import gnn, n_params, recsys, transformer, value_and_grad
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -66,7 +73,6 @@ F32 = torch.float32
 I32 = torch.int32
 META = torch.device("meta")
 NP_INTS = {torch.int32: np.int32, torch.int8: np.int8}
-LM_TP_SLICE = "the LM tensor-parallel slice"
 SEARCH_MODES = ("", "offsets", "delta")  # REPRO_SEARCH_COMPRESSED
 
 
@@ -81,15 +87,61 @@ def _abstract(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-def _lm_device(mesh) -> torch.device:
-    """The one device an LM step runs on; a mesh over several distinct
-    devices needs the dense layers' tensor parallelism."""
-    devices = mesh.unique_devices()
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"an LM step over {len(devices)} distinct devices (Megatron tensor parallelism "
-            f"of the dense layers, FSDP) comes with {LM_TP_SLICE}")
-    return devices[0]
+def fsdpify(pspecs, abstract_params, mesh, axis="data"):
+    """The reference's FSDP rule: ``axis`` on the first free dimension of
+    each leaf that it divides (skipping the stacked layer axis of a leaf
+    under ``layers`` or ``blocks``). ``mesh`` is anything whose ``shape``
+    maps axis names to sizes."""
+    fs = mesh.shape.get(axis, 1)
+    if fs == 1:
+        return pspecs
+
+    def walk(spec, arr, names):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], arr[k], names + (k,)) for k in spec}
+        shape = tuple(arr.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        for i in range(1 if "layers" in names or "blocks" in names else 0, len(shape)):
+            if parts[i] is None and shape[i] % fs == 0 and shape[i] >= fs:
+                parts[i] = axis
+                break
+        return tuple(parts)
+
+    return walk(pspecs, abstract_params, ())
+
+
+def _axis_of(spec, name: str):
+    hits = [i for i, e in enumerate(spec) if e == name or (isinstance(e, tuple) and name in e)]
+    return hits[0] if hits else None
+
+
+def place_leaf(x: torch.Tensor, spec: tuple, mesh, replicas: bool = False):
+    """``x`` placed per its spec on the mesh: split over the first pod's
+    data rows along its ``data`` axis and over the model columns along
+    its ``model`` axis, each block a contiguous tensor on its grid device
+    (a ``Sharded``). A leaf not split over the data rows is kept on the
+    first one, or with ``replicas`` (serving) once per data shard where
+    the data shards' devices differ, so that no step copies weights
+    between them; a leaf kept in one block stays whole on the lead
+    device."""
+    grid = mesh.grid()
+    axes = (_axis_of(spec, "data"), _axis_of(spec, "model"))
+    cols = grid.shape[1] if axes[1] is not None else 1
+    if axes[0] is not None:
+        rows = mesh.shape.get("data", 1)
+    elif replicas and (grid[:, :cols] != grid[:1, :cols]).any():
+        rows = grid.shape[0]
+    else:
+        rows = 1
+    if rows == cols == 1:
+        return x.to(grid[0, 0])
+    return Sharded.split(x, grid[:rows, :cols], axes)
+
+
+def _place_tree(tree, specs, mesh, replicas: bool):
+    if isinstance(tree, dict):
+        return {k: _place_tree(v, specs[k], mesh, replicas) for k, v in tree.items()}
+    return place_leaf(tree, specs, mesh, replicas)
 
 
 # ==========================================================================
@@ -115,14 +167,19 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
     dims = shape.dims
     B, S = dims["global_batch"], dims["seq_len"]
     meta = {
+        "cfg": cfg,
         "model_params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "n_layers": cfg.n_layers,
         "tokens": B * S if shape.kind != "decode" else B,
-        "device": _lm_device(mesh),
+        "device": mesh.lead,
+        "mesh": mesh,
+        "devices": [str(d) for d in mesh.grid().flat],
+        "kind": shape.kind,
     }
     if shape.kind == "train":
         params_abs = transformer.init_params(cfg, device=META)
+        meta["pspecs"] = fsdpify(transformer.param_pspecs(cfg, tp), params_abs, mesh)
         # reduced (smoke/example) configs train faster with a higher LR
         opt_cfg = AdamWConfig(lr=1e-3) if cfg.d_model <= 128 else AdamWConfig()
         # microbatching: bound the remat residual stack (L x Bmicro x S x D
@@ -150,6 +207,7 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
 
     # serving: bf16 params (production serving never keeps f32 masters)
     params_abs = transformer.init_params(cfg, device=META, dtype=torch.bfloat16)
+    meta["pspecs"] = transformer.param_pspecs(cfg, tp)
     if shape.kind == "prefill":
         def step(params, tokens):
             return transformer.prefill(cfg, params, tokens, mesh, dp_ax)
@@ -160,6 +218,7 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
     kv_int8 = os.environ.get("REPRO_KV_INT8", "0") == "1"
     meta["kv_cache"] = "int8" if kv_int8 else "bf16"
     cache_abs = transformer.init_cache(cfg, B, S, quantized=kv_int8, device=META)
+    meta["cache_pspecs"] = transformer.cache_pspecs(cfg, tp, dp_ax, seq_len=S, quantized=kv_int8)
 
     def step(params, token, caches, position):
         return transformer.decode_step(cfg, params, token, caches, position, mesh, dp_ax)
@@ -284,17 +343,42 @@ def _sharded_tables(params_abs, tp: int) -> tuple:
 
 
 def place_params(built: BuiltStep, params):
-    """A recsys step's parameters where it expects them: each table it
-    keeps row-sharded as a ``ShardedRows`` over the model columns' first
-    devices (row views of the table where that device is the table's, so
-    a mesh of one device copies nothing). Other families' parameters pass
-    through."""
+    """A step's parameters where it expects them. An LM's, per the step's
+    ``meta["pspecs"]`` (:func:`place_leaf`; serving with a replica per
+    data shard): on a mesh of one device a split leaf's column blocks are
+    contiguous copies, its row blocks too.
+    A recsys step's tables that it keeps row-sharded, as a ``Sharded``
+    over the model columns' first devices (row views of the table where
+    that device is the table's, so a mesh of one device copies nothing).
+    Other families' parameters pass through."""
+    if "pspecs" in built.meta:
+        return _place_tree(params, built.meta["pspecs"], built.meta["mesh"],
+                           replicas=built.meta["kind"] != "train")
     names = built.meta.get("sharded_tables", ())
     if not names:
         return params
     columns = list(built.meta["mesh"].grid()[0])
-    return {k: ShardedRows.of(v, columns) if k in names and isinstance(v, torch.Tensor) else v
+    return {k: Sharded.of(v, columns) if k in names and isinstance(v, torch.Tensor) else v
             for k, v in params.items()}
+
+
+def place_caches(built: BuiltStep, caches: dict) -> dict:
+    """A decode step's whole caches per its ``meta["cache_pspecs"]``: block
+    (d, r) of each a contiguous tensor on ``grid[d, r]``, data shard d's
+    batch rows and the kv heads model shard r's q heads read (shared kv
+    heads copied into each shard that reads them); whole tensors on the
+    lead device of a (1, 1) grid."""
+    mesh = built.meta["mesh"]
+    grid = mesh.grid()
+    spec = built.meta["cache_pspecs"]["k"]
+    cols = grid.shape[1] if spec[3] == "model" else 1
+    if grid.shape[0] == cols == 1:
+        return {k: v.to(grid[0, 0]) for k, v in caches.items()}
+    spans = None
+    if cols > 1:
+        spans = transformer.head_spans(built.meta["cfg"], cols)[1]
+    return {k: Sharded.split(v, grid[:, :cols], (1, 3 if cols > 1 else None), spans)
+            for k, v in caches.items()}
 
 
 def _recsys_batch(cfg, arch_kind: str, kind: str, dims: dict) -> dict:
@@ -491,7 +575,8 @@ def materialize_inputs(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: 
     train = arch.shapes[shape_name].kind == "train"
     if arch.family == "lm":
         dtype = torch.float32 if train else torch.bfloat16
-        params = transformer.init_params(cfg, seed, device=device, dtype=dtype)
+        params = place_params(built, transformer.init_params(built.meta["cfg"], seed,
+                                                             device=device, dtype=dtype))
     elif arch.family == "recsys":
         params = place_params(built, _INITS[_arch_kind(cfg)](cfg, seed, device=device))
     elif arch.family == "gnn":
@@ -500,4 +585,7 @@ def materialize_inputs(arch: ArchSpec, shape_name: str, built: BuiltStep, seed: 
     else:  # search: the posting arrays only
         return materialize_batch(arch, shape_name, built, seed)
     state = (params, init_opt_state(params)) if train else (params,)
-    return state + materialize_batch(arch, shape_name, built, seed)
+    batch = materialize_batch(arch, shape_name, built, seed)
+    if "cache_pspecs" in built.meta:  # decode: token, caches, position
+        batch = (batch[0], place_caches(built, batch[1]), batch[2])
+    return state + batch

@@ -1,7 +1,10 @@
 """Training driver (the reference's ``launch/train.py``): real steps on a
 (1, 1) mesh of one device, supervised by the fault-tolerance layer
 (checkpoint/restart, straggler detection). The card is the default;
-``--device cpu`` runs on the host.
+``--device cpu`` runs on the host. :func:`train_arch` also takes a
+``mesh_shape`` (FSDP over its data shards, tensor parallelism over its
+model shards, every entry the one device); a checkpoint holds each
+sharded parameter whole, so a run restores on any mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 5 [--device cpu|cuda]
 

@@ -12,11 +12,13 @@ the same numbers.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.parallel import ShardedRows
+from repro_torch.parallel import Sharded
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -85,19 +87,28 @@ def carry_params(tree, *, device=None, dtype=None):
     return carry(tree)
 
 
+def _drop_lead_axis(axes: tuple) -> tuple:
+    return tuple(None if a is None else a - 1 for a in axes)
+
+
 def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter (or cache) tree: a view of each
-    leaf's first axis, so writes into it land in the stacked tensor."""
+    leaf's first axis (of each block's, for a ``Sharded`` leaf), so writes
+    into it land in the stacked tensor."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return Sharded([s[i] for s in tree.shards], tree.grid, _drop_lead_axis(tree.axes),
+                       tree.spans)
     return tree[i]
 
 
 def tree_leaves(tree) -> list:
     """The leaves of a tree of dicts, lists and tuples in the reference's
     ``jax.tree.leaves`` order: dict keys sorted, sequences by index, None
-    an empty subtree; a :class:`ShardedRows` gives its shards in order."""
-    if isinstance(tree, ShardedRows):
+    an empty subtree; a :class:`~repro_torch.parallel.Sharded` gives its
+    blocks in grid order."""
+    if isinstance(tree, Sharded):
         return list(tree.shards)
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
@@ -109,8 +120,9 @@ def tree_leaves(tree) -> list:
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
     ``rest``), keeping the nesting."""
-    if isinstance(tree, ShardedRows):
-        return ShardedRows([fn(s, *(r.shards[i] for r in rest)) for i, s in enumerate(tree.shards)])
+    if isinstance(tree, Sharded):
+        return replace(tree, shards=[fn(s, *(r.shards[i] for r in rest))
+                                     for i, s in enumerate(tree.shards)])
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -127,8 +139,8 @@ def tree_unflatten(tree, leaves):
 def _build(node, it):
     # a module-level recursion: a recursive closure would be a reference
     # cycle holding ``it``, and with it every leaf, until the cyclic GC runs
-    if isinstance(node, ShardedRows):
-        return ShardedRows([next(it) for _ in node.shards])
+    if isinstance(node, Sharded):
+        return replace(node, shards=[next(it) for _ in node.shards])
     if isinstance(node, dict):
         out = {k: _build(node[k], it) for k in sorted(node)}
         return {k: out[k] for k in node}
@@ -162,6 +174,11 @@ def unstack(tree, n: int) -> list:
     if isinstance(tree, dict):
         per_key = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, Sharded):
+        per_block = [torch.unbind(s, 0) for s in tree.shards]
+        axes = _drop_lead_axis(tree.axes)
+        return [Sharded([b[i] for b in per_block], tree.grid, axes, tree.spans)
+                for i in range(n)]
     return list(torch.unbind(tree, 0))
 
 
@@ -179,7 +196,7 @@ def remat(fn, *args):
 
 
 def n_params(tree) -> int:
-    if isinstance(tree, ShardedRows):
+    if isinstance(tree, Sharded):
         return tree.numel()
     if isinstance(tree, dict):
         return sum(n_params(v) for v in tree.values())

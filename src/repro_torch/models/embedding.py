@@ -17,7 +17,7 @@ The row-sharded lookups (``sharded_embedding_lookup``,
 ``sharded_embedding_bag``) are the reference's ``shard_map``s on the
 port's single-controller mesh (``launch/mesh.py``, with the collectives
 of ``parallel.py``): the table's rows are ``tp`` contiguous blocks over
-the model axis, a :class:`ShardedRows` (one leaf per block, on the model
+the model axis, a :class:`Sharded` (one leaf per block, on the model
 column's first device) or a plain tensor split by ``split_rows``. Shard ``(d, r)`` of the mesh's (data,
 model) grid takes data shard d's ids and block r (``replicate``d over the
 data shards), looks up or bags the ids it owns, and ``sum_to_lead`` adds
@@ -35,7 +35,7 @@ import math
 import torch
 
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.parallel import ShardedRows, replicate, split_rows, sum_to_lead
+from repro_torch.parallel import Sharded, replicate, split_rows, sum_to_lead
 
 
 def embedding_lookup(table, ids):
@@ -116,7 +116,7 @@ def _table_blocks(table, mesh, tp_axis: str) -> list:
     tp = mesh.shape[tp_axis]
     if table.shape[0] % tp:
         raise ValueError(f"{table.shape[0]} table rows do not split over {tp} shards")
-    if isinstance(table, ShardedRows):
+    if isinstance(table, Sharded):
         if len(table.shards) != tp:
             raise ValueError(f"a table in {len(table.shards)} shards on a model axis of {tp}")
         return list(table.shards)
@@ -143,6 +143,16 @@ def _sharded(per_shard, table, ids, mesh, tp_axis, dp_axes, ids_pspec, *others):
             parts.append(per_shard(per_data[r][d], ids_d.to(dev), *moved, r, rows))
         outs.append(sum_to_lead(parts, mesh.lead))
     return outs[0] if axis is None else torch.cat(outs, dim=axis)
+
+
+def lookup_row(blocks, ids, lead):
+    """One data shard's lookup of ``ids`` over its row of table blocks
+    (block r holds rows [r R, (r + 1) R) on its own device): each block
+    gathers the ids it owns, zeros elsewhere, and ``sum_to_lead`` adds the
+    partials on ``lead`` in rank order, so each row is its one owner's."""
+    rows = blocks[0].shape[0]
+    return sum_to_lead([_local_lookup(b, ids.to(b.device), r, rows)
+                        for r, b in enumerate(blocks)], lead)
 
 
 def sharded_embedding_lookup(table, ids, mesh, tp_axis="model", dp_axes=("data",),

@@ -12,9 +12,10 @@ experts are split over the ranks (expert parallelism, the reference's
 dispatch for them on its device at the same capacity, and the ranks'
 partial outputs are added in rank order on the lead device
 (``parallel.py`` ``sum_to_lead``, the reference's psum). Each (data,
-model) shard runs on its own device of the mesh's grid; the router and
-the tokens reach it through ``replicate`` and the experts through
-``split_rows``, so every gradient across shards is added in shard order.
+model) shard runs on its own device of the mesh's grid; the tokens reach
+it through ``replicate`` and the router and its experts through the
+step's ``parallel.MeshPlan``, so every gradient across shards is added in
+shard order.
 
 The gates' top-k is a stable descending sort, so the lower expert comes
 first among equal probabilities, as ``lax.top_k`` orders them.
@@ -22,14 +23,13 @@ first among equal probabilities, as ``lax.top_k`` orders them.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel import replicate, split_rows, sum_to_lead
+from repro_torch.parallel import replicate, sum_to_lead
 from repro_torch.models import normal
 
 
@@ -116,43 +116,39 @@ def _local_moe(p, x, *, cfg: MoEConfig, n_local_experts: int, expert_offset: int
     return y, aux
 
 
-def moe_block(p, x, *, cfg: MoEConfig, mesh, dp_axes: tuple, tp_axis: str = "model"):
-    """x: (B, S, D) -> (y, aux) through capacity dispatch, one dispatch
-    per data shard of the mesh (its aux averaged over them), each over
-    the experts of every rank of ``tp_axis`` (see the module docstring).
-    The result is on the mesh's lead device."""
-    B, S, D = x.shape
-    tp = mesh.shape[tp_axis]
+def moe_capacity(cfg: MoEConfig, t_local: int) -> int:
+    """Slots per expert for a data shard of ``t_local`` tokens (GShard)."""
+    return max(int(np.ceil(t_local * cfg.top_k * cfg.capacity_factor / cfg.n_experts)), 1)
+
+
+def moe_block(p, xs, *, cfg: MoEConfig, plan):
+    """Capacity dispatch over ``plan`` (a ``parallel.MeshPlan``): ``xs[d]``
+    (B_d, S, D) is data shard d's residual on its lead device, as the
+    tensor-parallel block leaves it. Rank r of each row runs experts
+    [r E/tp, (r+1) E/tp) with the router and its block of ``p`` on its
+    device, at the data shard's own capacity -> (each data shard's y on
+    its lead device, the aux loss averaged over the data shards on the
+    mesh's lead device)."""
+    tp = plan.tp
     if cfg.n_experts % tp:
         raise ValueError(f"{cfg.n_experts} experts do not split over {tp} ranks")
     n_local = cfg.n_experts // tp
-    dp = math.prod(mesh.shape[a] for a in dp_axes)
-    if B % dp:
-        raise ValueError(f"batch {B} does not split over {dp} data shards")
-    t_local = (B // dp) * S
-    capacity = int(np.ceil(t_local * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
-    capacity = max(capacity, 1)
-    grid = mesh.grid()
-    if len(mesh.unique_devices()) == 1:  # every shard where x is: views, no copies
-        grid = np.full(grid.shape, x.device, dtype=object)
-    experts = {k: split_rows(p[k], list(grid[0])) for k in ("w_gate", "w_up", "w_down")}
-    experts = {k: [replicate(b, list(grid[:dp, r])) for r, b in enumerate(v)]
-               for k, v in experts.items()}
-    routers = replicate(p["router"], [grid[d, r] for d in range(dp) for r in range(tp)])
-    lead = grid[0, 0]
+    spans = [(r * n_local, (r + 1) * n_local) for r in range(tp)]
+    rows = plan.tree_views(p, tp, {k: (0, spans, 1) for k in ("w_gate", "w_up", "w_down")})
     ys, auxes = [], []
-    for d, x_d in enumerate(x.reshape(dp, B // dp, S, D)):
-        xs = replicate(x_d.reshape(-1, D), list(grid[d, :tp]))
+    for d, x in enumerate(xs):
+        B, S, D = x.shape
+        capacity = moe_capacity(cfg, B * S)
         parts = []
-        for r in range(tp):
-            p_r = {"router": routers[d * tp + r], **{k: v[r][d] for k, v in experts.items()}}
-            y, aux = _local_moe(p_r, xs[r], cfg=cfg, n_local_experts=n_local,
+        for r, (p_r, x_r) in enumerate(zip(rows[d], replicate(x.reshape(B * S, D),
+                                                              plan.row(d, tp)))):
+            y, aux = _local_moe(p_r, x_r, cfg=cfg, n_local_experts=n_local,
                                 expert_offset=r * n_local, capacity=capacity)
             parts.append(y)
             if r == 0:  # every rank routes the same tokens: rank 0's aux is the shard's
-                auxes.append(aux.to(lead))
-        ys.append(sum_to_lead(parts, lead).reshape(B // dp, S, D))
-    return torch.cat(ys), torch.stack(auxes).mean()
+                auxes.append(aux.to(plan.mesh_lead))
+        ys.append(sum_to_lead(parts, plan.lead(d)).reshape(B, S, D))
+    return ys, torch.stack(auxes).mean()
 
 
 def moe_block_dense_ref(p, x, *, cfg: MoEConfig):

@@ -6,7 +6,7 @@ With a mesh whose model axis is larger than 1, the lookups of a table
 whose rows split over it are row-sharded
 (:func:`repro_torch.models.embedding.sharded_embedding_lookup`), as the
 reference's ``_lookup`` shards them; a table may come as a plain tensor
-or as the :class:`ShardedRows` that the built steps place
+or as the :class:`Sharded` that the built steps place
 (:func:`row_sharded`, the reference's ``_recsys_param_pspecs`` rule).
 The two-tower user tower reduces its history with the port's
 embedding-bag kernel on a card, forward and backward: unsharded through
@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel import ShardedRows
+from repro_torch.parallel import Sharded
 from repro_torch.models import layer_slice, make_generator, model_device, normal
 from repro_torch.models.embedding import (
     embedding_bag_sum,
@@ -63,7 +63,7 @@ def _tp(mesh) -> int:
 def _lookup(table, ids, mesh, dp_axes, ids_pspec=None):
     """The reference's ``_lookup``: sharded over the model axis when it is
     larger than 1 and divides the rows."""
-    if isinstance(table, ShardedRows) or (_tp(mesh) > 1 and table.shape[0] % _tp(mesh) == 0):
+    if isinstance(table, Sharded) or (_tp(mesh) > 1 and table.shape[0] % _tp(mesh) == 0):
         return sharded_embedding_lookup(table, ids, mesh, dp_axes=dp_axes, ids_pspec=ids_pspec)
     return embedding_lookup(table, ids)
 
@@ -285,7 +285,7 @@ def twotower_user(cfg, params, batch, mesh=None, dp_axes=("data",), bag_pspec=No
     1, whose size must divide the rows) and the user features -> (B, D),
     unit norm."""
     table = params["item_emb"]
-    if isinstance(table, ShardedRows) or _tp(mesh) > 1:
+    if isinstance(table, Sharded) or _tp(mesh) > 1:
         hist = sharded_embedding_bag(table, batch["hist"], mesh, dp_axes=dp_axes,
                                      ids_pspec=bag_pspec)
     else:
@@ -322,7 +322,7 @@ def twotower_retrieve(cfg: TwoTowerConfig, params, batch, top_k: int = 100,
     """One query against a large candidate set: the item tower over every
     candidate, then a (1, C) score vector and its top-k."""
     u = twotower_user(cfg, params, batch, mesh, dp_axes, bag_pspec=(None, None))  # (1, D)
-    if isinstance(params["item_emb"], ShardedRows) or _tp(mesh) > 1:
+    if isinstance(params["item_emb"], Sharded) or _tp(mesh) > 1:
         ei, ec = (sharded_embedding_lookup(params[name], batch[ids], mesh, dp_axes=dp_axes,
                                            ids_pspec=cand_pspec)
                   for name, ids in (("item_emb", "cand_items"), ("cate_emb", "cand_cates")))

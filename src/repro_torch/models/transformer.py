@@ -16,13 +16,30 @@ under ``torch.utils.checkpoint`` where the reference wraps its scan body
 in ``jax.checkpoint`` (the chunked attention also checkpoints its inner
 block), so the backward holds one layer's intermediates at a time.
 
-The reference's sharding rules (``param_pspecs``, ``cache_pspecs``,
-``_constrain``) only place arrays on a JAX mesh and have no counterpart
-here, and neither has ``_opt_barrier`` (an identity with an identity
-gradient that pins XLA's scheduling). ``decode_step`` writes into the
-caches it is given and returns them: the reference's step donates its
-caches, and a full-width cache (26 GB at 32k tokens) leaves no room for a
-second copy.
+Over a mesh (``launch/mesh.py``, one process driving every device) of
+more than one (data, model) shard the entry points run Megatron tensor
+parallelism (a mesh of one shard runs the one-device path):
+:func:`param_pspecs` and :func:`cache_pspecs` are the reference's
+placement rules (departures named there), a data shard's residual stream
+stays on its first device, and each layer's model shards run on their
+devices: attention by whole q heads with the kv heads they read (shared
+where ``n_kv % tp != 0``), the MLP by ``d_ff`` columns, MoE experts
+expert-parallel (``moe.moe_block``); their partials meet through
+``parallel.sum_to_lead`` in shard order. The embedding is vocab-sharded
+(``embedding.lookup_row``) and the loss vocab-parallel
+(:func:`_token_losses`): no device holds the whole (B, S, V) float32
+logits. A parameter is a tensor or a ``parallel.Sharded`` grid of blocks
+(FSDP rows over the data shards or serving's replicas, TP columns),
+which ``parallel.MeshPlan`` hands to each shard, gathered inside the
+layer that uses it (``parallel.gather_blocks``, under the layer's
+remat), so every sum across shards, forward and backward, has one fixed
+order and a sharded train step replays bit for bit. The reference's
+``_constrain`` (activation placement for GSPMD) and ``_opt_barrier`` (an
+identity with an identity gradient that pins XLA's scheduling) have no
+counterpart.
+``decode_step`` writes into the caches it is given and returns them: the
+reference's step donates its caches, and a full-width cache (26 GB at
+32k tokens) leaves no room for a second copy.
 """
 
 from __future__ import annotations
@@ -52,7 +69,9 @@ from repro_torch.models.layers import (
     init_norm,
     mlp_block,
 )
+from repro_torch.models.embedding import lookup_row
 from repro_torch.models.moe import MoEConfig, init_moe, moe_block, moe_block_dense_ref
+from repro_torch.parallel import MeshPlan, Sharded, replicate, sum_to_lead
 
 
 @dataclass(frozen=True)
@@ -153,9 +172,103 @@ def init_params(cfg: TransformerConfig, generator=0, *, device=None, dtype=torch
 
 
 # --------------------------------------------------------------------------
-# forward passes
+# sharding rules (Megatron TP over `model`; FSDP over `data`, launch/steps.py)
 # --------------------------------------------------------------------------
-def _block(cfg: TransformerConfig, mesh, dp_axes):
+def attention_splits(cfg: TransformerConfig, tp: int) -> bool:
+    """Whether attention splits over ``tp`` model shards: by whole q heads,
+    each shard's heads reading whole kv heads of their own or all reading
+    one kv head that several shards share."""
+    if cfg.n_heads % tp:
+        return False
+    h, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
+    return h % g == 0 or g % h == 0
+
+
+def head_spans(cfg: TransformerConfig, tp: int) -> tuple:
+    """([(first, stop) q heads], [(first, stop) kv heads]) of each of ``tp``
+    model shards, where attention splits: shard r's q heads and the kv
+    heads they read (shared where ``n_kv % tp != 0``)."""
+    h, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
+    q = [(r * h, (r + 1) * h) for r in range(tp)]
+    return q, [(a // g, (b - 1) // g + 1) for a, b in q]
+
+
+def param_pspecs(cfg: TransformerConfig, tp: int = 1, stacked: bool = True):
+    """The reference's placement rules, a tree like ``init_params`` of
+    tuples (a ``PartitionSpec``'s entries): ``"model"`` on the axis a leaf
+    splits over the model shards, None elsewhere.
+
+    Departures from the reference: attention splits by whole q heads
+    (:func:`attention_splits`), else not at all, where the reference
+    splits q columns whenever ``n_heads * d_head`` divides (Qwen's 40 heads
+    at tp 16); where q heads split but ``n_kv % tp != 0``, ``wk``/``wv``/
+    ``bk``/``bv`` are kept whole and each shard takes the kv heads its q
+    heads read, where the reference splits kv columns inside a head. The
+    outputs are the same."""
+    lead = (None,) if stacked else ()
+    m = "model"
+
+    def spec(*axes):
+        return lead + axes
+
+    q_shard = m if attention_splits(cfg, tp) else None
+    kv_shard = m if q_shard and cfg.n_kv % tp == 0 else None
+    ff_shard = m if cfg.d_ff % tp == 0 else None
+    attn = {"wq": spec(None, q_shard), "wk": spec(None, kv_shard),
+            "wv": spec(None, kv_shard), "wo": spec(q_shard, None)}
+    if cfg.qkv_bias:
+        attn.update(bq=spec(q_shard), bk=spec(kv_shard), bv=spec(kv_shard))
+    norm = {"scale": spec(None)}
+    if cfg.norm == "layernorm":
+        norm["bias"] = spec(None)
+    layer = {"ln1": dict(norm), "ln2": dict(norm), "attn": attn}
+    if cfg.moe is not None:
+        e_shard = m if cfg.moe.n_experts % tp == 0 else None
+        layer["moe"] = {"router": spec(None, None), "w_gate": spec(e_shard, None, None),
+                        "w_up": spec(e_shard, None, None), "w_down": spec(e_shard, None, None)}
+    else:
+        layer["mlp"] = {"w_gate": spec(None, ff_shard), "w_up": spec(None, ff_shard),
+                        "w_down": spec(ff_shard, None)}
+    v_shard = m if cfg.vocab_padded % tp == 0 else None
+    out = {"embed": (v_shard, None), "layers": layer,
+           "final_norm": {k: (None,) for k in norm}}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (None, v_shard)
+    return out
+
+
+def cache_pspecs(cfg: TransformerConfig, tp: int, dp_axes, seq_len: int | None = None,
+                 quantized: bool = False):
+    """The KV cache's placement, as the reference's tuples: the batch over
+    ``dp_axes`` and, where attention splits, the kv heads over the model
+    shards, one contiguous block per shard holding the kv heads its q
+    heads read. Departure: where ``n_kv % tp != 0`` shards that share a kv
+    head each hold it, and where attention does not split the cache is not
+    split over the model shards; the reference shards the sequence axis
+    there when ``seq_len`` divides (``seq_len`` is taken for its
+    signature)."""
+    dp = tuple(dp_axes) if not isinstance(dp_axes, str) else (dp_axes,)
+    dp = dp[0] if len(dp) == 1 else dp  # as a PartitionSpec normalises one name
+    s = (None, dp, None, "model" if attention_splits(cfg, tp) else None, None)
+    out = {"k": s, "v": s}
+    if quantized:
+        out["k_scale"] = out["v_scale"] = s[:-1]
+    return out
+
+
+# --------------------------------------------------------------------------
+# forward passes, one device
+# --------------------------------------------------------------------------
+def _one_device(mesh) -> bool:
+    """Whether a step over ``mesh`` runs the one-device path: no mesh, or
+    a grid of one (data, model) shard."""
+    return mesh is None or mesh.grid().shape == (1, 1)
+
+
+def _block(cfg: TransformerConfig, plan: MeshPlan | None = None):
+    """One layer on one device; an MoE layer by capacity dispatch over
+    ``plan`` (a mesh of one shard) where there is one, else through the
+    dense oracle."""
     def block(x, p_l, cache_l=None, position=0):
         h, new_cache = attention_block(
             p_l["attn"],
@@ -169,11 +282,10 @@ def _block(cfg: TransformerConfig, mesh, dp_axes):
         )
         x = x + h
         z = apply_norm(x, p_l["ln2"], cfg.norm)
-        if cfg.moe is not None:
-            if mesh is not None:
-                y, aux = moe_block(p_l["moe"], z, cfg=cfg.moe, mesh=mesh, dp_axes=dp_axes)
-            else:
-                y, aux = moe_block_dense_ref(p_l["moe"], z, cfg=cfg.moe), 0.0
+        if cfg.moe is not None and plan is not None:
+            (y,), aux = moe_block(p_l["moe"], [z], cfg=cfg.moe, plan=plan)
+        elif cfg.moe is not None:
+            y, aux = moe_block_dense_ref(p_l["moe"], z, cfg=cfg.moe), 0.0
         else:
             y, aux = mlp_block(p_l["mlp"], z), 0.0
         return x + y, new_cache, aux
@@ -193,11 +305,189 @@ def _logits(cfg: TransformerConfig, params, x):
     return x @ head.to(x.dtype)
 
 
+# --------------------------------------------------------------------------
+# forward passes over a mesh
+# --------------------------------------------------------------------------
+def _spans(n: int, parts: int) -> list:
+    return [(r * n // parts, (r + 1) * n // parts) for r in range(parts)]
+
+
+class _Plan(MeshPlan):
+    """An LM step's plan over the mesh: which layers split over the model
+    shards, and each shard's q and kv heads."""
+
+    def __init__(self, cfg: TransformerConfig, mesh, dp_axes):
+        super().__init__(mesh, dp_axes)
+        tp, dh = self.tp, cfg.head_dim
+        self.attn = tp > 1 and attention_splits(cfg, tp)
+        q, kv = head_spans(cfg, tp) if self.attn else ([(0, cfg.n_heads)], [(0, cfg.n_kv)])
+        self.q_heads, self.kv_heads = q, kv
+        self.attn_how = {"wq": (1, q, dh), "wk": (1, kv, dh), "wv": (1, kv, dh),
+                         "wo": (0, q, dh), "bq": (0, q, dh), "bk": (0, kv, dh),
+                         "bv": (0, kv, dh)}
+        self.ff = tp > 1 and cfg.moe is None and cfg.d_ff % tp == 0
+        self.vocab = tp > 1 and cfg.vocab_padded % tp == 0
+
+    def vocab_views(self, leaf, axis: int, cfg: TransformerConfig) -> list:
+        cols = self.tp if self.vocab else 1
+        return self.views(leaf, cols, axis, _spans(cfg.vocab_padded, cols) if cols > 1 else None)
+
+
+def _row_sum(parts, lead):
+    return parts[0] if len(parts) == 1 else sum_to_lead(parts, lead)
+
+
+def _row_copies(x, plan: _Plan, d: int, cols: int) -> list:
+    return [x] if cols == 1 else replicate(x, plan.row(d, cols))
+
+
+def _mesh_layer(cfg: TransformerConfig, plan: _Plan, p_l, xs, caches=None, position=0):
+    """One layer over the grid: ``xs[d]`` data shard d's residual on its
+    lead device; ``caches[d][r]`` shard (d, r)'s cache (or None) -> (the
+    new residuals, the layer's aux loss on the mesh's lead device (0.0
+    without MoE), the shards' new caches [d][r])."""
+    cols = plan.tp if plan.attn else 1
+    attn = plan.tree_views(p_l["attn"], cols, plan.attn_how)
+    ln1, ln2 = (plan.tree_views(p_l[k], 1, {}) for k in ("ln1", "ln2"))
+    hs, zs, new_caches = [], [], []
+    for d, x in enumerate(xs):
+        z = apply_norm(x, ln1[d][0], cfg.norm)
+        outs, cs = [], []
+        for r, z_r in enumerate(_row_copies(z, plan, d, cols)):
+            (qa, qb), (ka, kb) = plan.q_heads[r], plan.kv_heads[r]
+            h, c = attention_block(attn[d][r], z_r, n_heads=qb - qa, n_kv=kb - ka,
+                                   d_head=cfg.head_dim, rotary_pct=cfg.rotary_pct,
+                                   cache=None if caches is None else caches[d][r],
+                                   position=position)
+            outs.append(h)
+            cs.append(c)
+        new_caches.append(cs)
+        hs.append(x + _row_sum(outs, plan.lead(d)))
+        zs.append(apply_norm(hs[-1], ln2[d][0], cfg.norm))
+    if cfg.moe is not None:
+        ys, aux = moe_block(p_l["moe"], zs, cfg=cfg.moe, plan=plan)
+    else:
+        f = _spans(cfg.d_ff, plan.tp)
+        ffn = plan.tree_views(p_l["mlp"], plan.tp if plan.ff else 1,
+                              {"w_gate": (1, f, 1), "w_up": (1, f, 1), "w_down": (0, f, 1)})
+        ys = [_row_sum([mlp_block(p, z_r) for p, z_r in
+                        zip(ffn[d], _row_copies(z, plan, d, len(ffn[d])))], plan.lead(d))
+              for d, z in enumerate(zs)]
+        aux = 0.0
+    return [h + y for h, y in zip(hs, ys)], aux, new_caches
+
+
+def _mesh_embed(cfg: TransformerConfig, plan: _Plan, embed, tokens) -> list:
+    """Each data shard's token rows in the compute type, on its lead
+    device: over vocab blocks through ``embedding.lookup_row`` (non-owned
+    ids read row ``position mod rows``, so the backward's ``index_put_``
+    never adds a long run of one row)."""
+    dt = torch_dtype(cfg.dtype)
+    xs = []
+    for d, ids in enumerate(plan.split_batch(tokens)):
+        row = embed[d]
+        x = row[0][ids.long()] if len(row) == 1 else lookup_row(row, ids, plan.lead(d))
+        xs.append(x.to(dt))
+    return xs
+
+
+def _head(params, plan: _Plan, cfg: TransformerConfig, embed):
+    """The vocab blocks of the head, [d][r]: an untied ``lm_head``'s
+    column blocks, or the tied embedding's row blocks (``embed``, the
+    views the lookup took, so both uses' gradients meet in one gather)."""
+    if "lm_head" in params:
+        return plan.vocab_views(params["lm_head"], 1, cfg), False
+    return embed, True
+
+
+def _head_parts(cfg, plan: _Plan, d: int, x, final, head, tied) -> list:
+    """Data shard d's logits, one (..., V / tp) part per vocab shard on
+    its device."""
+    x = apply_norm(x, final[d][0], cfg.norm)
+    row = head[d]
+    return [x_r @ (w.T if tied else w).to(x.dtype)
+            for x_r, w in zip(_row_copies(x, plan, d, len(row)), row)]
+
+
+def _mesh_forward(cfg: TransformerConfig, params, tokens, mesh, dp_axes):
+    """The train forward over the mesh -> (plan, each data shard's logits
+    parts, the mean aux loss over layers). With ``cfg.remat`` each layer,
+    its weights' gather included, runs under ``torch.utils.checkpoint``,
+    so the backward holds one layer's gathered weights at a time."""
+    plan = _Plan(cfg, mesh, dp_axes)
+    embed = plan.vocab_views(params["embed"], 0, cfg)
+    xs = _mesh_embed(cfg, plan, embed, tokens)
+
+    def layer(p_l, *xs):
+        out, aux, _ = _mesh_layer(cfg, plan, p_l, xs)
+        return (*out, aux)
+
+    aux = torch.zeros((), dtype=torch.float32, device=plan.mesh_lead)
+    for p_l in unstack(params["layers"], cfg.n_layers):
+        *xs, a = remat(layer, p_l, *xs) if cfg.remat else layer(p_l, *xs)
+        aux = aux + a
+    final = plan.tree_views(params["final_norm"], 1, {})
+    head, tied = _head(params, plan, cfg, embed)
+    parts = [_head_parts(cfg, plan, d, x, final, head, tied) for d, x in enumerate(xs)]
+    return plan, parts, aux / cfg.n_layers
+
+
+def _gather_logits(plan: _Plan, parts) -> torch.Tensor:
+    rows = [p[0] if len(p) == 1 else torch.cat([t.to(plan.lead(d)) for t in p], -1)
+            for d, p in enumerate(parts)]
+    return rows[0] if len(rows) == 1 else torch.cat([r.to(plan.mesh_lead) for r in rows])
+
+
+def _token_losses(cfg: TransformerConfig, parts, targets, lead) -> torch.Tensor:
+    """One data shard's per-token ``lse - target logit`` (float32) from its
+    vocab shards' logits: each shard's max (the global one combined in
+    shard order, held constant as the reference's ``logsumexp`` holds it)
+    and sum of exponentials, its pad columns masked by global column; the
+    target logit from its owner shard. No device holds the whole (B, S, V)
+    float32 logits."""
+    if len(parts) == 1:
+        logits = parts[0].float()
+        if cfg.vocab_padded != cfg.vocab:
+            cols = torch.arange(cfg.vocab_padded, device=logits.device)
+            logits = logits + torch.where(cols >= cfg.vocab, NEG_MASK, 0.0)
+        lse = torch.logsumexp(logits, dim=-1)
+        # The reference takes the target logit by a one-hot contraction (a
+        # sharded-V reduction). A gather gives the same float32 value, since
+        # every other product of the contraction is an exact zero, without a
+        # (B, S, V) one-hot (6.6 GB a microbatch at stablelm's full width).
+        return lse - logits.gather(-1, targets.long()[..., None])[..., 0]
+    width = parts[0].shape[-1]
+    logits, peak = [], None
+    for r, part in enumerate(parts):
+        part = part.float()
+        if cfg.vocab_padded != cfg.vocab:
+            cols = torch.arange(r * width, (r + 1) * width, device=part.device)
+            part = part + torch.where(cols >= cfg.vocab, NEG_MASK, 0.0)
+        logits.append(part)
+        m = part.detach().amax(dim=-1).to(lead)
+        peak = m if peak is None else torch.maximum(peak, m)
+    sums = [torch.exp(part - peak.to(part.device)[..., None]).sum(dim=-1) for part in logits]
+    lse = peak + torch.log(sum_to_lead(sums, lead))
+    picked = []
+    for r, part in enumerate(logits):
+        local = targets.to(part.device).long() - r * width
+        own = (local >= 0) & (local < width)
+        got = part.gather(-1, local.clamp(0, width - 1)[..., None])[..., 0]
+        picked.append(torch.where(own, got, 0.0))
+    return lse - sum_to_lead(picked, lead)
+
+
 def forward(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)):
     """tokens (B, S) -> (logits (B, S, V), mean aux loss over layers); each
-    layer rematerialised in the backward when ``cfg.remat``."""
+    layer rematerialised in the backward when ``cfg.remat``. Over a mesh
+    the layers run tensor-parallel (see the module docstring) and the
+    logits come back whole on the mesh's lead device; a mesh of one shard
+    runs the one-device path."""
+    if not _one_device(mesh):
+        plan, parts, aux = _mesh_forward(cfg, params, tokens, mesh, dp_axes)
+        return _gather_logits(plan, parts), aux
     x = _embed(cfg, params, tokens)
-    block = _block(cfg, mesh, dp_axes)
+    block = _block(cfg, None if mesh is None else MeshPlan(mesh, dp_axes))
 
     def layer(x, p_l):
         y, _, a = block(x, p_l)
@@ -213,19 +503,16 @@ def forward(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)
 def lm_loss(cfg: TransformerConfig, params, tokens, targets, mesh=None, dp_axes=("data",)):
     """Mean next-token cross-entropy in float32 over (B, S), pad columns
     of the padded vocabulary masked with -1e30, plus 0.01 x the MoE aux
-    loss."""
-    logits, aux = forward(cfg, params, tokens, mesh, dp_axes)
-    logits = logits.float()
-    if cfg.vocab_padded != cfg.vocab:
-        cols = torch.arange(cfg.vocab_padded, device=logits.device)
-        logits = logits + torch.where(cols >= cfg.vocab, NEG_MASK, 0.0)
-    lse = torch.logsumexp(logits, dim=-1)
-    # The reference takes the target logit by a one-hot contraction (a
-    # sharded-V reduction). A gather gives the same float32 value, since
-    # every other product of the contraction is an exact zero, without a
-    # (B, S, V) one-hot (6.6 GB a microbatch at stablelm's full width).
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
-    loss = (lse - tgt).mean()
+    loss. Over a mesh the cross-entropy is vocab-parallel
+    (:func:`_token_losses`) and the mean is over the global batch."""
+    if _one_device(mesh):
+        logits, aux = forward(cfg, params, tokens, mesh, dp_axes)
+        loss = _token_losses(cfg, [logits], targets, logits.device).mean()
+    else:
+        plan, parts, aux = _mesh_forward(cfg, params, tokens, mesh, dp_axes)
+        per = [_token_losses(cfg, p, t, plan.lead(d)).to(plan.mesh_lead)
+               for d, (p, t) in enumerate(zip(parts, plan.split_batch(targets)))]
+        loss = per[0].mean() if len(per) == 1 else torch.cat([t.reshape(-1) for t in per]).mean()
     if cfg.moe is not None:
         loss = loss + 0.01 * aux
     return loss
@@ -235,13 +522,16 @@ def lm_grads_microbatched(cfg: TransformerConfig, params, tokens, targets, n_mic
                           mesh=None, dp_axes=("data",), bf16_gather: bool = True):
     """Gradient accumulation over ``n_micro`` microbatches in order: the
     float32 sums of ``g / n_micro`` and ``loss / n_micro`` -> (loss,
-    grads), the grads float32 like the master parameters.
+    grads), the grads float32 like the master parameters. Microbatch i is
+    rows [i B / n_micro, (i + 1) B / n_micro) of the global batch, split
+    over the data shards.
 
-    With ``bf16_gather`` and a mesh, every float32 parameter is cast to
-    bfloat16 before ``lm_loss``, as the reference's ``cast_sharded`` casts
-    it (the reference also needs its parameter specs, which its step
-    builder always passes); the gradients come back through the cast, so
-    each is the float32 of a bfloat16-rounded value."""
+    With ``bf16_gather`` and a mesh, every float32 parameter (each block
+    of a sharded one, where it lives) is cast to bfloat16 before
+    ``lm_loss`` gathers it, as the reference's ``cast_sharded`` casts it
+    (the reference also needs its parameter specs, which its step builder
+    always passes); the gradients come back through the cast, so each is
+    the float32 of a bfloat16-rounded value."""
     B = tokens.shape[0]
     if B % n_micro:
         raise ValueError(f"batch {B} does not split into {n_micro} microbatches")
@@ -265,11 +555,80 @@ def lm_grads_microbatched(cfg: TransformerConfig, params, tokens, targets, n_mic
     return loss, grads
 
 
+def _cache_views(plan: _Plan, caches, i: int, cols: int) -> list:
+    """Layer i of the caches as [d][r] dicts: each ``Sharded`` cache's
+    block (d, r), or views of a whole cache (batch rows of data shard d,
+    the kv heads of shard r) where every shard is on its device."""
+    out = [[{} for _ in range(cols)] for _ in range(plan.dp)]
+    for name, c in caches.items():
+        if isinstance(c, Sharded):
+            if c.grid != (plan.dp, cols):
+                raise ValueError(f"a cache on a grid of {c.grid}; the step takes "
+                                 f"{(plan.dp, cols)}")
+            for d in range(plan.dp):
+                for r in range(cols):
+                    out[d][r][name] = c.block(d, r)[i]
+            continue
+        rows = c.shape[1] // plan.dp
+        for d in range(plan.dp):
+            for r in range(cols):
+                if plan.grid[d, r] != c.device:
+                    raise ValueError(f"a whole cache on {c.device} serves a mesh of that "
+                                     f"device only, not {plan.grid[d, r]}")
+                v = c[i].narrow(0, d * rows, rows)
+                if cols > 1:
+                    a, b = plan.kv_heads[r]
+                    v = v.narrow(2, a, b - a)
+                out[d][r][name] = v
+    return out
+
+
+def _stacked_caches(plan: _Plan, per_layer: list, cols: int):
+    """The prefill's per-layer caches [layer][d][r] as the step's caches:
+    plain (L, B, S, Hkv, Dh) tensors on a (1, 1) grid, else a ``Sharded``
+    per name, block (d, r) the stacked cache of shard (d, r)."""
+    out = {}
+    for name in ("k", "v"):
+        blocks = [torch.stack([layer[d][r][name] for layer in per_layer])
+                  for d in range(plan.dp) for r in range(cols)]
+        if len(blocks) == 1:
+            out[name] = blocks[0]
+        else:
+            spans = [tuple(s) for s in plan.kv_heads] if cols > 1 else None
+            out[name] = Sharded(blocks, (plan.dp, cols), (1, 3 if cols > 1 else None), spans)
+    return out
+
+
+def _mesh_serve(cfg: TransformerConfig, params, tokens, mesh, dp_axes, caches=None,
+                position=0):
+    plan = _Plan(cfg, mesh, dp_axes)
+    cols = plan.tp if plan.attn else 1
+    embed = plan.vocab_views(params["embed"], 0, cfg)
+    xs = _mesh_embed(cfg, plan, embed, tokens)
+    per_layer = []
+    for i in range(cfg.n_layers):
+        views = None if caches is None else _cache_views(plan, caches, i, cols)
+        xs, _, cs = _mesh_layer(cfg, plan, layer_slice(params["layers"], i), xs, views,
+                                position)
+        if caches is None:
+            per_layer.append(cs)
+    final = plan.tree_views(params["final_norm"], 1, {})
+    head, tied = _head(params, plan, cfg, embed)
+    last = [x if caches is not None else x[:, -1:] for x in xs]
+    logits = _gather_logits(plan, [_head_parts(cfg, plan, d, x, final, head, tied)
+                                   for d, x in enumerate(last)])[:, 0]
+    return logits, (caches if caches is not None else _stacked_caches(plan, per_layer, cols))
+
+
 def prefill(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)):
     """tokens (B, S) -> (last-position logits (B, V), stacked KV cache
-    {"k", "v"} of (L, B, S, Hkv, Dh) in the compute type)."""
+    {"k", "v"} of (L, B, S, Hkv, Dh) in the compute type). Over a mesh the
+    cache comes back per ``cache_pspecs``: a ``Sharded`` whose block (d, r)
+    is shard (d, r)'s (whole tensors on a (1, 1) mesh)."""
+    if not _one_device(mesh):
+        return _mesh_serve(cfg, params, tokens, mesh, dp_axes)
     x = _embed(cfg, params, tokens)
-    block = _block(cfg, mesh, dp_axes)
+    block = _block(cfg, None if mesh is None else MeshPlan(mesh, dp_axes))
     ks, vs = [], []
     for i in range(cfg.n_layers):
         x, cache, _ = block(x, layer_slice(params["layers"], i))
@@ -281,11 +640,15 @@ def prefill(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)
 def decode_step(cfg: TransformerConfig, params, token, caches, position, mesh=None,
                 dp_axes=("data",)):
     """token (B, 1) + caches (L-stacked k/v (L, B, Smax, Hkv, Dh), and
-    k_scale/v_scale for the int8 cache) + position (an int or a 0-d
-    tensor) -> (logits (B, V), the caches, updated in place)."""
+    k_scale/v_scale for the int8 cache; over a mesh ``Sharded`` per
+    ``cache_pspecs``, or whole tensors on the device of every shard) +
+    position (an int or a 0-d tensor) -> (logits (B, V), the caches,
+    updated in place)."""
     position = int(position)
+    if not _one_device(mesh):
+        return _mesh_serve(cfg, params, token, mesh, dp_axes, caches, position)
     x = _embed(cfg, params, token)
-    block = _block(cfg, mesh, dp_axes)
+    block = _block(cfg, None if mesh is None else MeshPlan(mesh, dp_axes))
     for i in range(cfg.n_layers):
         x, _, _ = block(x, layer_slice(params["layers"], i),
                         cache_l=layer_slice(caches, i), position=position)

@@ -1,10 +1,10 @@
 """Collectives of the single-controller mesh's model paths.
 
 The model paths over a mesh (``repro_torch.launch.mesh``: row-sharded
-tables, expert parallelism, the edge-sharded EGNN) move tensors between
-shards through three ``torch.autograd.Function``s, so that every sum
-across shards, forward and backward, is one made in shard order on one
-device:
+tables, expert parallelism, the edge-sharded EGNN, the LM's tensor
+parallelism and FSDP) move tensors between shards through four
+``torch.autograd.Function``s, so that every sum across shards, forward
+and backward, is one made in shard order on one device:
 
 * :func:`replicate` copies a tensor to each shard's device; its backward
   adds the shards' gradients in shard order on the source device;
@@ -12,20 +12,27 @@ device:
   adds them left to right from the first (the ``psum``); its backward
   copies the gradient back to each shard;
 * :func:`split_rows` gives shard i the i-th of equal contiguous row
-  blocks, on its device; its backward concatenates the blocks' gradients.
+  blocks, on its device; its backward concatenates the blocks' gradients;
+* :func:`gather_blocks` concatenates blocks split along an axis onto each
+  device of a group (FSDP's all-gather); its backward adds the group's
+  gradients in group order and hands each block its slice on its own
+  device (the reduce-scatter).
 
 Left to plain ``.to(device)`` under autograd, a tensor used on several
 distinct devices would get its gradients added by autograd's per-device
 threads in whatever order they finish. Where a shard's device is the
-source's, each of the three hands out a view and copies nothing.
-:class:`ShardedRows` is a parameter kept as such row blocks, one leaf per
-shard, so each is differentiated and updated where it lives.
+source's, each hands out a view and copies nothing. :class:`Sharded` is a
+parameter (or cache) kept as a grid of blocks, one leaf per block, so
+each is differentiated and updated where it lives; :class:`MeshPlan`
+hands each device of a step the blocks it uses.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -97,26 +104,119 @@ def split_rows(x: torch.Tensor, devices) -> list:
     return list(_SplitRows.apply(x, [torch.device(d) for d in devices]))
 
 
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, devices, *blocks):
+        ctx.axis = axis
+        ctx.homes = [b.device for b in blocks]
+        ctx.sizes = [b.shape[axis] for b in blocks]
+        if len(blocks) == 1:
+            return tuple(_view_or_copy(blocks[0], d) for d in devices)
+        return tuple(torch.cat([b.to(d) for b in blocks], axis) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, start = [], 0
+        for home, size in zip(ctx.homes, ctx.sizes):
+            total = None
+            for g in grads:
+                g = g.narrow(ctx.axis, start, size).to(home)
+                total = g if total is None else total + g
+            out.append(total)
+            start += size
+        return (None, None, *out)
+
+
+def gather_blocks(blocks, axis: int, devices) -> list:
+    """The blocks concatenated along ``axis`` on each of ``devices`` (a
+    view where there is one block and the device is its own); block i's
+    gradient is the slice of each device's gradient that it gave, added in
+    device order on block i's device."""
+    return list(_GatherBlocks.apply(axis, [torch.device(d) for d in devices], *blocks))
+
+
+def _spans(n: int, parts: int) -> list:
+    if n % parts:
+        raise ValueError(f"an axis of {n} does not split over {parts} shards")
+    k = n // parts
+    return [(i * k, (i + 1) * k) for i in range(parts)]
+
+
 @dataclass(eq=False)
-class ShardedRows:
-    """A tensor kept as equal contiguous row blocks, block i on its own
-    device: an embedding table row-sharded over the model axis. In a
-    parameter tree each block is a leaf (``repro_torch.models.tree_leaves``),
-    so each gets its own gradient and optimizer state where it lives."""
+class Sharded:
+    """A tensor kept as a grid of blocks, block (i, j) on its own device:
+    ``shards`` holds them row-major over ``grid`` (rows: the data shards,
+    columns: the model shards). ``axes`` names the tensor's axis split
+    over the rows and over the columns (None: not split; rows not split
+    are replicas, one per data shard, as serving keeps its weights).
+    ``spans`` gives each column's (start, stop) along the
+    column axis, equal contiguous blocks unless given (a KV cache whose
+    model shards share a kv head holds it in each: spans may overlap).
+
+    The default is an embedding table row-sharded over the model axis,
+    block r on the model column r's first device. In a parameter tree each
+    block is a leaf (``repro_torch.models.tree_leaves``), so each gets its
+    own gradient and optimizer state where it lives."""
 
     shards: list
+    grid: tuple = None
+    axes: tuple = (None, 0)
+    spans: tuple = None
+
+    def __post_init__(self):
+        if self.grid is None:
+            self.grid = (1, len(self.shards))
+        self.grid = tuple(self.grid)
+        if self.grid[0] * self.grid[1] != len(self.shards):
+            raise ValueError(f"{len(self.shards)} blocks on a grid of {self.grid}")
+        if self.spans is None and self.axes[1] is not None:
+            n = self.shards[0].shape[self.axes[1]]
+            self.spans = tuple((j * n, (j + 1) * n) for j in range(self.grid[1]))
 
     @classmethod
-    def of(cls, x: torch.Tensor, devices) -> "ShardedRows":
+    def of(cls, x: torch.Tensor, devices) -> "Sharded":
         """``x``'s rows split over ``devices``: row views of ``x`` where a
         device is ``x``'s (no copy), copies elsewhere."""
+        return cls.split(x, [[torch.device(d) for d in devices]], (None, 0))
+
+    @classmethod
+    def split(cls, x: torch.Tensor, devices, axes: tuple, spans=None) -> "Sharded":
+        """``x`` as contiguous blocks on ``devices`` (an array shaped like
+        the grid): split over the rows along ``axes[0]`` (each row a
+        replica where that is None) and over the columns along ``axes[1]``
+        (at ``spans`` where given). A block that is already contiguous on
+        its device is a view of ``x``."""
+        devices = np.array(devices, dtype=object).reshape(len(devices), -1)
+        rows, cols = devices.shape
+        row_spans = _spans(x.shape[axes[0]], rows) if axes[0] is not None else [None] * rows
+        if spans is None:
+            spans = _spans(x.shape[axes[1]], cols) if axes[1] is not None else [None]
+        blocks = []
+        x = x.detach()
         with torch.no_grad():
-            return cls(split_rows(x.detach(), devices))
+            for i, rs in enumerate(row_spans):
+                part = x if rs is None else x.narrow(axes[0], rs[0], rs[1] - rs[0])
+                for j, cs in enumerate(spans):
+                    b = part if cs is None else part.narrow(axes[1], cs[0], cs[1] - cs[0])
+                    blocks.append(b.to(devices[i, j]).contiguous())
+        return cls(blocks, (rows, cols), tuple(axes),
+                   None if axes[1] is None else tuple(spans))
+
+    def block(self, i: int, j: int) -> torch.Tensor:
+        return self.shards[i * self.grid[1] + j]
 
     @property
     def shape(self) -> tuple:
-        first = self.shards[0].shape
-        return (first[0] * len(self.shards), *first[1:])
+        shape = list(self.shards[0].shape)
+        if self.axes[0] is not None:
+            shape[self.axes[0]] *= self.grid[0]
+        if self.axes[1] is not None:
+            shape[self.axes[1]] = max(stop for _, stop in self.spans)
+        return tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
 
     @property
     def rows_per_shard(self) -> int:
@@ -124,3 +224,109 @@ class ShardedRows:
 
     def numel(self) -> int:
         return sum(s.numel() for s in self.shards)
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (the first block's by default),
+        each element from the first block that holds it (replica rows from
+        the first)."""
+        device = self.shards[0].device if device is None else torch.device(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        rows = self.grid[0] if self.axes[0] is not None else 1
+        for i in range(rows):
+            for j in reversed(range(self.grid[1])):
+                dst = out
+                if self.axes[0] is not None:
+                    n = self.shards[0].shape[self.axes[0]]
+                    dst = dst.narrow(self.axes[0], i * n, n)
+                if self.axes[1] is not None:
+                    start, stop = self.spans[j]
+                    dst = dst.narrow(self.axes[1], start, stop - start)
+                dst.copy_(self.block(i, j).detach())
+        return out
+
+    def like(self, x: torch.Tensor) -> "Sharded":
+        """``x`` (the whole tensor) in this one's layout: each block on
+        its block's device."""
+        devices = np.empty(self.grid, dtype=object)
+        for k, s in enumerate(self.shards):
+            devices[k // self.grid[1], k % self.grid[1]] = s.device
+        return Sharded.split(x, devices, self.axes, self.spans)
+
+
+class MeshPlan:
+    """Where a step's pieces run on a mesh's (data shards, model shards)
+    grid of devices (``launch/mesh.py`` ``Mesh.grid``): data shard d's
+    stream on its lead device ``grid[d, 0]``, its model shard r on
+    ``grid[d, r]``; ``dp_axes`` must cover the grid's rows."""
+
+    def __init__(self, mesh, dp_axes):
+        self.grid = grid = mesh.grid()
+        self.dp, self.tp = grid.shape
+        if math.prod(mesh.shape[a] for a in dp_axes) != self.dp:
+            raise ValueError(f"dp_axes {tuple(dp_axes)} do not cover the mesh's batch axes "
+                             f"{mesh.shape}")
+        self.mesh_lead = mesh.lead
+
+    def lead(self, d: int):
+        return self.grid[d, 0]
+
+    def row(self, d: int, cols: int) -> list:
+        return list(self.grid[d, :cols])
+
+    def views(self, leaf, cols: int, axis=None, spans=None) -> list:
+        """``leaf`` (a tensor, or a ``Sharded`` of blocks on this grid) on
+        every (d, r < cols) that uses it, [d][r]: shard r's part,
+        ``spans[r]`` along ``axis``, or the whole where ``spans`` is None.
+        A leaf kept in model blocks hands column r's blocks to column r
+        (split as the step takes it); one kept whole is sliced. FSDP row
+        blocks are gathered onto every data shard, and replica rows give
+        data shard d its own. Each gather runs once per distinct device
+        (:func:`gather_blocks`)."""
+        if not isinstance(leaf, Sharded):
+            leaf = Sharded([leaf], (1, 1), (None, None))
+        split = leaf.grid[1] > 1
+        if split and (cols != leaf.grid[1] or axis != leaf.axes[1]
+                      or [tuple(s) for s in leaf.spans] != [tuple(s) for s in spans]):
+            raise ValueError(f"a leaf in {leaf.grid[1]} model blocks along axis "
+                             f"{leaf.axes[1]} where the step takes {cols} along {axis}")
+        if leaf.axes[0] is None and leaf.grid[0] > 1:  # replicas: row d serves data shard d
+            if leaf.grid[0] != self.dp:
+                raise ValueError(f"{leaf.grid[0]} replica rows for {self.dp} data shards")
+            groups = [([d], [d]) for d in range(self.dp)]
+        else:  # (source rows, the data shards they serve)
+            groups = [(list(range(leaf.grid[0])), list(range(self.dp)))]
+        out = [[None] * cols for _ in range(self.dp)]
+        for rows, shards in groups:
+            for j in (range(cols) if split else [0]):
+                targets = [(d, r) for d in shards for r in ([j] if split else range(cols))]
+                got = self._gather([leaf.block(i, j) for i in rows], leaf.axes[0],
+                                   [self.grid[d, r] for d, r in targets])
+                for (d, r), t in zip(targets, got):
+                    if not split and spans is not None:
+                        t = t.narrow(axis, spans[r][0], spans[r][1] - spans[r][0])
+                    out[d][r] = t
+        return out
+
+    @staticmethod
+    def _gather(blocks, axis, targets) -> list:
+        uniq = list(dict.fromkeys(targets))
+        got = gather_blocks(blocks, 0 if axis is None else axis, uniq)
+        return [got[uniq.index(t)] for t in targets]
+
+    def tree_views(self, tree: dict, cols: int, how: dict) -> list:
+        """``views`` of each leaf of a dict -> [d][r] dicts; ``how[name]``
+        is (axis, spans in units, unit size) or absent (whole)."""
+        per = {}
+        for k, v in tree.items():
+            if cols > 1 and k in how:
+                axis, spans, unit = how[k]
+                per[k] = self.views(v, cols, axis, [(a * unit, b * unit) for a, b in spans])
+            else:
+                per[k] = self.views(v, cols)
+        return [[{k: per[k][d][r] for k in per} for r in range(cols)] for d in range(self.dp)]
+
+    def split_batch(self, x) -> list:
+        """Data shard d's rows of ``x`` on its lead device."""
+        if x.shape[0] % self.dp:
+            raise ValueError(f"batch {x.shape[0]} does not split over {self.dp} data shards")
+        return [c.to(self.lead(d)) for d, c in enumerate(x.chunk(self.dp))]

@@ -16,10 +16,15 @@ in its on-disk layout, name for name.
   later would save a later step;
 * retention keeps the last ``keep`` checkpoints.
 
-``restore_checkpoint(..., device=)`` takes the place of the reference's
-``mesh=``/``pspecs=``: leaves land on ``device``, or, without one, where
-the example's leaf lies (a non-tensor example leaf: the card unless the
-caller names another device).
+A sharded leaf (``parallel.py`` ``Sharded``: an FSDP/TP-split LM
+parameter, a row-sharded table) is saved whole, under the leaf's own name,
+as the reference saves a sharded array; so a checkpoint restores on any
+mesh, and in the reference. ``restore_checkpoint(..., device=)`` takes
+the place of the reference's ``mesh=``/``pspecs=``: a ``Sharded`` example
+leaf gets the whole array split into its blocks, each on its own device;
+other leaves land on ``device``, or, without one, where the example's
+leaf lies (a non-tensor example leaf: the card unless the caller names
+another device).
 """
 
 from __future__ import annotations
@@ -34,12 +39,14 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import tree_unflatten
+from repro_torch.parallel import Sharded
 
 _SEP = "/"
 
 
 def _flatten_with_names(tree, prefix=()):
-    """[(name, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order."""
+    """[(name, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order, a
+    ``Sharded`` one leaf."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _flatten_with_names(tree[k], prefix + (k,))]
     if isinstance(tree, (list, tuple)):
@@ -50,7 +57,10 @@ def _flatten_with_names(tree, prefix=()):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that later writes into it do not reach."""
+    """A host copy of ``leaf`` (a ``Sharded`` one whole) that later writes
+    into it do not reach."""
+    if isinstance(leaf, Sharded):
+        return leaf.full("cpu").numpy()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
@@ -109,6 +119,9 @@ def restore_checkpoint(ckpt_dir: str | Path, example_tree, step: int | None = No
         if rec is None:
             raise KeyError(f"checkpoint missing leaf {name!r}")
         arr = np.load(d / rec["file"])
+        if isinstance(leaf, Sharded):
+            out.extend(leaf.like(torch.from_numpy(arr)).shards)
+            continue
         if device is not None or not isinstance(leaf, torch.Tensor):
             where = resolve_device(device)
         else:
@@ -127,6 +140,15 @@ def gc_checkpoints(ckpt_dir: str | Path, keep: int = 3) -> None:
     )
     for d in steps[:-keep]:
         shutil.rmtree(d, ignore_errors=True)
+
+
+def _host_tree(tree):
+    """``tree`` with each leaf (a ``Sharded`` one whole) a host copy."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v) for v in tree)
+    return None if tree is None else _to_host(tree)
 
 
 class AsyncCheckpointer:
@@ -149,7 +171,7 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, meta: dict | None = None) -> None:
         """Copy every leaf to the host now, then write on a thread."""
         self.wait()  # at most one save in flight
-        host_tree = tree_unflatten(tree, [_to_host(leaf) for _, leaf in _flatten_with_names(tree)])
+        host_tree = _host_tree(tree)
 
         def work():
             try:

@@ -15,12 +15,13 @@ are 31 GB). A large leaf is updated in slices of :data:`CHUNK` elements,
 so the update's temporaries stay small; elementwise, slicing changes no
 rounding.
 
-A row-sharded table (``parallel.py`` ``ShardedRows``) is one leaf per
-shard, each on its own device: each is updated in place where it lives,
-with the clip scale and bias corrections copied there, and the global
-norm adds each shard's sum of squares on the first leaf's device in leaf
-(shard) order. The reference's norm runs over the whole array at once,
-so the two agree within rounding.
+A sharded parameter (``parallel.py`` ``Sharded``: a row-sharded table,
+an LM weight split over FSDP rows and TP columns) is one leaf per block,
+each on its own device: each is updated in place where it lives, with the
+clip scale and bias corrections copied there, and the global norm adds
+each block's sum of squares on the first leaf's device in one fixed order
+(tree order, a grid's blocks row by row). The reference's norm runs over
+the whole array at once, so the two agree within rounding.
 """
 
 from __future__ import annotations

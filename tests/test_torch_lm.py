@@ -38,6 +38,7 @@ from repro_torch.models import carry_params
 from repro_torch.models import layers as tl
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
+from repro_torch.parallel import MeshPlan
 from repro_torch.serving import LMContinuousBatcher
 
 RTOL = ATOL = 1e-4
@@ -287,6 +288,14 @@ def test_moe_dense_ref(dtype):
         assert _cosine(got, want) > 0.999
 
 
+def _moe_over(p, x, cfg, mesh):
+    """``moe_block`` over ``mesh``'s plan, the batch split over its data
+    shards as a transformer layer hands it over -> (y, aux)."""
+    plan = MeshPlan(mesh, ("data",))
+    ys, aux = tmoe.moe_block(p, plan.split_batch(x), cfg=cfg, plan=plan)
+    return torch.cat(ys), aux
+
+
 @pytest.mark.parametrize("top_k", [1, 2, 3])
 def test_moe_capacity_dispatch_on_a_one_device_mesh(top_k):
     """moe_block on a (1, 1) mesh — the path a transformer block takes on
@@ -295,7 +304,7 @@ def test_moe_capacity_dispatch_on_a_one_device_mesh(top_k):
     want_y, want_aux = jax.jit(lambda p, x: jmoe.moe_block(
         p, x, cfg=cfg_j, mesh=jax_mesh((1, 1), ("data", "model")), dp_axes=("data",)))(jp, jx)
     mesh = make_mesh((1, 1), ("data", "model"), devices=[CPU])
-    got_y, got_aux = tmoe.moe_block(tp, tx, cfg=cfg_t, mesh=mesh, dp_axes=("data",))
+    got_y, got_aux = _moe_over(tp, tx, cfg_t, mesh)
     _close(got_y, want_y)
     _close(got_aux, want_aux, rtol=1e-6, atol=1e-6)
     T, capacity = 16, int(np.ceil(16 * top_k * 1.25 / 4))
@@ -322,7 +331,7 @@ def test_moe_block_refuses_expert_parallelism():
     want_y, want_aux = jax.jit(lambda p, x: jmoe.moe_block(
         p, x, cfg=cfg_j, mesh=jax_mesh((1, 1), ("data", "model")), dp_axes=("data",)))(jp, jx)
     mesh = make_mesh((1, 2), ("data", "model"), devices=[CPU] * 2)
-    got_y, got_aux = tmoe.moe_block(tp, tx, cfg=cfg_t, mesh=mesh, dp_axes=("data",))
+    got_y, got_aux = _moe_over(tp, tx, cfg_t, mesh)
     _close(got_y, want_y)
     _close(got_aux, want_aux, rtol=1e-6, atol=1e-6)
 

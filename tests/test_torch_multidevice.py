@@ -70,7 +70,7 @@ from repro_torch.models import embedding as temb  # noqa: E402
 from repro_torch.models import gnn as tgnn  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import recsys as tr  # noqa: E402
-from repro_torch.parallel import ShardedRows, replicate, split_rows, sum_to_lead  # noqa: E402
+from repro_torch.parallel import MeshPlan, Sharded, replicate, split_rows, sum_to_lead  # noqa: E402
 from repro_torch.train import grad_compression as tgc  # noqa: E402
 
 MESHES = ((1, 2), (1, 4), (2, 2))
@@ -378,7 +378,7 @@ def test_sharded_bag_keeps_the_reference_guards():
 
 def test_sharded_rows_are_views_on_one_device():
     table = torch.arange(32.0).reshape(8, 4)
-    rows = ShardedRows.of(table, ["cpu"] * 4)
+    rows = Sharded.of(table, ["cpu"] * 4)
     assert rows.shape == (8, 4) and rows.rows_per_shard == 2
     assert all(s.data_ptr() == table[2 * i:].data_ptr() for i, s in enumerate(rows.shards))
     assert torch.equal(torch.cat(rows.shards), table)
@@ -423,6 +423,14 @@ def test_sharded_retrieval(reference, recsys_models, arch_id, shape):
 
 
 # -- MoE ------------------------------------------------------------------------------
+def _moe_over(p, x, cfg, mesh):
+    """``moe_block`` over ``mesh``'s plan, the batch split over its data
+    shards as a transformer layer hands it over -> (y, aux)."""
+    plan = MeshPlan(mesh, ("data",))
+    ys, aux = tmoe.moe_block(p, plan.split_batch(x), cfg=cfg, plan=plan)
+    return torch.cat(ys), aux
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
 def test_expert_parallel_moe_block(reference, shape, dtype):
@@ -430,11 +438,10 @@ def test_expert_parallel_moe_block(reference, shape, dtype):
     tdt = getattr(torch, dtype)
     tp = carry_params(jax.tree.map(np.asarray, saved_init(reference, "moe")), device="cpu",
                       dtype=tdt)
-    y, aux = tmoe.moe_block(tp, _t(x).to(tdt), cfg=cfg, mesh=cpu_mesh(shape), dp_axes=("data",))
+    y, aux = _moe_over(tp, _t(x).to(tdt), cfg, cpu_mesh(shape))
     t = _tag(shape)
     want_y, want_aux = reference[_key("moe", dtype, t, "y")], reference[_key("moe", dtype, t, "aux")]
-    own, _ = tmoe.moe_block(tp, _t(x).to(tdt), cfg=cfg, mesh=cpu_mesh((shape[0], 1)),
-                            dp_axes=("data",))
+    own, _ = _moe_over(tp, _t(x).to(tdt), cfg, cpu_mesh((shape[0], 1)))
     if dtype == "float32":
         np.testing.assert_allclose(_np(y), want_y, rtol=MOE_TOL, atol=MOE_TOL)
         np.testing.assert_allclose(_np(aux), want_aux, rtol=AUX_TOL, atol=AUX_TOL)
@@ -531,12 +538,12 @@ def test_sharded_built_train_step(reference, name, shape):
     np.testing.assert_allclose(got, own, rtol=STEP_RTOL)
     if name != "egnn":
         assert built.meta["sharded_tables"] == ("item_emb",)
-        assert isinstance(params["item_emb"], ShardedRows)
+        assert isinstance(params["item_emb"], Sharded)
         assert len(params["item_emb"].shards) == shape[1]
 
 
 def test_adamw_updates_each_shard_where_it_lives():
-    """AdamW over a ``ShardedRows`` leaf: each shard updated in place (the
+    """AdamW over a ``Sharded`` leaf: each shard updated in place (the
     one table's rows on one device) as the whole tensor would be (no
     clipping, whose scale follows the norm's rounding), the global norm
     within rounding of the unsharded one."""
@@ -549,9 +556,9 @@ def test_adamw_updates_each_shard_where_it_lives():
     full_opt = init_opt_state(full)
     _, _, want_norm = adamw_update(cfg, full, {"emb": grad}, full_opt)
     sharded_table = table.clone()
-    params = {"emb": ShardedRows.of(sharded_table, ["cpu"] * 4)}
+    params = {"emb": Sharded.of(sharded_table, ["cpu"] * 4)}
     opt = init_opt_state(params)
-    _, opt, norm = adamw_update(cfg, params, {"emb": ShardedRows.of(grad, ["cpu"] * 4)}, opt)
+    _, opt, norm = adamw_update(cfg, params, {"emb": Sharded.of(grad, ["cpu"] * 4)}, opt)
     assert torch.equal(sharded_table, full["emb"])  # the views were written in place
     assert torch.equal(torch.cat(opt["mu"]["emb"].shards), full_opt["mu"]["emb"])
     np.testing.assert_allclose(float(norm), float(want_norm), rtol=1e-6)
@@ -560,8 +567,8 @@ def test_adamw_updates_each_shard_where_it_lives():
 def test_lm_step_runs_experts_over_a_model_axis_of_one_device():
     """granite-moe (reduced) through its built prefill step on a (1, 4)
     mesh of one device: the experts over 4 ranks, the logits within the
-    float32 tolerance of the (1, 1) step; over distinct devices the step
-    raises for the LM tensor-parallel slice."""
+    float32 tolerance of the (1, 1) step; and the same over a (1, 2) mesh,
+    its attention and vocabulary tensor-parallel too."""
     from repro_torch.configs.lm_archs import LM_ARCHS
 
     arch = next(a for a in LM_ARCHS if a.arch_id == "granite-moe-1b-a400m").reduced()
@@ -573,9 +580,9 @@ def test_lm_step_runs_experts_over_a_model_axis_of_one_device():
     want, _ = b1.fn(params, tokens)
     got, _ = b4.fn(params, tokens)
     np.testing.assert_allclose(_np(got), _np(want), rtol=MOE_TOL, atol=MOE_TOL)
-    with pytest.raises(NotImplementedError, match="LM tensor-parallel slice"):
-        tsteps.build_step(arch, "prefill_32k",
-                          make_mesh((1, 2), AXES, devices=["cpu", "meta"]))
+    b2 = tsteps.build_step(arch, "prefill_32k", cpu_mesh((1, 2)))
+    got, _ = b2.fn(tsteps.place_params(b2, params), tokens)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=MOE_TOL, atol=MOE_TOL)
 
 
 # -- the collectives ----------------------------------------------------------------------

@@ -116,9 +116,11 @@ def test_lm_train_and_probe_wait_for_their_slices():
     assert built.meta["n_micro"] == 1 and len(built.args) == 3
     with pytest.raises(NotImplementedError, match="analysis slice"):
         tsteps.build_lm_layer_probe(port, port.shapes["prefill_32k"], mesh)
-    with pytest.raises(NotImplementedError, match="LM tensor-parallel slice"):
-        tsteps.build_step(port, "prefill_32k",
-                          make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"]))
+    # a step over a mesh of several distinct devices builds (tensor parallelism)
+    built = tsteps.build_step(port, "prefill_32k",
+                              make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"]))
+    assert built.meta["devices"] == ["cpu", "meta"]
+    assert built.meta["device"] == torch.device("cpu")
 
 
 # -- recsys -----------------------------------------------------------------------
