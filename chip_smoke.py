@@ -3,7 +3,7 @@
     python chip_smoke.py [--report PATH] [--parent-csrc DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together) and drives twelve paths:
+``nvcc`` per source, all started together) and drives thirteen paths:
 
 - the kernel library (intersect, compressed intersect, proximity join,
   embedding bag): each kernel is held against its plain PyTorch version
@@ -130,7 +130,20 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   the (1, 1) step (loss and grad norm), replayed from one state to the
   bit; the reduced stablelm and phi3.5-moe in float32 on a (1, 2) mesh of
   this card and the host (train, prefill, decode) within 1e-5 of the
-  (1, 1) card steps, replayed to the bit.
+  (1, 1) card steps, replayed to the bit;
+- the analysis tools (the analysis phase): each of seven cells (stablelm
+  prefill B 4 x S 4096, bf16 decode B 4 on 32,768 rows and train B 8 x S
+  4096; two-tower serve_bulk and train_batch B 32,768; the EGNN's
+  minibatch_lg; the search arch's qt1_heavy) counted by the dry run on a
+  (1, 1) mesh of ``meta``, then its built step run warm on the card with
+  the counts at 0: median step time, peak memory, the roofline bound of
+  the count and the share bound / time, which must not exceed 1.05; the
+  reckoned argument bytes must not exceed the measured peak, and each
+  kernel must be launched as often as the count says; the counted bytes
+  of the bag's backward and the segment sum equal PERF.md's bounds;
+  stablelm's layer probe at the prefill shape (24 x its FLOPs within the
+  step's); and one prefill step under ``torch.profiler``, its top device
+  ops and the device's busy and idle shares.
 
 Each path must have launched each of its kernels. Times are medians of
 CUDA events: kernel, plain and library times are device times (the
@@ -4494,6 +4507,265 @@ def tp_phase(dev, smi: str) -> dict:
     return report
 
 
+# -- the analysis tools: count, roofline, layer probe, a profiled step ---------
+ANALYSIS_SHARE_MAX = 1.05  # a share of the roofline above this: the count overstates the work
+BAG_5B_BYTES = 10_280_108_032  # PERF.md row 5b's bound: two-tower train B 32,768 S 50, V 10M D 256
+SEG_6_BYTES = 89_456_644  # row 6's bytes: E 172,032 C 64 into 172,032 rows
+BAG_SERVE_BULK = (7_800.48e6, 4.1023)  # row 5 at serve_bulk: distinct rows' bytes, every lookup ms
+PROFILE_TOP = 10
+
+
+def analysis_cells() -> list:
+    """(tag, arch, shape, kernels its step must launch, timed calls): the
+    shapes the models, train, gnn and search phases run at."""
+    from repro_torch.configs.lm_archs import STABLELM_1_6B
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.configs.registry import get_arch
+
+    lm = cut_arch(STABLELM_1_6B, prefill=("prefill", {"seq_len": 4096, "global_batch": 4}),
+                  decode=("decode", {"seq_len": 32768, "global_batch": 4}),
+                  train=("train", LM_TRAIN))
+    tt = cut_arch(TWO_TOWER, serve_bulk=("serve", TWO_TOWER.shapes["serve_bulk"].dims),
+                  train_batch=("train", {"batch": TT_TRAIN_B}))
+    bag, bwd, seg = ("embedding_bag.embedding_bag", "embedding_bag.embedding_bag_backward",
+                     "segment_sum.segment_sum")
+    return [("search qt1_heavy", get_arch("proximity-search"), "qt1_heavy", (), 5),
+            ("egnn minibatch_lg", get_arch("egnn"), "minibatch_lg", (seg,), 5),
+            ("two-tower serve_bulk", tt, "serve_bulk", (bag,), 5),
+            ("two-tower train_batch", tt, "train_batch", (bag, bwd), 3),
+            ("stablelm prefill", lm, "prefill", (), 3),
+            ("stablelm decode", lm, "decode", (), 5),
+            ("stablelm train", lm, "train", (), 2)]
+
+
+def search_inputs_on_card(arch, shape: str, dev) -> tuple:
+    """The QT1 step's raw inputs made on the card: every row full, strictly
+    increasing keys 4 l + U[0, 4) with fragment bounds 2 either side (the
+    host's draw takes minutes at qt1_heavy; the count reads shapes only)."""
+    B, L, K = (arch.shapes[shape].dims["batch"], arch.shapes[shape].dims["postings"],
+               arch.model_cfg.n_keys)
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED)
+    g = (torch.arange(L, device=dev, dtype=torch.int32) * 4
+         + torch.randint(0, 4, (B, K, L), device=dev, generator=gen, dtype=torch.int32))
+    idf = torch.rand(B, device=dev, generator=gen) * 4 + 1
+    return g, g - 2, g + 2, idf, torch.full((B,), 3.0, device=dev)
+
+
+def decode_inputs_on_card(arch, shape: str, built, dev) -> tuple:
+    """A decode step's inputs: seeded bf16 weights, a token per row, a
+    zeroed cache made on the card (the host's draw of 6.4G cache values
+    takes minutes; a step's time does not depend on them) and the position
+    of its last row, where the count puts it."""
+    from repro_torch.launch.steps import place_params
+    from repro_torch.models import transformer
+
+    cfg = arch.model_cfg
+    B, S = arch.shapes[shape].dims["global_batch"], arch.shapes[shape].dims["seq_len"]
+    params = place_params(built, transformer.init_params(cfg, MODEL_SEED, device=dev,
+                                                         dtype=torch.bfloat16))
+    token = torch.randint(0, cfg.vocab, (B, 1), device=dev, dtype=torch.int32,
+                          generator=torch.Generator(device=dev).manual_seed(MODEL_SEED))
+    return params, token, transformer.init_cache(cfg, B, S, device=dev), S - 1
+
+
+def analysis_cell(dev, one, meta_one, tag, arch, shape, kernels, runs) -> dict:
+    """One cell: its dry-run count on a (1, 1) mesh of ``meta``, then its
+    built step on the card, warm, ``runs`` calls timed by CUDA events with
+    the counts at 0 and the peak reset; the roofline bound of the count,
+    max(flops / peak of its type, bytes / HBM), against the median."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.steps import build_step, materialize_inputs
+
+    t = time.perf_counter()
+    rec = run_cell(arch, shape, False, layer_probe=False, mesh=meta_one)
+    count_s = time.perf_counter() - t
+    built = build_step(arch, shape, one)
+    if arch.family == "search":
+        args = search_inputs_on_card(arch, shape, dev)
+    elif "cache_pspecs" in built.meta:
+        args = decode_inputs_on_card(arch, shape, built, dev)
+    else:
+        args = materialize_inputs(arch, shape, built, seed=MODEL_SEED)
+    _, first_ms = timed(lambda: built.fn(*args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = [timed(lambda: built.fn(*args))[1] for _ in range(runs)]
+    launches = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times)
+    cost = rec["cost"]
+    peak_rate = PEAK_FLOPS[rec["compute_dtype"]]
+    bound_ms = max(cost["flops"] / peak_rate, cost["bytes_accessed"] / HBM_BW) * 1e3
+    out = {"tag": tag, "shape": dict(arch.shapes[shape].dims), "count_s": count_s,
+           "cost": cost, "memory": rec["memory"], "kernels": rec["kernels"],
+           "extrapolated": rec.get("extrapolated"), "compute_dtype": rec["compute_dtype"],
+           "first_ms": first_ms, "ms": ms, "step_ms": times, "peak_bytes": peak,
+           "bound_ms": bound_ms, "bound_by": "operations" if cost["flops"] / peak_rate
+           >= cost["bytes_accessed"] / HBM_BW else "bytes", "share": bound_ms / ms,
+           "launches": launches}
+    del args, built
+    torch.cuda.empty_cache()
+    if out["share"] > ANALYSIS_SHARE_MAX:
+        raise AssertionError(f"analysis {tag}: the count's bound {bound_ms:.4f} ms is "
+                             f"{out['share']:.3f} of the step's {ms:.4f} ms: it overstates the work")
+    if rec["memory"]["argument_bytes"] > peak:
+        raise AssertionError(f"analysis {tag}: reckoned arguments {rec['memory']['argument_bytes']} "
+                             f"B exceed the measured peak {peak} B")
+    for name in kernels:
+        counted = rec["kernels"].get(name, {}).get("launches", 0)
+        if launches.get(name, 0) != runs * counted or not counted:
+            raise AssertionError(f"analysis {tag}: {name} launched {launches.get(name, 0)} times "
+                                 f"in {runs} steps, counted {counted} a step")
+    return out
+
+
+def kernel_bytes_checks() -> dict:
+    """The counting pass's bytes for 5b and row 6 at PERF.md's shapes
+    (shape-only bounds): each must equal the table's."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.obs.cost import count
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    _, bag = count(embedding_bag_backward, meta(TT_TRAIN_B, 50),
+                   meta(TT_TRAIN_B, 256, dtype=torch.float32), 10_000_000)
+    _, seg = count(segment_sum, meta(172_032, 64, dtype=torch.float32), meta(172_032), 172_032)
+    got = {"5b": bag.kernels["embedding_bag.embedding_bag_backward"]["bytes_accessed"],
+           "6": seg.kernels["segment_sum.segment_sum"]["bytes_accessed"]}
+    if got != {"5b": BAG_5B_BYTES, "6": SEG_6_BYTES}:
+        raise AssertionError(f"analysis: kernel bytes {got}, PERF.md's bounds "
+                             f"{BAG_5B_BYTES} and {SEG_6_BYTES}")
+    return got
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def profiled_step(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (CPU and CUDA): the top
+    device ops by their own device time, and the device's busy share of
+    the call's CUDA-event time (the sum of its kernels' and copies' times
+    over the wall time; one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed(fn)
+    events = prof.key_averages()
+    on_device = [e for e in events if "CUDA" in str(e.device_type)]
+    busy_ms = sum(_device_us(e) for e in on_device) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("analysis: the profiler saw no device time")
+    ops = sorted((e for e in events if "CUDA" not in str(e.device_type) and _device_us(e) > 0),
+                 key=_device_us, reverse=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "top": [{"op": e.key, "device_ms": _device_us(e) / 1e3, "calls": e.count,
+                     "share": _device_us(e) / 1e3 / busy_ms} for e in ops[:PROFILE_TOP]]}
+
+
+def layer_probe_run(dev, one, meta_one, arch, step) -> dict:
+    """stablelm's layer probe at the prefill shape: its count (24 of its
+    FLOPs must not exceed the step's) and its warm time on the card, on
+    layer 0 of bf16 weights, against the step's."""
+    from dataclasses import replace
+
+    from repro_torch.launch.dryrun import count_built
+    from repro_torch.launch.steps import build_lm_layer_probe
+    from repro_torch.models import layer_slice, transformer
+
+    shape = arch.shapes["prefill"]
+    probe = build_lm_layer_probe(arch, shape, meta_one)
+    _, _, pcost = count_built(probe)
+    cfg = arch.model_cfg
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    params = transformer.init_params(replace(cfg, n_layers=1), MODEL_SEED, device=dev,
+                                     dtype=torch.bfloat16)
+    layer = layer_slice(params["layers"], 0)
+    x = torch.randn((B, S, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(MODEL_SEED))
+    built = build_lm_layer_probe(arch, shape, one)
+    timed(lambda: built.fn(x, layer))
+    ms = median_ms(lambda: built.fn(x, layer), 3)
+    L = cfg.n_layers
+    rec = {"flops": pcost.flops, "bytes_accessed": pcost.bytes_accessed, "ms": ms,
+           "layers_ms": L * ms, "step_ms": step["ms"], "layers_flops": L * pcost.flops,
+           "step_flops": step["cost"]["flops"]}
+    del params, layer, x
+    torch.cuda.empty_cache()
+    if L * pcost.flops > step["cost"]["flops"]:
+        raise AssertionError(f"analysis: {L} x the layer probe's FLOPs exceed the step's: {rec}")
+    return rec
+
+
+def analysis_phase(dev, smi: str) -> dict:
+    """The analysis tools on the card (see the module docstring): each
+    cell's dry-run count against its measured step, the kernels' reported
+    bytes against PERF.md's bounds, stablelm's layer probe and a profiled
+    prefill step."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, materialize_inputs
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    one = make_mesh((1, 1), ("data", "model"))
+    meta_one = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    report = {"kernel_bytes": kernel_bytes_checks(), "cells": {}}
+    log(f"analysis: counted kernel bytes 5b {report['kernel_bytes']['5b'] / 1e6:.2f} MB, "
+        f"6 {report['kernel_bytes']['6'] / 1e6:.2f} MB (PERF.md's bounds)")
+    lm = None
+    for tag, arch, shape, kernels, runs in analysis_cells():
+        rec = analysis_cell(dev, one, meta_one, tag, arch, shape, kernels, runs)
+        report["cells"][tag] = rec
+        c = rec["cost"]
+        log(f"analysis: {tag} {rec['shape']}: count {c['flops']:.4e} FLOP, "
+            f"{c['bytes_accessed'] / 1e9:.3f} GB, {c['transcendentals']:.4e} transcendentals "
+            f"({rec['count_s']:.1f} s on the host{', extrapolated ' + str(rec['extrapolated']) if rec['extrapolated'] else ''}); "
+            f"step {rec['ms']:.4f} ms (median of {len(rec['step_ms'])}, first {rec['first_ms']:.1f}); "
+            f"peak {rec['peak_bytes'] / 1e9:.2f} GB against reckoned arguments "
+            f"{rec['memory']['argument_bytes'] / 1e9:.2f} GB, peak/dev "
+            f"{rec['memory']['peak_per_device_gib']} GiB; bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} ({rec['compute_dtype']}), share {rec['share']:.4f}; launches "
+            f"{rec['launches']} ({smi})")
+        if tag == "two-tower serve_bulk":
+            got = rec["kernels"]["embedding_bag.embedding_bag"]["bytes_accessed"]
+            log(f"analysis: row 5 at serve_bulk counted {got / 1e6:.2f} MB ({got / HBM_BYTES_PER_S * 1e3:.4f} ms) "
+                f"beside {BAG_SERVE_BULK[0] / 1e6:.2f} MB for its distinct rows and "
+                f"{BAG_SERVE_BULK[1]:.4f} ms counting every lookup")
+        if tag == "two-tower train_batch":
+            k = rec["kernels"]["embedding_bag.embedding_bag_backward"]
+            if k["bytes_accessed"] != BAG_5B_BYTES * k["launches"]:
+                raise AssertionError(f"analysis: the train step's bag backward counted {k}")
+        if tag == "stablelm prefill":
+            lm = arch
+            report["probe"] = pr = layer_probe_run(dev, one, meta_one, arch, rec)
+            log(f"analysis: stablelm layer probe at B 4 x S 4096: {pr['flops']:.4e} FLOP, "
+                f"{pr['ms']:.3f} ms; x {arch.model_cfg.n_layers} = {pr['layers_ms']:.1f} ms "
+                f"against the step's {pr['step_ms']:.1f} ms, {pr['layers_flops']:.4e} FLOP "
+                f"against {pr['step_flops']:.4e}")
+    built = build_step(lm, "prefill", one)
+    args = materialize_inputs(lm, "prefill", built, seed=MODEL_SEED)
+    report["profile"] = prof = profiled_step(lambda: built.fn(*args))
+    del args, built
+    torch.cuda.empty_cache()
+    log(f"analysis: stablelm prefill under torch.profiler: {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['busy_ms']:.1f} ms ({prof['busy_share']:.4f}), idle {prof['idle_share']:.4f}; top "
+        + ", ".join(f"{t['op']} {t['device_ms']:.1f} ms x{t['calls']}" for t in prof["top"]))
+    report["launches"] = {}
+    for r in report["cells"].values():
+        for k, v in r["launches"].items():
+            report["launches"][k] = report["launches"].get(k, 0) + v
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"analysis: phase {report['seconds']:.1f} s")
+    return report
+
+
 def kernel_entry(name, source, replaces, launches, err, rec, extra) -> dict:
     """One kernel of the kernels line, from its primary shape's record."""
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -4550,6 +4822,7 @@ def main() -> int:
     multi = multidevice_phase(dev, train, gnn, stream_batches)
     del stream_batches
     tp = tp_phase(dev, smi)
+    analysis = analysis_phase(dev, smi)
     qt5 = kern["shapes"]["qt5"]
     sh, n = lib["shapes"], lib["launches"]
     heavy, bag = FULL_SHAPES[-1][0], f"B{BAG_BATCHES[-1]}"  # each kernel's primary shape
@@ -4606,6 +4879,7 @@ def main() -> int:
                       "launches_models": models["launches"]["embedding_bag.embedding_bag"],
                       "launches_train": train["twotower"]["launches"]["embedding_bag.embedding_bag"],
                       "launches_multidevice": multi["launches"]["embedding_bag.embedding_bag"],
+                      "launches_analysis": analysis["launches"]["embedding_bag.embedding_bag"],
                       "models_serve_bulk": {k: models["bag_serve_bulk"][k] for k in (
                           "B", "S", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
                           "bound_by", "bound_all_lookups_ms")}}),
@@ -4616,6 +4890,8 @@ def main() -> int:
                      train["max_abs_err"], train["twotower"]["bag_backward"],
                      {"matches_plain": "bitwise, against the plain version on the host",
                       "launches_multidevice": multi["launches"][
+                          "embedding_bag.embedding_bag_backward"],
+                      "launches_analysis": analysis["launches"][
                           "embedding_bag.embedding_bag_backward"],
                       "long_launches": train["twotower"]["launches"][
                           "embedding_bag.embedding_bag_backward long"],
@@ -4629,6 +4905,7 @@ def main() -> int:
                      gnn["segment_sum"]["sampler C64"],
                      {"matches_plain": "bitwise, against the plain version on the host",
                       "launches_multidevice": multi["launches"]["segment_sum.segment_sum"],
+                      "launches_analysis": analysis["launches"]["segment_sum.segment_sum"],
                       "long_launches_multidevice": multi["launches"]["segment_sum.segment_sum long"],
                       "shape": {k: gnn["segment_sum"]["sampler C64"][k] for k in ("E", "N", "C")},
                       "long_launches": sum(rec["launches"]["segment_sum.segment_sum long"]
@@ -4649,7 +4926,8 @@ def main() -> int:
             {"nvidia_smi": smi, "build_s": built, "kernel": kern, "library": lib,
              "serve": serve, "compressed": comp, "load": load, "compressed_steps": steps,
              "segmented": segmented, "sharded": sharded, "tune": tuned, "models": models,
-             "train": train, "gnn": gnn, "search": search, "multidevice": multi, "tp": tp},
+             "train": train, "gnn": gnn, "search": search, "multidevice": multi, "tp": tp,
+             "analysis": analysis},
             indent=1, default=float))
     print(smi)
     print(json.dumps(line))

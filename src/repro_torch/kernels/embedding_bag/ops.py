@@ -9,6 +9,15 @@ version :func:`embedding_bag_plain`. There is no knob that routes a CUDA
 tensor to the plain version and no fallback from a failed kernel to it.
 ``embedding_bag.launches`` counts the kernel launches.
 
+Under a cost count (:mod:`repro_torch.obs.cost`) the forward and the
+backward report their work and return uninitialised outputs, launching
+nothing. The forward reads the ids (and weights) once, each table row the
+ids can reach once (min(V, B S) rows: PERF.md's bound counts the distinct
+rows, which depend on the ids' values) and writes the bags; the backward
+writes the (V, D) gradient once and reads g' and the ids (and weights)
+once, PERF.md's bound. Each does a multiply and an add per (lookup,
+column).
+
 Both follow the reference kernel's rounding: each float32 weight is
 rounded to the table's type (the TPU kernel scales its one-hot rows in
 that type), products and their sum over the bag are float32, ``mean``
@@ -51,6 +60,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import as_tensor
+from repro_torch.obs.cost import counting, kernel_work
 from repro_torch.kernels.segment_sum import segment_plan
 from repro_torch.kernels.segment_sum.ops import long_args
 
@@ -127,6 +137,13 @@ def embedding_bag(ids, table, weights=None, combine: str = "sum", *,
 
 def _forward(ids, table, weights, combine: str) -> torch.Tensor:
     """The checked forward: the kernel on a card, the plain version on the CPU."""
+    if counting():
+        (B, S), (V, D) = ids.shape, table.shape
+        es = table.element_size()
+        kernel_work("embedding_bag.embedding_bag", flops=2 * B * S * D,
+                    bytes_accessed=4 * B * S * (1 if weights is None else 2)
+                    + min(V, B * S) * D * es + B * D * es)
+        return torch.empty((B, D), dtype=table.dtype, device=table.device)
     if not table.is_cuda:
         return embedding_bag_plain(ids, table, weights, combine)
     if table.dtype not in KERNEL_DTYPES:
@@ -222,6 +239,12 @@ def embedding_bag_backward(ids, grad_out, num_rows: int, weights=None,
     row written; on the CPU :func:`embedding_bag_backward_plain`. The two
     agree bit for bit."""
     _check_backward(ids, grad_out, num_rows, weights, combine)
+    if counting():
+        (B, S), D = ids.shape, grad_out.shape[1]
+        kernel_work("embedding_bag.embedding_bag_backward", flops=2 * B * S * D,
+                    bytes_accessed=num_rows * D * 4 + B * D * 4
+                    + 4 * B * S * (1 if weights is None else 2))
+        return torch.empty((num_rows, D), dtype=torch.float32, device=grad_out.device)
     if not grad_out.is_cuda:
         return embedding_bag_backward_plain(ids, grad_out, num_rows, weights, combine)
     if num_rows >= 2**31 - 1 or ids.numel() >= 2**31 - 1 or grad_out.shape[1] > 2**23:

@@ -30,6 +30,14 @@ the Pallas kernel. ``k_tiles=None`` scans all of ``b``. ``use_pallas`` and
 :func:`repro_torch.kernels.intersect.ref.intersect_idx_ref`. Entry points
 given numpy arrays run on ``device``, the card unless the caller names
 another.
+
+Under a cost count (:mod:`repro_torch.obs.cost`) the entry points report
+their work and return uninitialised outputs, launching nothing:
+PERF.md's bound, each input byte read and each output byte written once
+(a and b, or the five streams; the mask and the index), and its
+operations, 2 (raw) or 3 (delta16) per element of a and b. The packer
+of :func:`intersect_sorted_compressed` then skips its span check, which
+reads a value back.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from repro_torch.kernels.common import (
     resolve_k_tiles,
     window_bounds,
 )
+from repro_torch.obs.cost import counting, kernel_work
 
 DEFAULT_BLOCK_A = 512
 DEFAULT_BLOCK_B = 1024
@@ -140,6 +149,11 @@ def intersect_sorted(a, b, *, block_a: int = DEFAULT_BLOCK_A, block_b: int = DEF
     b = as_tensor(b, torch.int32, a.device)
     check_sorted_pair(a, b, block_a, block_b)
     k = resolve_k_tiles(cdiv(b.shape[0], block_b), k_tiles)
+    if counting():
+        na, nb = a.shape[0], b.shape[0]
+        kernel_work("intersect.intersect_sorted", flops=2 * (na + nb),
+                    bytes_accessed=4 * na + 4 * nb + 5 * na)
+        return torch.empty_like(a, dtype=torch.bool), torch.empty_like(a)
     if not a.is_cuda:
         return intersect_plain(a, b, block_a=block_a, block_b=block_b, k_tiles=k)
     mask = torch.empty_like(a, dtype=torch.bool)
@@ -248,7 +262,7 @@ def pack_compressed_torch(a, b, *, block_a: int = DEFAULT_BLOCK_A,
     a_base, a_delta, a_span = _pack_delta(a, la)
     b_base, b_delta, b_span = _pack_delta(b, lb)
     spans = [s for s in (a_span, b_span) if s is not None]
-    if spans and int(torch.stack(spans).max()) >= PAD_DELTA:
+    if spans and not counting() and int(torch.stack(spans).max()) >= PAD_DELTA:
         raise ValueError("in-block span exceeds uint16")
     firsts = a_base[::block_a // DELTA_BLK].long()
     starts = (torch.searchsorted(b, firsts) // block_b).to(torch.int32)
@@ -332,6 +346,10 @@ def intersect_compressed_streams(a_base, a_delta, b_base, b_delta, starts, *,
     la, lb = _check_streams(a_base, a_delta, b_base, b_delta, starts, block_a, block_b)
     k = resolve_k_tiles(lb // block_b, k_tiles)
     streams = [t.contiguous() for t in (a_base, a_delta, b_base, b_delta, starts)]
+    if counting():
+        kernel_work("intersect.intersect_compressed_streams", flops=3 * (la + lb),
+                    bytes_accessed=sum(t.numel() * t.element_size() for t in streams) + la)
+        return torch.empty_like(a_delta, dtype=torch.bool)
     if not a_delta.is_cuda:
         return intersect_compressed_plain(*streams, la, block_a=block_a, block_b=block_b,
                                           k_tiles=k)

@@ -25,6 +25,9 @@ Preconditions shared with the rest of the serve path: rows are sorted
 ascending, strictly increasing on real values, SENTINEL-padded; ns_r
 multiplicities are <= r_max (the packers guarantee both). Anchors need
 not be sorted.
+
+Under a cost count (:mod:`repro_torch.obs.cost`) :func:`window_join`
+reports its work and returns uninitialised outputs, launching nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import SENTINEL, cdiv
+from repro_torch.obs.cost import counting, kernel_work
 
 BIG_DIST = 2**30
 R_MAX_LIMIT = 8  # the kernel is instantiated for r_max in 1..8
@@ -146,6 +150,8 @@ def window_join(a_g, ns_g, ns_r, st_cnt=None, st_ext=None, st_r=None, *,
     makes no host synchronisation, and such a lane reads at most
     ``r_max`` candidates per side.
     """
+    if counting():
+        return _counted(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, r_max)
     if not ns_r.is_cuda and ns_r.numel() and int(ns_r.max()) > r_max:
         raise ValueError(f"ns_r holds a multiplicity above r_max={r_max}")
     if a_g.is_cuda:
@@ -156,6 +162,24 @@ def window_join(a_g, ns_g, ns_r, st_cnt=None, st_ext=None, st_r=None, *,
 
 
 window_join.launches = 0
+
+
+def _counted(a_g, ns_g, ns_r, st_cnt, st_ext, st_r, r_max: int):
+    """The join's work under a cost count, with uninitialised outputs and
+    no launch (and no multiplicity check, which reads ``ns_r``): every
+    input byte read once and the (valid, lo, hi) lanes written once, since
+    the bound's count of what the inputs need depends on their values;
+    the operations of every (lane, key) pair, as if each were reached."""
+    B, Kn, L = ns_g.shape
+    Ks = 0 if st_cnt is None else st_cnt.shape[1]
+    read = sum(t.numel() * t.element_size()
+               for t in (a_g, ns_g, ns_r, st_cnt, st_ext, st_r) if t is not None)
+    kernel_work("nearest_r.window_join", flops=B * (Kn + Ks) * L * (2 + 4 * r_max + 4 * r_max**2),
+                bytes_accessed=read + B * L * (1 + 4 + 4))
+    dev = a_g.device
+    return (torch.empty((B, L), dtype=torch.bool, device=dev),
+            torch.empty((B, L), dtype=torch.int32, device=dev),
+            torch.empty((B, L), dtype=torch.int32, device=dev))
 
 
 def _check(name, t, shape, device):

@@ -20,6 +20,11 @@ gone: the reference's ``use_pallas=False`` oracle is
 are taken in 64 bits, where the Pallas kernel's int32 ``a - b`` can wrap
 for values far apart. Entry points given numpy arrays run on ``device``,
 the card unless the caller names another.
+
+Under a cost count (:mod:`repro_torch.obs.cost`) :func:`proximity_join`
+reports its work and returns uninitialised outputs, launching nothing:
+PERF.md's bound, a and b read once, the mask and both bounds written once,
+4 operations per element of a and b.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from repro_torch.kernels.common import (
     resolve_k_tiles,
     window_bounds,
 )
+from repro_torch.obs.cost import counting, kernel_work
 
 DEFAULT_BLOCK_A = 512
 DEFAULT_BLOCK_B = 1024
@@ -101,6 +107,12 @@ def proximity_join(a, b, d: int, *, block_a: int = DEFAULT_BLOCK_A,
     k = resolve_k_tiles(cdiv(b.shape[0], block_b), k_tiles)
     if abs(int(d)) >= 2**31:
         raise ValueError(f"d out of int32 range: {d}")
+    if counting():
+        na, nb = a.shape[0], b.shape[0]
+        kernel_work("proximity.proximity_join", flops=4 * (na + nb),
+                    bytes_accessed=4 * na + 4 * nb + 9 * na)
+        return (torch.empty_like(a, dtype=torch.bool), torch.empty_like(a),
+                torch.empty_like(a))
     if not a.is_cuda:
         return proximity_plain(a, b, d, block_a=block_a, block_b=block_b, k_tiles=k)
     mask = torch.empty_like(a, dtype=torch.bool)

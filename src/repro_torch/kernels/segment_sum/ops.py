@@ -29,6 +29,14 @@ Two ``torch.autograd.Function``s keep every scatter of a model on the
 kernel: :class:`SegmentSum` (its backward a gather ``grad[ids]``) and
 :class:`GatherRows`, ``x[ids]`` (its backward the segment sum by
 ``ids``). float32 only; other types raise TypeError.
+
+Under a cost count (:mod:`repro_torch.obs.cost`) the entry point reports
+its work and returns an uninitialised output, launching nothing: the
+rows, the sorted index and the offsets read once and the output written
+once (PERF.md's bound in bytes; its chain bound, the longest segment,
+depends on the ids' values and is not counted), one add per term and
+column. The plan (sort, offsets, long list) is torch ops and counts as
+such.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.obs.cost import counting, kernel_work
 
 INT32_MAX = 2**31 - 1
 LONG_TERMS = 64  # a segment of more terms goes to the kernel's long path
@@ -135,6 +145,12 @@ def _forward(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     rows = _rows(data, plan.ids.shape[0])
     if plan.ids.device != data.device:
         raise ValueError(f"segment ids are on {plan.ids.device}, the data on {data.device}")
+    if counting():
+        (E, C), n = rows.shape, plan.num_segments
+        kernel_work("segment_sum.segment_sum", flops=E * C,
+                    bytes_accessed=E * C * 4 + E * 4 + (n + 1) * 4 + n * C * 4)
+        return torch.empty((n,) + tuple(data.shape[1:]), dtype=torch.float32,
+                           device=data.device)
     if not data.is_cuda:
         return segment_sum_plain(data, plan.ids, plan.num_segments)
     rows = rows.contiguous()

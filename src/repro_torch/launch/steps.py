@@ -46,9 +46,11 @@ A train step is ``(params, opt_state, batch) -> (params, opt_state,
 and returns them: the reference's jitted step donates them, and at full
 width there is no room for a second copy.
 
-``build_lm_layer_probe`` raises ``NotImplementedError`` naming the slice
-that ports it. ``REPRO_KV_INT8=1`` (the quantized decode cache),
-``REPRO_PAD_HEADS=1``, ``REPRO_MICRO_STACK_GIB``, ``REPRO_BF16_GATHER``
+:func:`build_lm_layer_probe` builds one transformer layer with the
+cell's placement, the roofline's per-layer cost (``launch/dryrun.py``).
+:func:`placed_args` gives a built step's abstract arguments where it
+expects them, for a count on ``meta``. ``REPRO_KV_INT8=1`` (the
+quantized decode cache), ``REPRO_PAD_HEADS=1``, ``REPRO_MICRO_STACK_GIB``, ``REPRO_BF16_GATHER``
 and ``REPRO_SEARCH_COMPRESSED`` are read where the reference reads them.
 """
 
@@ -65,8 +67,8 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.recsys_archs import N_NEG
 from repro_torch.kernels.common import SENTINEL
 from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
-from repro_torch.parallel import Sharded
-from repro_torch.models import gnn, n_params, recsys, transformer, value_and_grad
+from repro_torch.parallel import MeshPlan, Sharded
+from repro_torch.models import gnn, n_params, recsys, torch_dtype, transformer, value_and_grad
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
 F32 = torch.float32
@@ -121,15 +123,17 @@ def place_leaf(x: torch.Tensor, spec: tuple, mesh, replicas: bool = False):
     its ``model`` axis, each block a contiguous tensor on its grid device
     (a ``Sharded``). A leaf not split over the data rows is kept on the
     first one, or with ``replicas`` (serving) once per data shard where
-    the data shards' devices differ, so that no step copies weights
-    between them; a leaf kept in one block stays whole on the lead
+    the data shards' devices differ (always on a mesh of ``meta``
+    entries, which stands for distinct devices), so that no step copies
+    weights between them; a leaf kept in one block stays whole on the lead
     device."""
     grid = mesh.grid()
     axes = (_axis_of(spec, "data"), _axis_of(spec, "model"))
     cols = grid.shape[1] if axes[1] is not None else 1
+    differ = (grid[:, :cols] != grid[:1, :cols]).any() or grid[0, 0].type == "meta"
     if axes[0] is not None:
         rows = mesh.shape.get("data", 1)
-    elif replicas and (grid[:, :cols] != grid[:1, :cols]).any():
+    elif replicas and differ:
         rows = grid.shape[0]
     else:
         rows = 1
@@ -190,7 +194,9 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         micro_local = b_local
         while micro_local > 1 and stack_bytes(micro_local) > stack_gib * 2**30:
             micro_local //= 2
-        n_micro = b_local // micro_local
+        # a shape may fix the count (the dry run's counts at one and two
+        # microbatches of the full shape's microbatch size)
+        n_micro = dims.get("n_micro", b_local // micro_local)
         meta["n_micro"] = n_micro
         bf16_gather = os.environ.get("REPRO_BF16_GATHER", "1") != "0"
         meta["bf16_gather"] = bf16_gather
@@ -227,10 +233,86 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
                             _abstract((), I32)), meta)
 
 
+def _unit_layer(c):
+    """A one-layer cache (or a ``Sharded`` of them) as a stack of one
+    layer: views, so writes land in it."""
+    if isinstance(c, Sharded):
+        return Sharded([s.unsqueeze(0) for s in c.shards], c.grid,
+                       tuple(None if a is None else a + 1 for a in c.axes), c.spans)
+    return c.unsqueeze(0)
+
+
 def build_lm_layer_probe(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
-    raise NotImplementedError(
-        "the single-layer probe feeds the HLO roofline analysis, which comes with the "
-        "profiler-driven analysis slice")
+    """One transformer layer with the cell's placement (its TP layer over
+    the mesh, the weights per ``param_pspecs(cfg, tp, stacked=False)``, as
+    :func:`place_params` places them), as the reference's probe builds it
+    to give the roofline a layer's cost:
+
+    * ``train``: ``(x, layer) -> (loss, (dx, dlayer))``, the loss
+      ``sum(y.float()) + aux``;
+    * ``prefill``: ``(x, layer) -> (y, cache)``;
+    * ``decode``: ``(x, layer, cache, position) -> (y, cache)``, the cache
+      (B, S, Hkv, Dh) bf16 whatever ``REPRO_KV_INT8`` says (as the
+      reference's probe), updated in place.
+
+    ``x`` is (B, S, d_model) in the compute type ((B, 1, d_model) for
+    decode) and the layer's weights float32, abstract on ``meta``. Over a
+    mesh of several shards ``y`` comes back on the mesh's lead device and
+    the cache as each shard's, [d][r]."""
+    cfg = arch.model_cfg
+    dp_ax = dp_axes_of(mesh)
+    tp = tp_size(mesh)
+    B, S = shape.dims["global_batch"], shape.dims["seq_len"]
+    dt = torch_dtype(cfg.dtype)
+    layer_abs = transformer._layer_init(cfg, generator=None, device=META)
+    meta = {"n_layers": 1, "cfg": cfg, "mesh": mesh, "kind": shape.kind, "device": mesh.lead,
+            "probe": True, "pspecs": transformer.param_pspecs(cfg, tp, stacked=False)["layers"]}
+    one = transformer._one_device(mesh)
+    plan = MeshPlan(mesh, dp_ax) if one else transformer._Plan(cfg, mesh, dp_ax)
+    block = transformer._block(cfg, plan) if one else None
+
+    def layer(x, p_l, cache=None, position=0):
+        """(y, the cache(s), aux) of the layer at ``x``."""
+        if one:
+            return block(x, p_l, cache_l=cache, position=position)
+        cols = plan.tp if plan.attn else 1
+        views = None
+        if cache is not None:
+            views = transformer._cache_views(
+                plan, {k: _unit_layer(v) for k, v in cache.items()}, 0, cols)
+        ys, aux, caches = transformer._mesh_layer(cfg, plan, p_l, plan.split_batch(x),
+                                                  views, position)
+        y = ys[0] if len(ys) == 1 else torch.cat([t.to(plan.mesh_lead) for t in ys])
+        return y, (cache if cache is not None else caches), aux
+
+    if shape.kind == "train":
+        def probe(x, p_l):
+            def f(args):
+                y, _, aux = layer(args["x"], args["p"])
+                return torch.sum(y.float()) + aux
+
+            loss, grads = value_and_grad(f, {"x": x, "p": p_l})
+            return loss, (grads["x"], grads["p"])
+
+        return BuiltStep(probe, (_abstract((B, S, cfg.d_model), dt), layer_abs), meta)
+
+    if shape.kind == "prefill":
+        def probe(x, p_l):
+            y, cache, _ = layer(x, p_l)
+            return y, cache
+
+        return BuiltStep(probe, (_abstract((B, S, cfg.d_model), dt), layer_abs), meta)
+
+    meta["cache_pspecs"] = transformer.cache_pspecs(cfg, tp, dp_ax, seq_len=S)
+    cache_abs = {k: _abstract((B, S, cfg.n_kv, cfg.head_dim), torch.bfloat16)
+                 for k in ("k", "v")}
+
+    def probe(x, p_l, cache_l, position):
+        y, new_cache, _ = layer(x, p_l, cache_l, position)
+        return y, new_cache
+
+    return BuiltStep(probe, (_abstract((B, 1, cfg.d_model), dt), layer_abs, cache_abs,
+                             _abstract((), I32)), meta)
 
 
 # ==========================================================================
@@ -362,12 +444,13 @@ def place_params(built: BuiltStep, params):
             for k, v in params.items()}
 
 
-def place_caches(built: BuiltStep, caches: dict) -> dict:
+def place_caches(built: BuiltStep, caches: dict, stacked: bool = True) -> dict:
     """A decode step's whole caches per its ``meta["cache_pspecs"]``: block
     (d, r) of each a contiguous tensor on ``grid[d, r]``, data shard d's
     batch rows and the kv heads model shard r's q heads read (shared kv
     heads copied into each shard that reads them); whole tensors on the
-    lead device of a (1, 1) grid."""
+    lead device of a (1, 1) grid. ``stacked=False``: one layer's caches
+    (a layer probe's), without the layer axis."""
     mesh = built.meta["mesh"]
     grid = mesh.grid()
     spec = built.meta["cache_pspecs"]["k"]
@@ -377,8 +460,34 @@ def place_caches(built: BuiltStep, caches: dict) -> dict:
     spans = None
     if cols > 1:
         spans = transformer.head_spans(built.meta["cfg"], cols)[1]
-    return {k: Sharded.split(v, grid[:, :cols], (1, 3 if cols > 1 else None), spans)
+    lead = 1 if stacked else 0
+    return {k: Sharded.split(v, grid[:, :cols], (lead, lead + 2 if cols > 1 else None), spans)
             for k, v in caches.items()}
+
+
+def placed_args(built: BuiltStep) -> tuple:
+    """A built step's abstract arguments where it expects them, for a cost
+    count on ``meta``: the parameters by :func:`place_params` (a layer
+    probe's layer likewise) and a train step's optimizer state made from
+    them; a decode step's caches by :func:`place_caches` and its position
+    the cache's last row, S - 1 (the step then attends over the whole
+    cache, as the reference's program does at every position)."""
+    args = list(built.args)
+    meta = built.meta
+    if meta.get("probe"):
+        args[1] = _place_tree(args[1], meta["pspecs"], meta["mesh"],
+                              replicas=meta["kind"] != "train")
+        if meta["kind"] == "decode":
+            args[2] = place_caches(built, args[2], stacked=False)
+            args[3] = built.args[2]["k"].shape[1] - 1
+        return tuple(args)
+    args[0] = place_params(built, args[0])
+    if len(args) == 3 and isinstance(args[1], dict) and "step" in args[1]:
+        args[1] = init_opt_state(args[0])
+    if "cache_pspecs" in meta:
+        args[2] = place_caches(built, args[2])
+        args[3] = built.args[2]["k"].shape[2] - 1
+    return tuple(args)
 
 
 def _recsys_batch(cfg, arch_kind: str, kind: str, dims: dict) -> dict:

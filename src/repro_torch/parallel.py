@@ -18,6 +18,18 @@ and backward, is one made in shard order on one device:
   gradients in group order and hands each block its slice on its own
   device (the reduce-scatter).
 
+Each of the four notes what it copies in every :func:`copy_record` that
+is open, by kind (the reference's collective names where the collective
+is the same): ``replicate`` a ``broadcast`` and its backward a
+``reduce``; ``sum_to_lead`` an ``all-reduce`` and its backward a
+``broadcast``; ``split_rows`` a ``scatter`` and its backward a
+``gather``; ``gather_blocks`` an ``all-gather`` and its backward a
+``reduce-scatter``. The bytes are those a mesh of distinct devices would
+move, counted by shard index and not by what was copied here: on a mesh
+whose shards share a device (a dry run's ``meta`` entries, one card in
+several shards) every shard other than the source's receives its part.
+A tensor lives on the first shard whose device is its own (or on none).
+
 Left to plain ``.to(device)`` under autograd, a tensor used on several
 distinct devices would get its gradients added by autograd's per-device
 threads in whatever order they finish. Where a shard's device is the
@@ -29,11 +41,53 @@ hands each device of a step the blocks it uses.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+
+@dataclass
+class CopyRecord:
+    """Bytes copied between shards by kind, and how many copies."""
+
+    bytes: dict = field(default_factory=dict)
+    count: int = 0
+
+
+_RECORDS: list = []  # the open copy records
+
+
+@contextlib.contextmanager
+def copy_record():
+    """A :class:`CopyRecord` of every copy the collectives make inside the
+    block, forward and backward."""
+    rec = CopyRecord()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _note(kind: str, nbytes: int, copies: int) -> None:
+    if nbytes:
+        for rec in _RECORDS:
+            rec.bytes[kind] = rec.bytes.get(kind, 0) + int(nbytes)
+            rec.count += copies
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _at(device, devices) -> int | None:
+    """The shard a tensor on ``device`` lives on among ``devices``: the
+    first whose device it is, None where there is none."""
+    device = torch.device(device)
+    return next((i for i, d in enumerate(devices) if torch.device(d) == device), None)
 
 
 def _view_or_copy(x: torch.Tensor, device) -> torch.Tensor:
@@ -44,10 +98,14 @@ class _Replicate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices):
         ctx.source = x.device
+        copies = len(devices) - (_at(x.device, devices) is not None)
+        ctx.moved = (copies * _nbytes(x), copies)
+        _note("broadcast", *ctx.moved)
         return tuple(_view_or_copy(x, d) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
+        _note("reduce", *ctx.moved)
         total = None
         for g in grads:
             g = g.to(ctx.source)
@@ -59,6 +117,10 @@ class _SumToLead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lead, *parts):
         ctx.devices = [p.device for p in parts]
+        home = _at(lead, ctx.devices)
+        moved = [_nbytes(p) for i, p in enumerate(parts) if i != home]
+        ctx.moved = (sum(moved), len(moved))
+        _note("all-reduce", *ctx.moved)
         total = _view_or_copy(parts[0], lead)
         for p in parts[1:]:
             total = total + p.to(lead)
@@ -66,6 +128,7 @@ class _SumToLead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        _note("broadcast", *ctx.moved)
         return (None, *(grad.to(d) for d in ctx.devices))
 
 
@@ -73,11 +136,16 @@ class _SplitRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices):
         ctx.source = x.device
-        return tuple(_view_or_copy(block, d)
-                     for block, d in zip(x.chunk(len(devices)), devices))
+        blocks = x.chunk(len(devices))
+        home = _at(x.device, devices)
+        moved = [_nbytes(b) for i, b in enumerate(blocks) if i != home]
+        ctx.moved = (sum(moved), len(moved))
+        _note("scatter", *ctx.moved)
+        return tuple(_view_or_copy(block, d) for block, d in zip(blocks, devices))
 
     @staticmethod
     def backward(ctx, *grads):
+        _note("gather", *ctx.moved)
         return torch.cat([g.to(ctx.source) for g in grads]), None
 
 
@@ -106,16 +174,23 @@ def split_rows(x: torch.Tensor, devices) -> list:
 
 class _GatherBlocks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, axis, devices, *blocks):
+    def forward(ctx, axis, devices, moved, *blocks):
         ctx.axis = axis
         ctx.homes = [b.device for b in blocks]
         ctx.sizes = [b.shape[axis] for b in blocks]
+        if moved is None:  # block i lives on the first target of its device
+            homes = [_at(h, devices) for h in ctx.homes]
+            sent = [b for t in range(len(devices)) for b, h in zip(blocks, homes) if h != t]
+            moved = (sum(map(_nbytes, sent)), len(sent))
+        ctx.moved = moved
+        _note("all-gather", *moved)
         if len(blocks) == 1:
             return tuple(_view_or_copy(blocks[0], d) for d in devices)
         return tuple(torch.cat([b.to(d) for b in blocks], axis) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
+        _note("reduce-scatter", *ctx.moved)
         out, start = [], 0
         for home, size in zip(ctx.homes, ctx.sizes):
             total = None
@@ -124,15 +199,17 @@ class _GatherBlocks(torch.autograd.Function):
                 total = g if total is None else total + g
             out.append(total)
             start += size
-        return (None, None, *out)
+        return (None, None, None, *out)
 
 
-def gather_blocks(blocks, axis: int, devices) -> list:
+def gather_blocks(blocks, axis: int, devices, moved=None) -> list:
     """The blocks concatenated along ``axis`` on each of ``devices`` (a
     view where there is one block and the device is its own); block i's
     gradient is the slice of each device's gradient that it gave, added in
-    device order on block i's device."""
-    return list(_GatherBlocks.apply(axis, [torch.device(d) for d in devices], *blocks))
+    device order on block i's device. ``moved`` is what the copy records
+    note, (bytes, copies), where the caller knows the shards better than
+    the devices tell (:meth:`MeshPlan.views`)."""
+    return list(_GatherBlocks.apply(axis, [torch.device(d) for d in devices], moved, *blocks))
 
 
 def _spans(n: int, parts: int) -> list:
@@ -281,9 +358,11 @@ class MeshPlan:
         (split as the step takes it); one kept whole is sliced. FSDP row
         blocks are gathered onto every data shard, and replica rows give
         data shard d its own. Each gather runs once per distinct device
-        (:func:`gather_blocks`)."""
+        (once per grid position while a copy record is open:
+        :func:`gather_blocks`)."""
+        whole = None
         if not isinstance(leaf, Sharded):
-            leaf = Sharded([leaf], (1, 1), (None, None))
+            leaf = whole = Sharded([leaf], (1, 1), (None, None))
         split = leaf.grid[1] > 1
         if split and (cols != leaf.grid[1] or axis != leaf.axes[1]
                       or [tuple(s) for s in leaf.spans] != [tuple(s) for s in spans]):
@@ -299,19 +378,32 @@ class MeshPlan:
         for rows, shards in groups:
             for j in (range(cols) if split else [0]):
                 targets = [(d, r) for d in shards for r in ([j] if split else range(cols))]
-                got = self._gather([leaf.block(i, j) for i in rows], leaf.axes[0],
-                                   [self.grid[d, r] for d, r in targets])
+                blocks = [leaf.block(i, j) for i in rows]
+                homes = [(i, j) for i in rows] if leaf is not whole else [self._home(blocks[0])]
+                got = self._gather(blocks, homes, leaf.axes[0], targets)
                 for (d, r), t in zip(targets, got):
                     if not split and spans is not None:
                         t = t.narrow(axis, spans[r][0], spans[r][1] - spans[r][0])
                     out[d][r] = t
         return out
 
-    @staticmethod
-    def _gather(blocks, axis, targets) -> list:
-        uniq = list(dict.fromkeys(targets))
-        got = gather_blocks(blocks, 0 if axis is None else axis, uniq)
-        return [got[uniq.index(t)] for t in targets]
+    def _home(self, x: torch.Tensor):
+        """The grid position of the first shard on ``x``'s device, or None."""
+        hits = np.argwhere(np.vectorize(lambda d: d == x.device)(self.grid))
+        return tuple(int(i) for i in hits[0]) if len(hits) else None
+
+    def _gather(self, blocks, homes, axis, targets) -> list:
+        """The blocks (block i at grid position ``homes[i]``) gathered onto
+        each target position: once per distinct device, or, while a copy
+        record is open, once per position, as a mesh of distinct devices
+        gathers them."""
+        moved = [_nbytes(b) for t in targets for b, h in zip(blocks, homes) if h != t]
+        devices = [self.grid[t] for t in targets]
+        keys = targets if _RECORDS else devices
+        uniq = list(dict.fromkeys(keys))
+        got = gather_blocks(blocks, 0 if axis is None else axis,
+                            [devices[keys.index(k)] for k in uniq], (sum(moved), len(moved)))
+        return [got[uniq.index(k)] for k in keys]
 
     def tree_views(self, tree: dict, cols: int, how: dict) -> list:
         """``views`` of each leaf of a dict -> [d][r] dicts; ``how[name]``

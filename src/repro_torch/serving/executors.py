@@ -27,7 +27,10 @@ a response's phase breakdown sums to its end-to-end latency. PyTorch runs
 eagerly, so there is no ahead-of-time compile: the first execution of a
 (kind, B, L) triple runs the step once as a warm-up (kernel build and
 load, allocator growth, first-launch costs), timed as the ``compile``
-phase, and its ``cost_summaries`` entry is None. Later calls skip it, so
+phase, and fills its ``cost_summaries`` entry: the cost pass
+(:mod:`repro_torch.obs.cost`) over one call of the step on ``meta``
+tensors of the batch's shapes, on the host, never on the card and never
+on a warm call. Later calls skip it, so
 the ``serve.step.<family>.B<B>.L<L>`` histograms measure run time only.
 On a card the ``execute`` phase ends with ``torch.cuda.synchronize`` on
 every device of the mesh.
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.torch_search import (
+    ShardedStep,
     assemble_qt1_compressed,
     assemble_qt2_compressed,
     assemble_qt34_compressed,
@@ -67,7 +71,9 @@ from repro_torch.core.torch_search import (
     pack_qt34_batch,
     pack_qt5_batch,
 )
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.obs.cost import count, to_meta
 from repro_torch.serving.planner import (
     PAYLOAD_DELTA16,
     PAYLOAD_OFFSETS,
@@ -132,6 +138,18 @@ def _sync(devices) -> None:
             torch.cuda.synchronize(device)
 
 
+def _cost_summary(step, placed) -> dict:
+    """The cost pass's ``{"flops", "bytes_accessed", "transcendentals"}``
+    of one call of ``step`` (a ``LocalStep`` or ``ShardedStep``) on
+    ``meta`` tensors shaped like the placed batch: a sharded step runs
+    over a mesh of ``meta`` entries of its grid's shape."""
+    if isinstance(step, ShardedStep):
+        mesh = make_mesh(step.grid.shape, ("data", "model"), devices=["meta"] * step.grid.size)
+        step = ShardedStep(step.local, step.specs, mesh, step.top_k)
+    _, cost = count(step.run, to_meta(placed))
+    return cost.summary()
+
+
 class CompiledExecutor:
     """Packs, compresses and executes padded batches on the per-(step
     kind, B-bucket, L-bucket) serve steps, over one device mesh (a
@@ -141,8 +159,10 @@ class CompiledExecutor:
     batch count — the engine-stats surface tests assert B-bucket
     sharing on; ``stats["shared_batches"]`` counts qt34 groups served
     on qt5 steps. ``compile_times`` holds the first-call warm-up
-    wall-clock per triple (``cost_summaries`` maps each to None: there is
-    no compiler cost analysis); measured run times stream into the
+    wall-clock per triple, ``cost_summaries`` each one's counted
+    ``{"flops", "bytes_accessed", "transcendentals"}`` (the reference's
+    ``xla_cost_summary`` keys; its ``optimal_seconds`` has no
+    counterpart); measured run times stream into the
     metrics registry as ``serve.step.<family>.B<B>.L<L>`` histograms
     (µs)."""
 
@@ -310,19 +330,19 @@ class CompiledExecutor:
     # -- warm-up-vs-run split ----------------------------------------------
     def _warm_up(self, key, kind, step, args) -> bool:
         """First call per (kind, B, L) triple: run the step once and wait
-        for it (the ``compile`` phase: kernel build and load, allocator
-        growth, first-launch costs). Returns whether this was that call;
-        later calls return False at once, so their step timings are pure
-        run."""
+        for it, then count it on ``meta`` (the ``compile`` phase: kernel
+        build and load, allocator growth, first-launch costs, the cost
+        count). Returns whether this was that call; later calls return
+        False at once, so their step timings are pure run."""
         if key in self._warm:
             return False
         with self.tracer.span("compile", kind=kind, B=key[1], L=key[2]):
             t0 = time.perf_counter()
             step.run(args)
             _sync(self._devices)
+            self.cost_summaries[key] = _cost_summary(step, args)
             dt = time.perf_counter() - t0
         self._warm.add(key)
-        self.cost_summaries[key] = None
         self.compile_times[key] = dt
         self.stats["compiles"] += 1
         self.metrics.observe(
@@ -415,6 +435,9 @@ class CompiledExecutor:
             for (kind, kb, kl), dt in self.compile_times.items():
                 if kb == B and kl == L and _kind_family(kind) == fam:
                     entry["compile_us"] = dt * 1e6
+                    cost = self.cost_summaries.get((kind, kb, kl))
+                    if cost:
+                        entry["cost"] = cost
                     break
             out[f"B{B}"] = entry
         return out

@@ -114,8 +114,8 @@ def test_lm_train_and_probe_wait_for_their_slices():
     mesh = _mesh11()
     built = tsteps.build_step(port, "train_4k", mesh)  # training is ported
     assert built.meta["n_micro"] == 1 and len(built.args) == 3
-    with pytest.raises(NotImplementedError, match="analysis slice"):
-        tsteps.build_lm_layer_probe(port, port.shapes["prefill_32k"], mesh)
+    probe = tsteps.build_lm_layer_probe(port, port.shapes["prefill_32k"], mesh)
+    assert probe.meta["n_layers"] == 1 and len(probe.args) == 2
     # a step over a mesh of several distinct devices builds (tensor parallelism)
     built = tsteps.build_step(port, "prefill_32k",
                               make_mesh((1, 2), ("data", "model"), devices=["cpu", "meta"]))
