@@ -122,11 +122,13 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   card and the host, replayed from the seed with every leaf equal to the
   bit and within tolerance of the (1, 1) step on the card;
 - the LM's tensor parallelism and FSDP (the tp phase, no kernel on its
-  path): qwen1.5-32b at full width, its depth cut to 16 layers, through
+  path): qwen1.5-32b at full width, its depth cut to 8 layers, through
   its built prefill (B 2 x S 4096) and decode steps (B 4 on an S 16,384
-  cache, bf16 and int8) on a (1, 4) mesh of this card against the (1, 1)
-  steps (logits' cosine and top-1 agreement, the caches' cosine per kv
-  head); stablelm-1.6b's train step on a (2, 2) mesh (FSDP x TP) against
+  cache, bf16 and int8) on a (1, 4) mesh of this card (attention by whole
+  heads, the cache by kv heads) and on a (1, 16) mesh (attention split
+  inside heads, each shard's cache block S / 16 positions), each against
+  the (1, 1) steps (logits' cosine and top-1 agreement, the caches'
+  cosine per kv head); stablelm-1.6b's train step on a (2, 2) mesh (FSDP x TP) against
   the (1, 1) step (loss and grad norm), replayed from one state to the
   bit; the reduced stablelm and phi3.5-moe in float32 on a (1, 2) mesh of
   this card and the host (train, prefill, decode) within 1e-5 of the
@@ -138,7 +140,8 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   (1, 1) mesh of ``meta``, then its built step run warm on the card with
   the counts at 0: median step time, peak memory, the roofline bound of
   the count and the share bound / time, which must not exceed 1.05; the
-  reckoned argument bytes must not exceed the measured peak, and each
+  reckoned argument bytes must not exceed the measured peak, each LM
+  cell's reckoned peak is printed beside the measured one, and each
   kernel must be launched as often as the count says; the counted bytes
   of the bag's backward and the segment sum equal PERF.md's bounds;
   stablelm's layer probe at the prefill shape (24 x its FLOPs within the
@@ -3158,7 +3161,8 @@ def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int, sm_hz: floa
     """The segment sum of (E, C) float32 rows by ``src`` into ``n`` rows:
     equal to the plain version on the host to the bit, then kernel (from a
     prebuilt plan), the plan, wrapper, the plain version on the card and
-    ``index_add_`` into a zeroed buffer timed, against the bound (rows,
+    ``index_add_`` and ``index_put_(..., accumulate=True)`` (the
+    deterministic library call) into zeroed buffers timed, against the bound (rows,
     index and offsets read once, the output written once) and, beside it,
     the chain bound (the longest segment's terms, one dependent add each at
     ``sm_hz``), which no reordering may shorten. With ``parent``, the
@@ -3175,6 +3179,7 @@ def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int, sm_hz: floa
     longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
     out = torch.empty((n, C), dtype=torch.float32, device=src.device)
     lib = torch.zeros((n, C), dtype=torch.float32, device=src.device)
+    put = torch.zeros((n, C), dtype=torch.float32, device=src.device)
     idx = src.long()
     rec = {"E": E, "N": n, "C": C, "max_abs_err": 0.0,
            "ms": device_ms(lambda: launch_segment_sum(data, plan, out)),
@@ -3183,6 +3188,7 @@ def segment_sum_record(src: torch.Tensor, n: int, C: int, seed: int, sm_hz: floa
            "plain_ms": device_ms(lambda: segment_sum_plain(data, src, n)),
            "library_ms": device_ms(lambda: lib.index_add_(0, idx, data)),
            "library": "index_add_ (float32 atomics) into a zeroed buffer",
+           "index_put_ms": device_ms(lambda: put.index_put_((idx,), data, accumulate=True)),
            "long_segments": int((plan.long_rows >= 0).sum()), "longest": longest,
            **window_bound(E * C * 4 + E * 4 + (n + 1) * 4, n * C * 4, 2 * E * C)}
     rec["chain_bound_ms"] = longest * ADD_LATENCY_CYCLES / sm_hz * 1e3
@@ -3350,7 +3356,8 @@ def gnn_phase(dev, parent=None, keep=None) -> dict:
             report["segment_sum"][f"{tag} C{C}"] = rec
             log(f"gnn: kernel segment_sum {tag} src E={rec['E']} N={rec['N']} C={C}: kernel "
                 f"{rec['ms']:.4f} ms, plan {rec['plan_ms']:.4f} ms, wrapper {rec['wrapper_ms']:.4f} "
-                f"ms, plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms; bound "
+                f"ms, plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+                f"(index_add_), {rec['index_put_ms']:.4f} ms (index_put_ accumulate); bound "
                 f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB), "
                 f"chain bound {rec['chain_bound_ms']:.4f} ms (the longest segment "
                 f"{rec['longest']} terms x {ADD_LATENCY_CYCLES} cycles at {sm_hz / 1e6:.0f} MHz); "
@@ -3821,6 +3828,7 @@ def md_egnn(one, mesh, total: dict, gnn: dict, stream_batches: list) -> dict:
         plan = segment_plan(s_r, n)
         out = torch.empty((n, 64), dtype=torch.float32, device=dev)
         lib, idx = torch.zeros((n, 64), dtype=torch.float32, device=dev), s_r.long()
+        put = torch.zeros((n, 64), dtype=torch.float32, device=dev)
         longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
         shards.append({"shard": r, "E": E, "N": n, "C": 64, "longest": longest, "matches_plain": True,
                        "chain_bound_ms": longest * ADD_LATENCY_CYCLES / sm_hz * 1e3,
@@ -3829,6 +3837,8 @@ def md_egnn(one, mesh, total: dict, gnn: dict, stream_batches: list) -> dict:
                        "plain_ms": device_ms(lambda: segment_sum_plain(data, s_r, n)),
                        "library_ms": device_ms(lambda: lib.index_add_(0, idx, data)),
                        "library": "index_add_ (float32 atomics) into a zeroed buffer",
+                       "index_put_ms": device_ms(
+                           lambda: put.index_put_((idx,), data, accumulate=True)),
                        **window_bound(E * 64 * 4 + E * 4 + (n + 1) * 4, n * 64 * 4, 2 * E * 64)})
     if not any(r["long_segments"] for r in shards):
         raise AssertionError("egnn edge shards: no shard of the sampled batch holds a long segment")
@@ -3976,7 +3986,46 @@ def md_mixed(dev, total: dict) -> dict:
         rec[name] = {"steps": got, "one_card": want, "rel_diff": float(rel.max()),
                      "replay_equal": True, "leaves": len(leaves), "host_leaves": on_host,
                      "launches": {k: launches[k] for k in kernels}}
+    rec["serving_replicas"] = md_serving_replicas(dev, one)
     return rec
+
+
+def md_serving_replicas(dev, one) -> dict:
+    """The reduced din and bert4rec serve_p99 steps on a (2, 2) mesh whose
+    first data shard is this card and second the host: ``place_params``
+    puts each row-sharded table once per data shard (the host's blocks on
+    the host), the step copies none of them, and its output equals the
+    (1, 1) step's on the card to the bit."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, materialize_inputs, place_params
+    from repro_torch.parallel import Sharded, copy_record
+
+    cpu = torch.device("cpu")
+    grid = make_mesh((2, 2), ("data", "model"), devices=[dev, dev, cpu, cpu])
+    out = {}
+    for arch_id in MD_LOOKUP_ARCHS:
+        arch = get_arch(arch_id).reduced()
+        b1, bs = build_step(arch, "serve_p99", one), build_step(arch, "serve_p99", grid)
+        params, batch = materialize_inputs(arch, "serve_p99", b1, seed=MODEL_SEED)
+        placed = place_params(bs, params)
+        names = bs.meta["sharded_tables"]
+        if not names or not all(isinstance(placed[k], Sharded) and placed[k].grid == (2, 2)
+                                and placed[k].block(1, 0).device == cpu for k in names):
+            raise AssertionError(f"{arch_id} serve_p99 on (2, 2): tables {names} are not placed "
+                                 "once per data shard")
+        want = b1.fn(params, batch)
+        with copy_record() as copies:
+            got = bs.fn(placed, batch)
+        table_bytes = sum(placed[k].shards[0].numel() * 4 for k in names)
+        if not torch.equal(got.to(want.device), want):
+            raise AssertionError(f"{arch_id} serve_p99 on (2, 2) of the card and the host: the "
+                                 "output differs from the (1, 1) step's")
+        if copies.bytes.get("broadcast", 0) >= table_bytes:
+            raise AssertionError(f"{arch_id} serve_p99 on (2, 2): copies {copies.bytes}")
+        out[arch_id] = {"tables": list(names), "bitwise": True, "copies": dict(copies.bytes),
+                        "table_block_bytes": table_bytes}
+    return out
 
 
 def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict:
@@ -4039,7 +4088,8 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
         log(f"multidevice {name}: segment sum per edge shard of a sampled batch, C 64: "
             + ", ".join(f"E {r['E']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, chain "
                         f"{r['chain_bound_ms']:.4f}: longest {r['longest']}; plain "
-                        f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f})"
+                        f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} index_add_, "
+                        f"{r['index_put_ms']:.4f} index_put_ accumulate)"
                         for r in eg["segment_sum_shards"]))
         rec["granite"] = gr = md_granite(one, mesh)
         log(f"multidevice {name}: granite-moe prefill B {gr['B']} x S {gr['S']}, "
@@ -4062,6 +4112,11 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
             f"{r['steps']} against the card's (1, 1) {r['one_card']} (max rel diff "
             f"{r['rel_diff']:.2e}); a replay equal in all {r['leaves']} leaves "
             f"({r['host_leaves']} on the host); card launches {r['launches']}, as the (1, 1) step's")
+    for arch_id, r in mx["serving_replicas"].items():
+        log(f"multidevice: {arch_id} reduced serve_p99 on a (2, 2) mesh of the card and the "
+            f"host: tables {r['tables']} placed once per data shard, the output equal to the "
+            f"card's (1, 1) step's to the bit; copies {r['copies']} (a table block "
+            f"{r['table_block_bytes']} B)")
     if torch.cuda.device_count() < MD_SHARDS:
         log("multidevice: fewer than four cards visible; the shards share one card and no "
             "cross-card copy was exercised")
@@ -4089,12 +4144,12 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
 
 
 # -- the LM's tensor parallelism and FSDP (no kernel on this path) -------------------
-TP_SHARDS = 4  # qwen's model axis on one card
-TP_QWEN_LAYERS = 16  # qwen1.5-32b's depth, cut from 64: 19.9 GB of bf16 weights
+TP_SHARDS = (4, 16)  # qwen's model axes on one card: whole heads at 4, inside heads at 16
+TP_QWEN_LAYERS = 8  # qwen1.5-32b's depth, cut from 64: 11.5 GB of bf16 weights
 TP_PREFILL = {"seq_len": 4096, "global_batch": 2}
-TP_DECODE = {"seq_len": 16384, "global_batch": 4}  # a 21.5 GB bf16 cache
+TP_DECODE = {"seq_len": 16384, "global_batch": 4}  # a 10.7 GB bf16 cache at 8 layers
 TP_DECODE_STEPS = 3  # decode steps at the cache's last positions, the (1, 1) greedy tokens
-TP_COS = 0.999  # (1, 4) logits against (1, 1)
+TP_COS = 0.999  # (1, 4) and (1, 16) logits against (1, 1)
 TP_TIE = 4.0  # a row's top-1 may differ only where (1, 1)'s top-2 gap < TP_TIE x the rows' rms diff
 TP_HEAD_COS = 0.999  # each kv head's cache against (1, 1)
 # stablelm on (2, 2), cut from the train phase's B 8: at B 8 the (2, 2) step peaked at 70.28 GB
@@ -4119,31 +4174,49 @@ def with_env(name: str, value: str, fn):
 def tp_meshes(dev) -> dict:
     from repro_torch.launch.mesh import make_mesh
 
+    shapes = ((1, 1), (2, 2)) + tuple((1, n) for n in TP_SHARDS)
     return {shape: make_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
-            for shape in ((1, 1), (1, TP_SHARDS), (2, 2))}
+            for shape in shapes}
+
+
+def cache_split(built, cfg, S: int) -> tuple:
+    """(the cache axis its model blocks split, their (start, stop) spans)
+    per the step's ``cache_pspecs``: kv heads (axis 3), positions (axis
+    2), or (None, None) where the cache is not split over the model
+    shards."""
+    from repro_torch.models import transformer
+
+    spec = built.meta["cache_pspecs"]["k"]
+    cols = built.meta["mesh"].grid().shape[1]
+    if "model" not in spec or cols == 1:
+        return None, None
+    axis = spec.index("model")
+    if axis == 3:
+        return axis, transformer.head_spans(cfg, cols)[1]
+    return axis, [(r * S // cols, (r + 1) * S // cols) for r in range(cols)]
 
 
 def tp_cache(built, cfg, B: int, S: int, quantized: bool, seed: int):
     """The decode step's cache on its mesh (zeros, ``Sharded`` per
-    ``cache_pspecs`` over several shards), every layer then drawn from a
-    generator seeded by (seed, layer): the same values in either layout,
-    one layer's draw alive at a time."""
+    ``cache_pspecs`` over several shards: kv heads or positions), every
+    layer then drawn from a generator seeded by (seed, layer): the same
+    values in either layout, one layer's draw alive at a time."""
     from repro_torch.models import transformer
     from repro_torch.parallel import Sharded
 
     grid = built.meta["mesh"].grid()
     dev = grid[0, 0]
     shapes = transformer.init_cache(cfg, B, S, quantized=quantized, device="meta")
-    cols = grid.shape[1] if built.meta["cache_pspecs"]["k"][3] == "model" else 1
     if grid.shape[0] != 1:
         raise ValueError("tp_cache fills caches of one data shard")
-    if cols == 1:
+    axis, spans = cache_split(built, cfg, S)
+    if axis is None:
         cache = transformer.init_cache(cfg, B, S, quantized=quantized, device=dev)
     else:
-        spans = transformer.head_spans(cfg, cols)[1]
-        cache = {k: Sharded([torch.zeros((*v.shape[:3], b - a, *v.shape[4:]), dtype=v.dtype,
-                                         device=grid[0, r]) for r, (a, b) in enumerate(spans)],
-                            (1, cols), (1, 3), spans) for k, v in shapes.items()}
+        cache = {k: Sharded([torch.zeros((*v.shape[:axis], b - a, *v.shape[axis + 1:]),
+                                         dtype=v.dtype, device=grid[0, r])
+                             for r, (a, b) in enumerate(spans)],
+                            (1, len(spans)), (1, axis), spans) for k, v in shapes.items()}
     for layer in range(cfg.n_layers):
         gen = torch.Generator(device=dev).manual_seed(seed * 1000 + layer)
         for name in sorted(cache):
@@ -4157,7 +4230,7 @@ def tp_cache(built, cfg, B: int, S: int, quantized: bool, seed: int):
             c = cache[name]
             if isinstance(c, Sharded):
                 for r, (a, b) in enumerate(c.spans):
-                    c.block(0, r)[layer].copy_(x.narrow(2, a, b - a))
+                    c.block(0, r)[layer].copy_(x.narrow(axis - 1, a, b - a))
             else:
                 c[layer].copy_(x)
             del x
@@ -4166,17 +4239,22 @@ def tp_cache(built, cfg, B: int, S: int, quantized: bool, seed: int):
 
 def cache_rows(cache: dict, positions: list) -> dict:
     """Each name's rows at ``positions`` (L, B, P, H[, Dh]) whole on the
-    first block's device."""
+    first block's device, from the blocks that hold them."""
     from repro_torch.parallel import Sharded
 
     idx = torch.tensor(positions)
     out = {}
     for k, c in cache.items():
-        if isinstance(c, Sharded):
+        if not isinstance(c, Sharded):
+            out[k] = c.index_select(2, idx.to(c.device))
+        elif c.axes[1] == 2:  # positions over the model shards
+            dev = c.shards[0].device
+            out[k] = torch.cat([c.block(0, r).narrow(2, p - a, 1).to(dev)
+                                for p in positions
+                                for r, (a, b) in enumerate(c.spans) if a <= p < b], 2)
+        else:
             out[k] = Sharded([b.index_select(2, idx.to(b.device)) for b in c.shards], c.grid,
                              c.axes, c.spans).full()
-        else:
-            out[k] = c.index_select(2, idx.to(c.device))
     return out
 
 
@@ -4194,17 +4272,29 @@ def head_cosines(a, b) -> list:
     return (dot / (na.sqrt() * nb.sqrt())).tolist()
 
 
+def block_positions(cache: dict) -> dict:
+    """By name, a ``Sharded`` cache's split axis (2: positions, 3: kv heads)
+    and the distinct sizes of its model blocks along it."""
+    from repro_torch.parallel import Sharded
+
+    return {k: (c.axes[1], sorted({b.shape[c.axes[1]] for b in c.shards}))
+            for k, c in cache.items() if isinstance(c, Sharded)}
+
+
 def tp_qwen(meshes) -> dict:
     """qwen1.5-32b at full width, its depth cut to TP_QWEN_LAYERS: the
     built prefill and decode steps (bf16 and int8 caches) on the (1, 1)
     mesh, then, with the weights placed TP-split (one contiguous block per
-    model shard), on the (1, TP_SHARDS) mesh of the same card: logits and
-    caches against the (1, 1) steps', times and peaks. One set of weights
-    and one decode cache live at a time."""
+    model shard), on each (1, n) mesh of TP_SHARDS on the same card: at
+    4 attention splits by whole heads and the cache by kv heads, at 16 it
+    splits inside heads and the cache by positions (each block S / 16 of
+    them); logits and caches against the (1, 1) steps', times and peaks.
+    One set of weights and one decode cache live at a time."""
     from dataclasses import replace
 
     from repro_torch.configs.lm_archs import QWEN_32B
     from repro_torch.launch.steps import build_step, materialize_inputs, place_params
+    from repro_torch.models import transformer
     from repro_torch.parallel import Sharded
 
     arch = replace(QWEN_32B, model_cfg=replace(QWEN_32B.model_cfg, n_layers=TP_QWEN_LAYERS))
@@ -4218,7 +4308,7 @@ def tp_qwen(meshes) -> dict:
            "decode_steps": TP_DECODE_STEPS}
     params = tokens = None
     runs = {}
-    for shape in ((1, 1), (1, TP_SHARDS)):
+    for shape in ((1, 1),) + tuple((1, n) for n in TP_SHARDS):
         mesh = meshes[shape]
         dev = mesh.lead
         pre = build_step(arch, "prefill_32k", mesh)
@@ -4229,9 +4319,13 @@ def tp_qwen(meshes) -> dict:
             params, tokens = materialize_inputs(arch, "prefill_32k", pre, seed=MODEL_SEED)
             rec["weight_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(params))
         else:
-            params = place_params(pre, params)
-            if not isinstance(params["layers"]["attn"]["wq"], Sharded):
-                raise AssertionError("qwen (1, 4): the attention weights are not split")
+            whole = _whole_tree(params)
+            del params
+            params = place_params(pre, whole)
+            del whole
+            wq = params["layers"]["attn"]["wq"]
+            if not isinstance(wq, Sharded) or wq.grid != shape:
+                raise AssertionError(f"qwen {shape}: the attention weights are not split")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4239,12 +4333,14 @@ def tp_qwen(meshes) -> dict:
         pre.fn(params, tokens)  # first call: the allocator's pools
         (logits, cache), run["prefill_ms"] = timed(lambda: pre.fn(params, tokens))
         run["prefill_logits"] = logits.float()
+        run["prefill_blocks"] = block_positions(cache)
         run["prefill_cache"] = {k: (v.full() if isinstance(v, Sharded) else v).to(dev)
                                 for k, v in cache.items()}
         del cache
         torch.cuda.empty_cache()
         for kind, dec in decs.items():
             cache = tp_cache(dec, cfg, B, S, kind == "int8", MODEL_SEED)
+            run[f"decode_{kind}_blocks"] = block_positions(cache)
             fed = [first.to(dev)] + ([t.to(dev) for t in runs[(1, 1)][f"fed_{kind}"][1:]]
                                     if (1, 1) in runs else [])
             logits, ms = [], []
@@ -4264,36 +4360,58 @@ def tp_qwen(meshes) -> dict:
         runs[shape] = run
     del params
     torch.cuda.empty_cache()
-    one, tp = runs[(1, 1)], runs[(1, TP_SHARDS)]
-    checks = {}
-    for key in ("prefill_logits", "decode_bf16_logits", "decode_int8_logits"):
-        a, b = tp[key].reshape(-1, tp[key].shape[-1]), one[key].reshape(-1, one[key].shape[-1])
-        same = a.argmax(-1) == b.argmax(-1)
-        top2 = b.topk(2, dim=-1).values
-        noise = (a - b).square().mean(-1).sqrt()
-        checks[key] = {"cosine": cosine(a, b), "top1": float(same.double().mean()),
-                       "flips_outside_ties": int((~same & (top2[:, 0] - top2[:, 1]
-                                                           > TP_TIE * noise)).sum())}
-    top1 = min(c["top1"] for c in checks.values())
-    head = {"prefill": {k: min(head_cosines(tp["prefill_cache"][k], one["prefill_cache"][k]))
-                        for k in ("k", "v")}}
-    for kind in ("bf16", "int8"):
-        a, b = tp[f"decode_{kind}_rows"], one[f"decode_{kind}_rows"]
-        if kind == "int8":  # the dequantised rows the step reads
-            a = {n: a[n].float() * a[f"{n}_scale"][..., None] for n in ("k", "v")}
-            b = {n: b[n].float() * b[f"{n}_scale"][..., None] for n in ("k", "v")}
-        head[f"decode_{kind}"] = {n: min(head_cosines(a[n], b[n])) for n in ("k", "v")}
-    rec.update(checks=checks, top1_agreement=top1, head_cosine_min=head)
+    one = runs[(1, 1)]
+    bad = []
+    for n in TP_SHARDS:
+        tp = runs[(1, n)]
+        checks = {}
+        for key in ("prefill_logits", "decode_bf16_logits", "decode_int8_logits"):
+            a = tp[key].reshape(-1, tp[key].shape[-1])
+            b = one[key].reshape(-1, one[key].shape[-1])
+            same = a.argmax(-1) == b.argmax(-1)
+            top2 = b.topk(2, dim=-1).values
+            noise = (a - b).square().mean(-1).sqrt()
+            checks[key] = {"cosine": cosine(a, b), "top1": float(same.double().mean()),
+                           "flips_outside_ties": int((~same & (top2[:, 0] - top2[:, 1]
+                                                               > TP_TIE * noise)).sum())}
+        head = {"prefill": {k: min(head_cosines(tp["prefill_cache"][k], one["prefill_cache"][k]))
+                            for k in ("k", "v")}}
+        for kind in ("bf16", "int8"):
+            a, b = tp[f"decode_{kind}_rows"], one[f"decode_{kind}_rows"]
+            if kind == "int8":  # the dequantised rows the step reads
+                a = {m: a[m].float() * a[f"{m}_scale"][..., None] for m in ("k", "v")}
+                b = {m: b[m].float() * b[f"{m}_scale"][..., None] for m in ("k", "v")}
+            head[f"decode_{kind}"] = {m: min(head_cosines(a[m], b[m])) for m in ("k", "v")}
+        blocks = {"prefill": tp["prefill_blocks"], "decode_bf16": tp["decode_bf16_blocks"],
+                  "decode_int8": tp["decode_int8_blocks"]}
+        r = {"checks": checks, "top1_agreement": min(c["top1"] for c in checks.values()),
+             "head_cosine_min": head, "blocks": blocks}
+        rec[f"vs_1x{n}"] = r
+        bad += [f"(1, {n}) {k}" for k, c in checks.items()
+                if c["cosine"] < TP_COS or c["flips_outside_ties"]]
+        bad += [f"(1, {n}) {k} {m}" for k, v in head.items() for m, c in v.items()
+                if c < TP_HEAD_COS]
+        if not transformer.attention_splits(cfg, n):  # inside heads: S / n positions a block
+            want = {"prefill": TP_PREFILL["seq_len"] // n, "decode_bf16": S // n,
+                    "decode_int8": S // n}
+            bad += [f"(1, {n}) {k} blocks {v}" for k, v in blocks.items()
+                    if any(ax != 2 or sizes != [want[k]] for ax, sizes in v.values())]
     for shape, run in runs.items():
         rec[f"{shape[0]}x{shape[1]}"] = {
             "prefill_ms": run["prefill_ms"], "place_s": run["place_s"],
             "decode_bf16_ms": run["decode_bf16_ms"], "decode_int8_ms": run["decode_int8_ms"],
             "peak_bytes": run["peak_bytes"]}
-    bad = [k for k, c in checks.items() if c["cosine"] < TP_COS or c["flips_outside_ties"]]
-    bad += [f"{k} {n}" for k, v in head.items() for n, c in v.items() if c < TP_HEAD_COS]
     if bad:
-        raise AssertionError(f"qwen (1, {TP_SHARDS}) against (1, 1): {bad}, top-1 {top1}; {rec}")
+        raise AssertionError(f"qwen against (1, 1): {bad}; {rec}")
     return rec
+
+
+def _whole_tree(tree):
+    from repro_torch.parallel import Sharded
+
+    if isinstance(tree, dict):
+        return {k: _whole_tree(v) for k, v in tree.items()}
+    return tree.full() if isinstance(tree, Sharded) else tree
 
 
 def tp_train(meshes) -> dict:
@@ -4450,21 +4568,25 @@ def tp_phase(dev, smi: str) -> dict:
     reset_counts()
     report = {"qwen": tp_qwen(meshes)}
     q = report["qwen"]
-    one, tp = q["1x1"], q[f"1x{TP_SHARDS}"]
-    log(f"tp: qwen1.5-32b ({q['layers']} layers, {q['weight_bytes'] / 1e9:.2f} GB bf16) prefill B "
-        f"{TP_PREFILL['global_batch']} x S {TP_PREFILL['seq_len']}: (1, {TP_SHARDS}) "
-        f"{tp['prefill_ms']:.1f} ms against (1, 1) {one['prefill_ms']:.1f} ms; decode B "
-        f"{TP_DECODE['global_batch']} on {TP_DECODE['seq_len']} rows, ms per step bf16 "
-        f"{[round(x, 2) for x in tp['decode_bf16_ms']]} against "
-        f"{[round(x, 2) for x in one['decode_bf16_ms']]}, int8 "
-        f"{[round(x, 2) for x in tp['decode_int8_ms']]} against "
-        f"{[round(x, 2) for x in one['decode_int8_ms']]}; peak {tp['peak_bytes'] / 1e9:.2f} "
-        f"against {one['peak_bytes'] / 1e9:.2f} GB ({smi})")
-    log("tp: qwen (1, 4) against (1, 1): " + ", ".join(
-        f"{k} cosine {c['cosine']:.6f} top-1 {c['top1']:.3f} ({c['flips_outside_ties']} "
-        "flips outside near-ties)" for k, c in q["checks"].items())
-        + "; least kv-head cosine "
-        + ", ".join(f"{k} {min(v.values()):.6f}" for k, v in q["head_cosine_min"].items()))
+    one = q["1x1"]
+    for n in TP_SHARDS:
+        tp, vs = q[f"1x{n}"], q[f"vs_1x{n}"]
+        log(f"tp: qwen1.5-32b ({q['layers']} layers, {q['weight_bytes'] / 1e9:.2f} GB bf16) "
+            f"prefill B {TP_PREFILL['global_batch']} x S {TP_PREFILL['seq_len']}: (1, {n}) "
+            f"{tp['prefill_ms']:.1f} ms against (1, 1) {one['prefill_ms']:.1f} ms; decode B "
+            f"{TP_DECODE['global_batch']} on {TP_DECODE['seq_len']} rows, ms per step bf16 "
+            f"{[round(x, 2) for x in tp['decode_bf16_ms']]} against "
+            f"{[round(x, 2) for x in one['decode_bf16_ms']]}, int8 "
+            f"{[round(x, 2) for x in tp['decode_int8_ms']]} against "
+            f"{[round(x, 2) for x in one['decode_int8_ms']]}; peak {tp['peak_bytes'] / 1e9:.2f} "
+            f"against {one['peak_bytes'] / 1e9:.2f} GB ({smi})")
+        log(f"tp: qwen (1, {n}) against (1, 1): " + ", ".join(
+            f"{k} cosine {c['cosine']:.6f} top-1 {c['top1']:.3f} ({c['flips_outside_ties']} "
+            "flips outside near-ties)" for k, c in vs["checks"].items())
+            + "; least kv-head cosine "
+            + ", ".join(f"{k} {min(v.values()):.6f}" for k, v in vs["head_cosine_min"].items())
+            + "; cache blocks (axis: sizes) "
+            + ", ".join(f"{k} {v['k'][0]}: {v['k'][1]}" for k, v in vs["blocks"].items()))
     report["train"] = tr = tp_train(meshes)
     runs, one = tr["2x2"], tr["1x1"]
     log(f"tp: stablelm-1.6b train B {TP_TRAIN['global_batch']} x S {TP_TRAIN['seq_len']} on "
@@ -4494,6 +4616,7 @@ def tp_phase(dev, smi: str) -> dict:
                                        f" decode B {TP_DECODE['global_batch']} on "
                                        f"{TP_DECODE['seq_len']} rows",
          "why": "64 layers are 70.4 GB of bf16 weights, over the card's 76 GB with a cache; "
+                "8 keep the (1, 1), (1, 4) and (1, 16) runs inside the script's time; "
                 "the (1, 1) step it is held to must fit the same card"},
         {"what": "stablelm-1.6b train_4k on (2, 2)", "cut": f"B {TP_TRAIN['global_batch']} "
                                                             "(the train phase's B 8 halved)",
@@ -4733,6 +4856,13 @@ def analysis_phase(dev, smi: str) -> dict:
             f"{rec['memory']['peak_per_device_gib']} GiB; bound {rec['bound_ms']:.4f} ms by "
             f"{rec['bound_by']} ({rec['compute_dtype']}), share {rec['share']:.4f}; launches "
             f"{rec['launches']} ({smi})")
+        if arch.family == "lm":
+            gib = rec["memory"]["peak_per_device_gib"]
+            if gib is None:
+                raise AssertionError(f"analysis: {tag} has no reckoned peak")
+            log(f"analysis: {tag} reckoned peak {gib} GiB ({gib * 2**30 / 1e9:.2f} GB"
+                f"{', reckoned from ' + str(rec['extrapolated']) if rec['extrapolated'] else ''}) "
+                f"beside torch.cuda.max_memory_allocated {rec['peak_bytes'] / 1e9:.2f} GB ({smi})")
         if tag == "two-tower serve_bulk":
             got = rec["kernels"]["embedding_bag.embedding_bag"]["bytes_accessed"]
             log(f"analysis: row 5 at serve_bulk counted {got / 1e6:.2f} MB ({got / HBM_BYTES_PER_S * 1e3:.4f} ms) "
@@ -4911,12 +5041,12 @@ def main() -> int:
                       "long_launches": sum(rec["launches"]["segment_sum.segment_sum long"]
                                            for rec in gnn["shapes"].values()),
                       **{k: gnn["segment_sum"]["sampler C64"][k] for k in (
-                          "plan_ms", "chain_bound_ms", "longest")},
+                          "plan_ms", "chain_bound_ms", "longest", "index_put_ms")},
                       "launches_per_step": {shape: rec["segment_sums_per_step"]
                                             for shape, rec in gnn["shapes"].items()},
                       "other_shapes": {tag: {k: r[k] for k in (
                           "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                          "chain_bound_ms")}
+                          "index_put_ms", "chain_bound_ms")}
                                        for tag, r in gnn["segment_sum"].items()
                                        if tag != "sampler C64"}}),
     ]}

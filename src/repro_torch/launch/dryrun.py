@@ -57,7 +57,12 @@ them per device, as the mean over the mesh's devices. A record holds:
   high-water mark is not linear in the layers (stablelm's prefill at
   B 4 x S 4096 on (1, 1): 1.10 GB of temps at one and two layers, 3.29 GB
   counted at all 24, where the stacked caches outgrow a layer's
-  attention), so ``temp_bytes`` and ``peak_per_device_gib`` are null.
+  attention), so ``temp_bytes`` comes from the counts' live-bytes
+  profiles instead (:func:`reckon_peak`: the height of each stretch
+  between layer boundaries, forward and backward, reckoned at L layers).
+  An optimizer update of a leaf larger than its slice
+  (``train/optimizer.py`` ``CHUNK``) stops growing with L where the
+  reckoning goes on: it may over-count there, never under-count.
 
 A cell whose step cannot run on ``meta`` records ``error``, as a failed
 compile does in the reference.
@@ -78,7 +83,7 @@ from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.launch.hlo_analysis import collective_stats
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import build_lm_layer_probe, build_step, placed_args
-from repro_torch.obs.cost import count
+from repro_torch.obs.cost import LAYER, LAYER_GRAD, count
 from repro_torch.parallel import CopyRecord, Sharded
 
 
@@ -116,7 +121,8 @@ def _bytes_by_position(items) -> dict:
 def reckon_memory(args, outs, peak_bytes: int, grid) -> dict:
     """The reference's ``memory_analysis()`` fields, per device, from the
     placed arguments, the results and the count's live-bytes high-water
-    mark (see the module docstring)."""
+    mark (see the module docstring), and ``new_out_bytes``: the results
+    that are not their arguments, over the whole mesh."""
     arg_items, out_items = _tensors(args, grid), _tensors(outs, grid)
     arg_keys = {_key(t) for _, t in arg_items}
     per_arg = _bytes_by_position(arg_items)
@@ -125,12 +131,20 @@ def reckon_memory(args, outs, peak_bytes: int, grid) -> dict:
     new_out = sum(per_out.values()) - sum(per_alias.values())
     mem = {"argument_bytes": max(per_arg.values(), default=0),
            "output_bytes": max(per_out.values(), default=0),
-           "temp_bytes": max(peak_bytes - new_out, 0) // grid.size,
+           "temp_bytes": _temp_bytes(peak_bytes, new_out, grid),
            "alias_bytes": max(per_alias.values(), default=0)}
-    mem["peak_per_device_gib"] = round(
-        (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
-         - mem["alias_bytes"]) / 2**30, 3)
+    mem["peak_per_device_gib"] = _peak_gib(mem)
+    mem["new_out_bytes"] = new_out
     return mem
+
+
+def _temp_bytes(peak_bytes: int, new_out: int, grid) -> int:
+    return max(peak_bytes - new_out, 0) // grid.size
+
+
+def _peak_gib(mem: dict) -> float:
+    return round((mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+                  - mem["alias_bytes"]) / 2**30, 3)
 
 
 def _json_meta(meta: dict) -> dict:
@@ -163,14 +177,18 @@ def count_built(built) -> tuple:
     return args, outs, cost
 
 
-def _counted(built, grid) -> dict:
+def _counted(built, grid) -> tuple:
     """A built step's count as flat numeric fields: the memory fields
-    (before the peak), the mesh's total cost, copies by kind and the
-    kernels' work."""
+    (before the peak), the live-bytes high-water mark and the new results'
+    bytes over the mesh (``live``), the mesh's total cost, copies by kind
+    and the kernels' work; and the count's live-bytes profile."""
     args, outs, cost = count_built(built)
     mem = reckon_memory(args, outs, cost.peak_bytes, grid)
     del args, outs
-    out = {("memory", k): v for k, v in mem.items() if k != "peak_per_device_gib"}
+    out = {("memory", k): v for k, v in mem.items()
+           if k not in ("peak_per_device_gib", "new_out_bytes")}
+    out[("live", "peak")] = cost.peak_bytes
+    out[("live", "new_out")] = mem["new_out_bytes"]
     for k in ("flops", "bytes_accessed", "transcendentals"):
         out[("cost", k)] = getattr(cost, k)
     out[("ops",)] = cost.ops
@@ -180,7 +198,7 @@ def _counted(built, grid) -> dict:
     for name, work in cost.kernels.items():
         for k, v in work.items():
             out[("kernels", name, k)] = v
-    return out
+    return out, cost.profile
 
 
 def _bilinear(points: dict, L: int, m: int) -> dict:
@@ -194,6 +212,45 @@ def _bilinear(points: dict, L: int, m: int) -> dict:
         out[k] = (v11 + (L - 1) * (v21 - v11) + (m - 1) * (v12 - v11)
                   + (L - 1) * (m - 1) * (v22 - v21 - v12 + v11))
     return out
+
+
+_LAYER_TAGS = (LAYER, LAYER_GRAD)
+
+
+def _stretches(profile) -> list:
+    """A live-bytes profile as groups: each run of one layer's stretches
+    (a layer tag repeated) one group of their high-water marks, every
+    other stretch a group of one."""
+    groups = []
+    for tag, high in profile:
+        if groups and tag in _LAYER_TAGS and groups[-1][0] == tag:
+            groups[-1][1].append(high)
+        else:
+            groups.append((tag, [high]))
+    return groups
+
+
+def reckon_peak(one, two, L: int) -> int | None:
+    """The live-bytes high-water mark of an L-layer step from the profiles
+    of its counts at one and two layers (None where their stretches do not
+    pair up). Each stretch between marks repeats at L layers: one outside
+    the layers has its mark at a height affine in L; the k-th layer of a
+    run at one affine in L and k (a layer adds what it keeps, or frees,
+    forward and backward), each layer's excursion above its mark the same.
+    So each stretch's mark is reckoned from the two counts, and the peak is
+    the largest of them, a run's at its first or last layer."""
+    g1, g2 = _stretches(one), _stretches(two)
+    if [t for t, _ in g1] != [t for t, _ in g2] or any(
+            len(a) != 1 or len(b) != (2 if t in _LAYER_TAGS else 1)
+            for (t, a), (_, b) in zip(g1, g2)):
+        return None
+    peak = 0
+    for (tag, a), (_, b) in zip(g1, g2):
+        first = a[0] + (L - 1) * (b[0] - a[0])
+        peak = max(peak, first)
+        if tag in _LAYER_TAGS:
+            peak = max(peak, first + (L - 1) * (b[1] - b[0]))
+    return peak
 
 
 def _lm_variant(arch, shape_name: str, layers: int, micro: int, n_micro: int):
@@ -210,17 +267,29 @@ def _lm_variant(arch, shape_name: str, layers: int, micro: int, n_micro: int):
 
 def count_cell(arch, shape_name: str, mesh, built) -> tuple:
     """The cell's count as flat fields, and the (layers, microbatches)
-    it was extrapolated from (None where it was counted whole)."""
+    it was extrapolated from (None where it was counted whole). An
+    extrapolated count's temps come from the peak :func:`reckon_peak`
+    gives from the profiles at one and two layers (at two microbatches
+    where the cell has several: a microbatch keeps nothing for the next
+    but the accumulated gradients, so the third repeats the second), less
+    the new results' bytes; null where the profiles do not pair up."""
     grid = mesh.grid()
     L = getattr(arch.model_cfg, "n_layers", 1)
     m = built.meta.get("n_micro", 1)
     if arch.family != "lm" or (L <= 2 and m == 1):
-        return _counted(built, grid), None
+        return _counted(built, grid)[0], None
     micros = (1, 2) if m > 1 else (1,)
-    points = {(l, k): _counted(build_step(_lm_variant(arch, shape_name, l, k, m), shape_name,
-                                          mesh), grid)
-              for l in (1, 2) for k in micros}
-    return _bilinear(points, L, m), {"layers": [1, 2], "micro": list(micros)}
+    points, profiles = {}, {}
+    for l in (1, 2):
+        for k in micros:
+            variant = build_step(_lm_variant(arch, shape_name, l, k, m), shape_name, mesh)
+            points[l, k], profiles[l, k] = _counted(variant, grid)
+    out = _bilinear(points, L, m)
+    peak = reckon_peak(profiles[1, micros[-1]], profiles[2, micros[-1]], L)
+    out[("live", "peak")] = peak
+    out[("memory", "temp_bytes")] = (None if peak is None else
+                                     _temp_bytes(peak, out[("live", "new_out")], grid))
+    return out, {"layers": [1, 2], "micro": list(micros)}
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool, layer_probe: bool = True,
@@ -245,13 +314,8 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, layer_probe: bool =
     t1 = time.time()
     fields, extrapolated = count_cell(arch, shape_name, mesh, built)
     rec["count_s"] = round(time.time() - t1, 1)
-    mem = {k[1]: int(v) for k, v in fields.items() if k[0] == "memory"}
-    if extrapolated:  # a high-water mark is not linear in the layers
-        mem["temp_bytes"] = mem["peak_per_device_gib"] = None
-    else:
-        mem["peak_per_device_gib"] = round(
-            (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
-             - mem["alias_bytes"]) / 2**30, 3)
+    mem = {k[1]: None if v is None else int(v) for k, v in fields.items() if k[0] == "memory"}
+    mem["peak_per_device_gib"] = None if mem["temp_bytes"] is None else _peak_gib(mem)
     rec["memory"] = mem
     rec["cost"] = {k[1]: v / n for k, v in fields.items() if k[0] == "cost"}
     kernels = {}

@@ -19,21 +19,25 @@ every device):
   departures). :func:`place_params` keeps each split leaf as a
   ``Sharded`` grid of blocks, block (i, j) on ``grid[i, j]`` (FSDP blocks
   on the first pod's data rows); the step gathers a layer's blocks inside
-  the layer (``parallel.gather_blocks``), runs each model shard's heads,
-  ``d_ff`` columns or experts on its device, and adds the partials on
-  each data shard's first device. Serving keeps the weights TP-split, a
-  replica per data shard where their devices differ, the decode cache
-  per ``cache_pspecs``. A mesh of one shard runs the one-device path.
-  The microbatch rule divides by the data shards.
+  the layer (``parallel.gather_blocks``), runs each model shard's heads
+  (or, where whole heads do not split, its q/k/v columns and a sequence
+  block), ``d_ff`` columns or experts on its device, and adds the
+  partials on each data shard's first device. Serving keeps the weights
+  TP-split, a replica per data shard where their devices differ, the
+  decode cache per ``cache_pspecs``. A mesh of one shard runs the
+  one-device path. The microbatch rule divides by the data shards.
 * GNN: the unbatched loss with its edges sharded over every mesh axis
   (the reference's ``all_axes``), the batched (molecule) loss with its
   graphs split over the data axes.
 * recsys: each table that the reference row-shards over the model axis
   (``recsys.row_sharded``) is a ``Sharded``, block r on the model
-  column r's first device (row views of one table where that is one
-  device), replicated over the data shards inside the step; the towers
-  and the batch on the lead device. Retrieval splits its candidates over
-  the data axes when they divide them.
+  column r's devices (row views of one table where that is one device):
+  serving keeps a replica of each block per data shard, as the
+  reference keeps its tables replicated over the data axes; training
+  keeps one on the first data shard and replicates it over the data
+  shards inside the step; the towers and the batch on the lead device.
+  Retrieval splits its candidates over the data axes when they divide
+  them.
 * search: doc-sharded over the model axis, as the serving path is.
 
 :func:`materialize_inputs` makes concrete inputs: the port's own seeded
@@ -275,11 +279,11 @@ def build_lm_layer_probe(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         """(y, the cache(s), aux) of the layer at ``x``."""
         if one:
             return block(x, p_l, cache_l=cache, position=position)
-        cols = plan.tp if plan.attn else 1
         views = None
         if cache is not None:
             views = transformer._cache_views(
-                plan, {k: _unit_layer(v) for k, v in cache.items()}, 0, cols)
+                plan, {k: _unit_layer(v) for k, v in cache.items()}, 0,
+                plan.cache_cols(cache["k"].shape[1]))
         ys, aux, caches = transformer._mesh_layer(cfg, plan, p_l, plan.split_batch(x),
                                                   views, position)
         y = ys[0] if len(ys) == 1 else torch.cat([t.to(plan.mesh_lead) for t in ys])
@@ -430,8 +434,12 @@ def place_params(built: BuiltStep, params):
     data shard): on a mesh of one device a split leaf's column blocks are
     contiguous copies, its row blocks too.
     A recsys step's tables that it keeps row-sharded, as a ``Sharded``
-    over the model columns' first devices (row views of the table where
-    that device is the table's, so a mesh of one device copies nothing).
+    over the model columns (row views of the table where a block's device
+    is the table's, so a mesh of one device copies nothing): a serving
+    step's once per data shard where the data shards' devices differ, as
+    serving places an LM's weights (:func:`place_leaf`), so that no step
+    copies a table between them; a train step's on the first data shard's
+    devices, replicated inside the step.
     Other families' parameters pass through."""
     if "pspecs" in built.meta:
         return _place_tree(params, built.meta["pspecs"], built.meta["mesh"],
@@ -439,29 +447,33 @@ def place_params(built: BuiltStep, params):
     names = built.meta.get("sharded_tables", ())
     if not names:
         return params
-    columns = list(built.meta["mesh"].grid()[0])
-    return {k: Sharded.of(v, columns) if k in names and isinstance(v, torch.Tensor) else v
-            for k, v in params.items()}
+    mesh, serving = built.meta["mesh"], built.meta["kind"] != "train"
+    return {k: place_leaf(v, ("model", None), mesh, replicas=serving)
+            if k in names and isinstance(v, torch.Tensor) else v for k, v in params.items()}
 
 
 def place_caches(built: BuiltStep, caches: dict, stacked: bool = True) -> dict:
     """A decode step's whole caches per its ``meta["cache_pspecs"]``: block
     (d, r) of each a contiguous tensor on ``grid[d, r]``, data shard d's
-    batch rows and the kv heads model shard r's q heads read (shared kv
-    heads copied into each shard that reads them); whole tensors on the
-    lead device of a (1, 1) grid. ``stacked=False``: one layer's caches
-    (a layer probe's), without the layer axis."""
+    batch rows and model shard r's part: the kv heads its q heads read
+    (shared kv heads copied into each shard that reads them), or, where
+    attention splits inside heads, positions [r S / tp, (r + 1) S / tp)
+    of every kv head; whole tensors on the lead device of a (1, 1) grid.
+    ``stacked=False``: one layer's caches (a layer probe's), without the
+    layer axis."""
     mesh = built.meta["mesh"]
     grid = mesh.grid()
     spec = built.meta["cache_pspecs"]["k"]
-    cols = grid.shape[1] if spec[3] == "model" else 1
+    model = spec.index("model") if "model" in spec else None
+    cols = grid.shape[1] if model is not None else 1
     if grid.shape[0] == cols == 1:
         return {k: v.to(grid[0, 0]) for k, v in caches.items()}
-    spans = None
-    if cols > 1:
-        spans = transformer.head_spans(built.meta["cfg"], cols)[1]
     lead = 1 if stacked else 0
-    return {k: Sharded.split(v, grid[:, :cols], (lead, lead + 2 if cols > 1 else None), spans)
+    spans = None
+    if cols > 1 and model == 3:
+        spans = transformer.head_spans(built.meta["cfg"], cols)[1]
+    axis = None if model is None else model - 1 + lead
+    return {k: Sharded.split(v, grid[:, :cols], (lead, axis), spans)
             for k, v in caches.items()}
 
 
@@ -538,6 +550,7 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "model_params": n_params(params_abs),
         "device": mesh.lead,
         "mesh": mesh,
+        "kind": kind,
         "sharded_tables": sharded,
     }
     batch_abs = _recsys_batch(cfg, arch_kind, kind, shape.dims)

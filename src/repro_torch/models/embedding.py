@@ -17,15 +17,17 @@ The row-sharded lookups (``sharded_embedding_lookup``,
 ``sharded_embedding_bag``) are the reference's ``shard_map``s on the
 port's single-controller mesh (``launch/mesh.py``, with the collectives
 of ``parallel.py``): the table's rows are ``tp`` contiguous blocks over
-the model axis, a :class:`Sharded` (one leaf per block, on the model
-column's first device) or a plain tensor split by ``split_rows``. Shard ``(d, r)`` of the mesh's (data,
-model) grid takes data shard d's ids and block r (``replicate``d over the
-data shards), looks up or bags the ids it owns, and ``sum_to_lead`` adds
-the ``tp`` partials of each data shard on the lead device in rank order,
-where the data shards' results are concatenated. ``ids_pspec`` is the
-reference's partition spec of the ids, a tuple of None, an axis name or
-a tuple of axis names per axis: the axis it names is split over those
-axes' data shards (default: the first axis over ``dp_axes``).
+the model axis: a :class:`Sharded` (one leaf per block) or a plain tensor
+split by ``split_rows``. Shard ``(d, r)`` of the mesh's (data, model)
+grid takes data shard d's ids and block r, its own where the table is
+placed once per data shard (serving), else ``replicate``d over the data
+shards from the model column's first device, looks up or bags the ids it
+owns, and ``sum_to_lead`` adds the ``tp`` partials of each data shard on
+the lead device in rank order, where the data shards' results are
+concatenated. ``ids_pspec`` is the reference's partition spec of the
+ids, a tuple of None, an axis name or a tuple of axis names per axis: the
+axis it names is split over those axes' data shards (default: the first
+axis over ``dp_axes``).
 """
 
 from __future__ import annotations
@@ -108,36 +110,46 @@ def _ids_split(ids, mesh, tp_axis: str, dp_axes, ids_pspec) -> tuple:
     return axis, n
 
 
-def _table_blocks(table, mesh, tp_axis: str) -> list:
-    """The table's ``tp`` row blocks, block r on the model column's first
-    device."""
+def _table_blocks(table, mesh, tp_axis: str, n: int) -> list:
+    """The table's ``tp`` row blocks for each of ``n`` data shards, [r][d]:
+    a ``Sharded`` placed once per data shard (serving's replicas) hands
+    data shard d its own row of blocks and copies nothing; a plain tensor,
+    or a ``Sharded`` of one row, is split over the model columns' first
+    devices and each block ``replicate``d over the data shards."""
     if tp_axis != "model":
         raise ValueError(f"tables are sharded over the model axis, not {tp_axis!r}")
     tp = mesh.shape[tp_axis]
     if table.shape[0] % tp:
         raise ValueError(f"{table.shape[0]} table rows do not split over {tp} shards")
+    grid = mesh.grid()
     if isinstance(table, Sharded):
-        if len(table.shards) != tp:
-            raise ValueError(f"a table in {len(table.shards)} shards on a model axis of {tp}")
-        return list(table.shards)
-    return split_rows(table, list(mesh.grid()[0]))
+        rows, cols = table.grid
+        if cols != tp or table.axes != (None, 0) or rows not in (1, grid.shape[0]) or (
+                rows > 1 and n not in (1, rows)):
+            raise ValueError(f"a table on a grid of {table.grid} split along {table.axes}; the "
+                             f"step takes row blocks over {tp} model shards for {n} data shards")
+        if rows > 1:
+            return [[table.block(d if n > 1 else 0, r) for d in range(n)] for r in range(tp)]
+        blocks = list(table.shards)
+    else:
+        blocks = split_rows(table, list(grid[0]))
+    return [replicate(b, list(grid[:n, r])) for r, b in enumerate(blocks)]
 
 
 def _sharded(per_shard, table, ids, mesh, tp_axis, dp_axes, ids_pspec, *others):
     """Run ``per_shard(block, ids, *others, rank, rows_per_shard)`` on every
     (data, model) shard and add each data shard's partials on the lead
     device; ``others`` are split like ``ids``."""
-    blocks = _table_blocks(table, mesh, tp_axis)
-    rows = blocks[0].shape[0]
     axis, n = _ids_split(ids, mesh, tp_axis, dp_axes, ids_pspec)
+    per_data = _table_blocks(table, mesh, tp_axis, n)
+    rows = per_data[0][0].shape[0]
     grid = mesh.grid()
-    per_data = [replicate(b, list(grid[:n, r])) for r, b in enumerate(blocks)]
     pieces = [(ids, *others)] if axis is None else list(zip(
         *(t.chunk(n, dim=axis) if t is not None else [None] * n for t in (ids, *others))))
     outs = []
     for d, (ids_d, *others_d) in enumerate(pieces):
         parts = []
-        for r in range(len(blocks)):
+        for r in range(len(per_data)):
             dev = grid[d, r]
             moved = [None if t is None else t.to(dev) for t in others_d]
             parts.append(per_shard(per_data[r][d], ids_d.to(dev), *moved, r, rows))

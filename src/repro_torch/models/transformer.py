@@ -23,9 +23,11 @@ parallelism (a mesh of one shard runs the one-device path):
 placement rules (departures named there), a data shard's residual stream
 stays on its first device, and each layer's model shards run on their
 devices: attention by whole q heads with the kv heads they read (shared
-where ``n_kv % tp != 0``), the MLP by ``d_ff`` columns, MoE experts
-expert-parallel (``moe.moe_block``); their partials meet through
-``parallel.sum_to_lead`` in shard order. The embedding is vocab-sharded
+where ``n_kv % tp != 0``) or, where whole heads do not split (Qwen's 40
+at tp 16), inside heads with the cache split by positions (:class:`_Plan`),
+the MLP by ``d_ff`` columns, MoE experts expert-parallel
+(``moe.moe_block``); their partials meet through ``parallel.sum_to_lead``
+in shard order. The embedding is vocab-sharded
 (``embedding.lookup_row``) and the loss vocab-parallel
 (:func:`_token_losses`): no device holds the whole (B, S, V) float32
 logits. A parameter is a tensor or a ``parallel.Sharded`` grid of blocks
@@ -40,6 +42,8 @@ counterpart.
 ``decode_step`` writes into the caches it is given and returns them: the
 reference's step donates its caches, and a full-width cache (26 GB at
 32k tokens) leaves no room for a second copy.
+Each layer loop marks its boundaries for a cost count's live-bytes
+profile (``obs/cost.py`` ``layer_boundary``; nothing outside a count).
 """
 
 from __future__ import annotations
@@ -62,16 +66,23 @@ from repro_torch.models import (
 )
 from repro_torch.models.layers import (
     NEG_MASK,
+    _cache_start,
+    _write,
     apply_norm,
+    apply_rotary,
     attention_block,
+    gqa_attention,
     init_attention,
     init_mlp,
     init_norm,
     mlp_block,
+    quantize_kv,
+    rotary_angles,
 )
 from repro_torch.models.embedding import lookup_row
 from repro_torch.models.moe import MoEConfig, init_moe, moe_block, moe_block_dense_ref
-from repro_torch.parallel import MeshPlan, Sharded, replicate, sum_to_lead
+from repro_torch.obs.cost import layer_boundary
+from repro_torch.parallel import MeshPlan, Sharded, all_to_all, replicate, sum_to_lead
 
 
 @dataclass(frozen=True)
@@ -175,9 +186,10 @@ def init_params(cfg: TransformerConfig, generator=0, *, device=None, dtype=torch
 # sharding rules (Megatron TP over `model`; FSDP over `data`, launch/steps.py)
 # --------------------------------------------------------------------------
 def attention_splits(cfg: TransformerConfig, tp: int) -> bool:
-    """Whether attention splits over ``tp`` model shards: by whole q heads,
+    """Whether attention splits over ``tp`` model shards by whole q heads,
     each shard's heads reading whole kv heads of their own or all reading
-    one kv head that several shards share."""
+    one kv head that several shards share. Where it does not (Qwen's 40
+    heads at tp 16), attention splits inside heads (:class:`_Plan`)."""
     if cfg.n_heads % tp:
         return False
     h, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
@@ -186,8 +198,8 @@ def attention_splits(cfg: TransformerConfig, tp: int) -> bool:
 
 def head_spans(cfg: TransformerConfig, tp: int) -> tuple:
     """([(first, stop) q heads], [(first, stop) kv heads]) of each of ``tp``
-    model shards, where attention splits: shard r's q heads and the kv
-    heads they read (shared where ``n_kv % tp != 0``)."""
+    model shards, where attention splits by whole heads: shard r's q heads
+    and the kv heads they read (shared where ``n_kv % tp != 0``)."""
     h, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv
     q = [(r * h, (r + 1) * h) for r in range(tp)]
     return q, [(a // g, (b - 1) // g + 1) for a, b in q]
@@ -196,23 +208,26 @@ def head_spans(cfg: TransformerConfig, tp: int) -> tuple:
 def param_pspecs(cfg: TransformerConfig, tp: int = 1, stacked: bool = True):
     """The reference's placement rules, a tree like ``init_params`` of
     tuples (a ``PartitionSpec``'s entries): ``"model"`` on the axis a leaf
-    splits over the model shards, None elsewhere.
+    splits over the model shards, None elsewhere. q columns split where
+    ``n_heads * d_head`` divides, kv columns where ``n_kv * d_head`` does.
 
-    Departures from the reference: attention splits by whole q heads
-    (:func:`attention_splits`), else not at all, where the reference
-    splits q columns whenever ``n_heads * d_head`` divides (Qwen's 40 heads
-    at tp 16); where q heads split but ``n_kv % tp != 0``, ``wk``/``wv``/
-    ``bk``/``bv`` are kept whole and each shard takes the kv heads its q
-    heads read, where the reference splits kv columns inside a head. The
-    outputs are the same."""
+    Departure from the reference: where whole q heads split but
+    ``n_kv % tp != 0`` (phi and granite at tp 16), ``wk``/``wv``/``bk``/
+    ``bv`` are kept whole and each shard takes the kv heads its q heads
+    read, where the reference splits kv columns inside a head. The outputs
+    are the same."""
     lead = (None,) if stacked else ()
     m = "model"
 
     def spec(*axes):
         return lead + axes
 
-    q_shard = m if attention_splits(cfg, tp) else None
-    kv_shard = m if q_shard and cfg.n_kv % tp == 0 else None
+    dh = cfg.head_dim
+    q_shard = m if (cfg.n_heads * dh) % tp == 0 else None
+    if attention_splits(cfg, tp):
+        kv_shard = m if cfg.n_kv % tp == 0 else None
+    else:
+        kv_shard = m if (cfg.n_kv * dh) % tp == 0 else None
     ff_shard = m if cfg.d_ff % tp == 0 else None
     attn = {"wq": spec(None, q_shard), "wk": spec(None, kv_shard),
             "wv": spec(None, kv_shard), "wo": spec(q_shard, None)}
@@ -240,16 +255,20 @@ def param_pspecs(cfg: TransformerConfig, tp: int = 1, stacked: bool = True):
 def cache_pspecs(cfg: TransformerConfig, tp: int, dp_axes, seq_len: int | None = None,
                  quantized: bool = False):
     """The KV cache's placement, as the reference's tuples: the batch over
-    ``dp_axes`` and, where attention splits, the kv heads over the model
-    shards, one contiguous block per shard holding the kv heads its q
-    heads read. Departure: where ``n_kv % tp != 0`` shards that share a kv
-    head each hold it, and where attention does not split the cache is not
-    split over the model shards; the reference shards the sequence axis
-    there when ``seq_len`` divides (``seq_len`` is taken for its
-    signature)."""
+    ``dp_axes``; where attention splits by whole heads, the kv heads over
+    the model shards, one contiguous block per shard holding the kv heads
+    its q heads read; elsewhere the sequence axis over the model shards
+    where ``seq_len`` divides, else no split over them. Departure: where
+    whole heads split but ``n_kv % tp != 0``, shards that share a kv head
+    each hold it, where the reference shards the sequence axis."""
     dp = tuple(dp_axes) if not isinstance(dp_axes, str) else (dp_axes,)
     dp = dp[0] if len(dp) == 1 else dp  # as a PartitionSpec normalises one name
-    s = (None, dp, None, "model" if attention_splits(cfg, tp) else None, None)
+    if attention_splits(cfg, tp):
+        s = (None, dp, None, "model", None)
+    elif seq_len is not None and seq_len % tp == 0:
+        s = (None, dp, "model", None, None)
+    else:
+        s = (None, dp, None, None, None)
     out = {"k": s, "v": s}
     if quantized:
         out["k_scale"] = out["v_scale"] = s[:-1]
@@ -314,19 +333,53 @@ def _spans(n: int, parts: int) -> list:
 
 class _Plan(MeshPlan):
     """An LM step's plan over the mesh: which layers split over the model
-    shards, and each shard's q and kv heads."""
+    shards, and how attention splits.
+
+    * By whole heads (:func:`attention_splits`): shard r runs its q heads
+      and the kv heads they read, on its device, and its cache block holds
+      those kv heads.
+    * Inside heads, elsewhere (``seq``): the q columns split where
+      ``n_heads * d_head`` divides, the kv columns where ``n_kv * d_head``
+      does (else each is projected whole on the lead device). Prefill and
+      train re-lay each shard's projected columns out as sequence blocks
+      of whole heads (``parallel.all_to_all``); shard j runs rotary and
+      causal attention for its query block over the kv blocks it needs
+      (an all-gather of them), keeps its kv block as its cache, and hands
+      the output back as columns to ``wo``'s row block. A decode step
+      gathers the token's q, k and v whole on each sequence shard; the
+      shard that owns the position writes it, each takes a partial softmax
+      over its positions (max, sum of exponentials, weighted v), and the
+      partials meet on the lead device, merged by log-sum-exp in shard
+      order, then split into columns for ``wo``. The sequence splits over
+      the model shards where its length divides, else it stays in one
+      block on the lead device."""
 
     def __init__(self, cfg: TransformerConfig, mesh, dp_axes):
         super().__init__(mesh, dp_axes)
         tp, dh = self.tp, cfg.head_dim
-        self.attn = tp > 1 and attention_splits(cfg, tp)
-        q, kv = head_spans(cfg, tp) if self.attn else ([(0, cfg.n_heads)], [(0, cfg.n_kv)])
+        self.heads = tp > 1 and attention_splits(cfg, tp)
+        self.seq = tp > 1 and not self.heads
+        q, kv = head_spans(cfg, tp) if self.heads else ([(0, cfg.n_heads)], [(0, cfg.n_kv)])
         self.q_heads, self.kv_heads = q, kv
         self.attn_how = {"wq": (1, q, dh), "wk": (1, kv, dh), "wv": (1, kv, dh),
                          "wo": (0, q, dh), "bq": (0, q, dh), "bk": (0, kv, dh),
                          "bv": (0, kv, dh)}
+        n_q, n_kv = cfg.n_heads * dh, cfg.n_kv * dh
+        self.q_cols = tp if self.seq and n_q % tp == 0 else 1
+        self.kv_cols = tp if self.seq and n_kv % tp == 0 else 1
+        qs, ks = _spans(n_q, self.q_cols), _spans(n_kv, self.kv_cols)
+        self.q_how = {"wq": (1, qs, 1), "bq": (0, qs, 1), "wo": (0, qs, 1)}
+        self.kv_how = {"wk": (1, ks, 1), "wv": (1, ks, 1), "bk": (0, ks, 1), "bv": (0, ks, 1)}
         self.ff = tp > 1 and cfg.moe is None and cfg.d_ff % tp == 0
         self.vocab = tp > 1 and cfg.vocab_padded % tp == 0
+
+    def seq_blocks(self, seq_len: int) -> int:
+        """The sequence blocks attention split inside heads runs in."""
+        return self.tp if self.seq and seq_len % self.tp == 0 else 1
+
+    def cache_cols(self, seq_len: int) -> int:
+        """The model blocks of a cache of ``seq_len`` positions."""
+        return self.tp if self.heads else self.seq_blocks(seq_len)
 
     def vocab_views(self, leaf, axis: int, cfg: TransformerConfig) -> list:
         cols = self.tp if self.vocab else 1
@@ -341,17 +394,173 @@ def _row_copies(x, plan: _Plan, d: int, cols: int) -> list:
     return [x] if cols == 1 else replicate(x, plan.row(d, cols))
 
 
+def _rotary(cfg: TransformerConfig, q, k, start: int):
+    """q and k (B, S, heads, Dh) rotated at positions start .. start + S - 1,
+    as ``attention_block`` rotates them."""
+    d_rot = int(cfg.head_dim * cfg.rotary_pct)
+    d_rot -= d_rot % 2
+    if not d_rot:
+        return q, k
+    B, S = q.shape[:2]
+    pos = (torch.arange(S, device=q.device) + start)[None, :].expand(B, S)
+    cos, sin = rotary_angles(pos, d_rot)
+    return apply_rotary(q, cos, sin, cfg.rotary_pct), apply_rotary(k, cos, sin, cfg.rotary_pct)
+
+
+def _project(views, zs, w: str, b: str, dt) -> list:
+    """Each shard's columns of ``z @ w (+ b)``."""
+    out = []
+    for p, z in zip(views, zs):
+        y = z @ p[w].to(dt)
+        out.append(y + p[b].to(dt) if b in p else y)
+    return out
+
+
+def _seq_attention(cfg: TransformerConfig, plan: _Plan, d: int, qv, kvv, z, cache=None,
+                   position: int = 0):
+    """Data shard d's attention split inside heads (:class:`_Plan`): ``qv``
+    and ``kvv`` the q-side (``wq``, ``bq``, ``wo``) and kv-side weights of
+    each column shard, ``z`` the normed residual on the lead device,
+    ``cache`` the sequence shards' cache blocks [j] or None -> (the output
+    on the lead device, each sequence shard's cache [j])."""
+    B, S, _ = z.shape
+    dt = z.dtype
+    zq = _row_copies(z, plan, d, plan.q_cols)
+    zk = zq if plan.kv_cols == plan.q_cols else _row_copies(z, plan, d, plan.kv_cols)
+    q = _project(qv, zq, "wq", "bq", dt)
+    k = _project(kvv, zk, "wk", "bk", dt)
+    v = _project(kvv, zk, "wv", "bv", dt)
+    if cache is None:
+        outs, caches = _seq_self_attention(cfg, plan, d, q, k, v)
+    else:
+        outs, caches = [_seq_cached_attention(cfg, plan, d, q, k, v, cache, position)], cache
+    cols = all_to_all(outs, 2, 1, plan.row(d, plan.q_cols))
+    return _row_sum([o @ p["wo"].to(dt) for o, p in zip(cols, qv)], plan.lead(d)), caches
+
+
+def _seq_self_attention(cfg: TransformerConfig, plan: _Plan, d: int, q, k, v):
+    """Causal self-attention of the projected columns by sequence blocks ->
+    (each block's (B, S / n, H Dh) output on its shard, its cache)."""
+    B, S, _ = q[0].shape
+    H, Kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    nb = plan.seq_blocks(S)
+    blk = S // nb
+    devs = plan.row(d, nb)
+    qs, ks, vs = (all_to_all(parts, 1, 2, devs) for parts in (q, k, v))
+    rot = [_rotary(cfg, qs[j].reshape(B, blk, H, dh), ks[j].reshape(B, blk, Kv, dh), j * blk)
+           for j in range(nb)]
+    vs = [x.reshape(B, blk, Kv, dh) for x in vs]
+    k_rows = [kj for _, kj in rot]
+    shards = [(d, j) for j in range(nb)]
+    k_all = plan._gather(k_rows, shards, 1, shards) if nb > 1 else k_rows
+    v_all = plan._gather(vs, shards, 1, shards) if nb > 1 else vs
+    outs = []
+    for j, (qj, _) in enumerate(rot):
+        stop = (j + 1) * blk
+        o = gqa_attention(qj, k_all[j].narrow(1, 0, stop), v_all[j].narrow(1, 0, stop),
+                          causal=True, q_offset=j * blk)
+        outs.append(o.reshape(B, blk, H * dh))
+    return outs, [{"k": kj, "v": vj} for kj, vj in zip(k_rows, vs)]
+
+
+def _seq_cached_attention(cfg: TransformerConfig, plan: _Plan, d: int, q, k, v, cache,
+                          position: int):
+    """The new tokens' attention over a sequence-sharded cache -> the
+    (B, S, H Dh) output on the lead device. The tokens' q, k and v are
+    gathered whole and rotated on the lead device; each shard that owns
+    positions of the new tokens receives and writes their k and v; q goes
+    to every shard, which takes its partial softmax."""
+    B, S, _ = q[0].shape
+    H, Kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    G = H // Kv
+    nb = len(cache)
+    sizes = [c["k"].shape[1] for c in cache]
+    starts = np.cumsum([0] + sizes).tolist()
+    start = _cache_start(position, S, starts[-1])
+    lead, shards = (d, 0), [(d, j) for j in range(nb)]
+
+    def whole(parts):
+        return plan._gather(parts, [(d, r) for r in range(len(parts))], 2, [lead])[0]
+
+    qw, kw = _rotary(cfg, whole(q).reshape(B, S, H, dh), whole(k).reshape(B, S, Kv, dh),
+                     position)
+    vw = whole(v).reshape(B, S, Kv, dh)
+    if "k_scale" in cache[0]:
+        (k8, ks), (v8, vs) = quantize_kv(kw), quantize_kv(vw)
+        new = {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": kw, "v": vw}
+    last = position + S - 1  # the last position any new token reads
+    live = [j for j in range(nb) if starts[j] <= last]  # a shard past it adds nothing
+    qs = plan._gather([qw.reshape(B, S, Kv, G, dh)], [lead], 1, [shards[j] for j in live])
+    scale = float(np.float32(1.0 / np.sqrt(dh)))
+    partials = []
+    for j, qj in zip(live, qs):
+        c = cache[j]
+        lo, hi = max(start, starts[j]), min(start + S, starts[j + 1])
+        if lo < hi:  # this shard owns positions of the new tokens
+            for name, upd in new.items():
+                (rows,) = plan._gather([upd.narrow(1, lo - start, hi - lo)], [lead], 1,
+                                       [shards[j]])
+                _write(c, name, rows, lo - starts[j])
+        kf, vf = c["k"], c["v"]
+        if "k_scale" in c:
+            kf = kf.to(qj.dtype) * c["k_scale"][..., None].to(qj.dtype)
+            vf = vf.to(qj.dtype) * c["v_scale"][..., None].to(qj.dtype)
+        partials.append(_partial_softmax(qj, kf, vf, starts[j], position, scale)[None])
+    (got,) = plan._gather(partials, [shards[j] for j in live], 0, [lead])
+    # the online softmax's merge of the shards' partials, against their max
+    top = got[..., 0].amax(dim=0)
+    w = torch.exp(got[..., 0] - top)
+    l = (got[..., 1] * w).sum(dim=0)
+    acc = (got[..., 2:] * w[..., None]).sum(dim=0)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H * dh).to(qw.dtype)
+
+
+def _partial_softmax(q, k, v, first: int, position: int, scale: float) -> torch.Tensor:
+    """One shard's share of the new tokens' attention: q (B, S, Hkv, G, Dh)
+    at positions position.., k and v (B, T, Hkv, Dh) at first.. ->
+    (B, Hkv, G, S, Dh + 2) float32: each row's max score, its sum of
+    exponentials and its float32 weighted v, as the reference's online
+    softmax leaves them after one kv block (masked scores -1e30)."""
+    S, T = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    if first + T - 1 > position:  # the block reaches past the first token's position
+        kpos = first + torch.arange(T, device=q.device)
+        qpos = position + torch.arange(S, device=q.device)
+        s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_MASK)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v).float()
+    return torch.cat([m[..., None], p.sum(dim=-1)[..., None], pv], -1)
+
+
 def _mesh_layer(cfg: TransformerConfig, plan: _Plan, p_l, xs, caches=None, position=0):
     """One layer over the grid: ``xs[d]`` data shard d's residual on its
     lead device; ``caches[d][r]`` shard (d, r)'s cache (or None) -> (the
     new residuals, the layer's aux loss on the mesh's lead device (0.0
     without MoE), the shards' new caches [d][r])."""
-    cols = plan.tp if plan.attn else 1
-    attn = plan.tree_views(p_l["attn"], cols, plan.attn_how)
+    if plan.seq:
+        attn = p_l["attn"]
+        q_side = plan.tree_views({k: v for k, v in attn.items() if k in plan.q_how},
+                                 plan.q_cols, plan.q_how)
+        kv_side = plan.tree_views({k: v for k, v in attn.items() if k in plan.kv_how},
+                                  plan.kv_cols, plan.kv_how)
+    else:
+        cols = plan.tp if plan.heads else 1
+        attn = plan.tree_views(p_l["attn"], cols, plan.attn_how)
     ln1, ln2 = (plan.tree_views(p_l[k], 1, {}) for k in ("ln1", "ln2"))
     hs, zs, new_caches = [], [], []
     for d, x in enumerate(xs):
         z = apply_norm(x, ln1[d][0], cfg.norm)
+        if plan.seq:
+            h, cs = _seq_attention(cfg, plan, d, q_side[d], kv_side[d], z,
+                                   None if caches is None else caches[d], position)
+            new_caches.append(cs)
+            hs.append(x + h)
+            zs.append(apply_norm(hs[-1], ln2[d][0], cfg.norm))
+            continue
         outs, cs = [], []
         for r, z_r in enumerate(_row_copies(z, plan, d, cols)):
             (qa, qb), (ka, kb) = plan.q_heads[r], plan.kv_heads[r]
@@ -423,9 +632,11 @@ def _mesh_forward(cfg: TransformerConfig, params, tokens, mesh, dp_axes):
         return (*out, aux)
 
     aux = torch.zeros((), dtype=torch.float32, device=plan.mesh_lead)
-    for p_l in unstack(params["layers"], cfg.n_layers):
+    for i, p_l in enumerate(unstack(params["layers"], cfg.n_layers)):
+        layer_boundary(xs[0], i, cfg.n_layers)
         *xs, a = remat(layer, p_l, *xs) if cfg.remat else layer(p_l, *xs)
         aux = aux + a
+    layer_boundary(xs[0], cfg.n_layers, cfg.n_layers)
     final = plan.tree_views(params["final_norm"], 1, {})
     head, tied = _head(params, plan, cfg, embed)
     parts = [_head_parts(cfg, plan, d, x, final, head, tied) for d, x in enumerate(xs)]
@@ -494,9 +705,11 @@ def forward(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)
         return y, a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p_l in unstack(params["layers"], cfg.n_layers):
+    for i, p_l in enumerate(unstack(params["layers"], cfg.n_layers)):
+        layer_boundary(x, i, cfg.n_layers)
         x, a = remat(layer, x, p_l) if cfg.remat else layer(x, p_l)
         aux = aux + a
+    layer_boundary(x, cfg.n_layers, cfg.n_layers)
     return _logits(cfg, params, x), aux / cfg.n_layers
 
 
@@ -558,7 +771,8 @@ def lm_grads_microbatched(cfg: TransformerConfig, params, tokens, targets, n_mic
 def _cache_views(plan: _Plan, caches, i: int, cols: int) -> list:
     """Layer i of the caches as [d][r] dicts: each ``Sharded`` cache's
     block (d, r), or views of a whole cache (batch rows of data shard d,
-    the kv heads of shard r) where every shard is on its device."""
+    and the kv heads or the sequence block of shard r) where every shard
+    is on its device."""
     out = [[{} for _ in range(cols)] for _ in range(plan.dp)]
     for name, c in caches.items():
         if isinstance(c, Sharded):
@@ -570,6 +784,7 @@ def _cache_views(plan: _Plan, caches, i: int, cols: int) -> list:
                     out[d][r][name] = c.block(d, r)[i]
             continue
         rows = c.shape[1] // plan.dp
+        spans = plan.kv_heads if plan.heads else _spans(c.shape[2], cols)
         for d in range(plan.dp):
             for r in range(cols):
                 if plan.grid[d, r] != c.device:
@@ -577,47 +792,58 @@ def _cache_views(plan: _Plan, caches, i: int, cols: int) -> list:
                                      f"device only, not {plan.grid[d, r]}")
                 v = c[i].narrow(0, d * rows, rows)
                 if cols > 1:
-                    a, b = plan.kv_heads[r]
-                    v = v.narrow(2, a, b - a)
+                    a, b = spans[r]
+                    v = v.narrow(2 if plan.heads else 1, a, b - a)
                 out[d][r][name] = v
     return out
 
 
-def _stacked_caches(plan: _Plan, per_layer: list, cols: int):
+def _stacked_caches(plan: _Plan, per_layer: list, cols: int, seq_len: int):
     """The prefill's per-layer caches [layer][d][r] as the step's caches:
     plain (L, B, S, Hkv, Dh) tensors on a (1, 1) grid, else a ``Sharded``
-    per name, block (d, r) the stacked cache of shard (d, r)."""
+    per name, block (d, r) the stacked cache of shard (d, r): its kv heads
+    or its sequence block."""
+    if cols == 1:
+        axes, spans = (1, None), None
+    elif plan.heads:
+        axes, spans = (1, 3), [tuple(s) for s in plan.kv_heads]
+    else:
+        axes, spans = (1, 2), [tuple(s) for s in _spans(seq_len, cols)]
     out = {}
     for name in ("k", "v"):
         blocks = [torch.stack([layer[d][r][name] for layer in per_layer])
                   for d in range(plan.dp) for r in range(cols)]
-        if len(blocks) == 1:
-            out[name] = blocks[0]
-        else:
-            spans = [tuple(s) for s in plan.kv_heads] if cols > 1 else None
-            out[name] = Sharded(blocks, (plan.dp, cols), (1, 3 if cols > 1 else None), spans)
+        out[name] = blocks[0] if len(blocks) == 1 else Sharded(blocks, (plan.dp, cols), axes,
+                                                               spans)
     return out
 
 
 def _mesh_serve(cfg: TransformerConfig, params, tokens, mesh, dp_axes, caches=None,
                 position=0):
     plan = _Plan(cfg, mesh, dp_axes)
-    cols = plan.tp if plan.attn else 1
+    seq_len = tokens.shape[1] if caches is None else caches["k"].shape[2]
+    cols = plan.cache_cols(seq_len)
     embed = plan.vocab_views(params["embed"], 0, cfg)
     xs = _mesh_embed(cfg, plan, embed, tokens)
     per_layer = []
     for i in range(cfg.n_layers):
+        layer_boundary(xs[0], i, cfg.n_layers)
         views = None if caches is None else _cache_views(plan, caches, i, cols)
-        xs, _, cs = _mesh_layer(cfg, plan, layer_slice(params["layers"], i), xs, views,
-                                position)
+        # the layer's aux loss is dropped at once: a step's live bytes at each
+        # layer boundary are then the same function of the layer
+        xs, cs = _mesh_layer(cfg, plan, layer_slice(params["layers"], i), xs, views,
+                             position)[::2]
         if caches is None:
             per_layer.append(cs)
+    layer_boundary(xs[0], cfg.n_layers, cfg.n_layers)
     final = plan.tree_views(params["final_norm"], 1, {})
     head, tied = _head(params, plan, cfg, embed)
     last = [x if caches is not None else x[:, -1:] for x in xs]
     logits = _gather_logits(plan, [_head_parts(cfg, plan, d, x, final, head, tied)
                                    for d, x in enumerate(last)])[:, 0]
-    return logits, (caches if caches is not None else _stacked_caches(plan, per_layer, cols))
+    if caches is not None:
+        return logits, caches
+    return logits, _stacked_caches(plan, per_layer, cols, seq_len)
 
 
 def prefill(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)):
@@ -631,9 +857,11 @@ def prefill(cfg: TransformerConfig, params, tokens, mesh=None, dp_axes=("data",)
     block = _block(cfg, None if mesh is None else MeshPlan(mesh, dp_axes))
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, cache, _ = block(x, layer_slice(params["layers"], i))
+        layer_boundary(x, i, cfg.n_layers)
+        x, cache = block(x, layer_slice(params["layers"], i))[:2]
         ks.append(cache["k"])
         vs.append(cache["v"])
+    layer_boundary(x, cfg.n_layers, cfg.n_layers)
     return _logits(cfg, params, x[:, -1:])[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -650,8 +878,10 @@ def decode_step(cfg: TransformerConfig, params, token, caches, position, mesh=No
     x = _embed(cfg, params, token)
     block = _block(cfg, None if mesh is None else MeshPlan(mesh, dp_axes))
     for i in range(cfg.n_layers):
-        x, _, _ = block(x, layer_slice(params["layers"], i),
-                        cache_l=layer_slice(caches, i), position=position)
+        layer_boundary(x, i, cfg.n_layers)
+        x = block(x, layer_slice(params["layers"], i), cache_l=layer_slice(caches, i),
+                  position=position)[0]
+    layer_boundary(x, cfg.n_layers, cfg.n_layers)
     return _logits(cfg, params, x)[:, 0], caches
 
 

@@ -39,8 +39,13 @@ plain version.
 
 Memory: each output storage of a non-view op counts as allocated when it
 appears and released when the last tensor seen on it dies (a weakref
-reference's callback), so ``peak_bytes`` is the high-water mark of storages the step
-allocated; its inputs are not in it.
+reference's callback), so ``peak_bytes`` is the high-water mark of
+storages the step allocated; its inputs are not in it. A step marks the
+boundaries of its repeated parts (:func:`layer_boundary`: the LM's layers,
+forward and, through a gradient hook, backward); ``profile`` then holds
+the high-water mark of each stretch between two marks, under the tag of
+the mark that opens it, from which ``launch/dryrun.py`` reckons the peak
+of a deeper step.
 
 Copies between shards come from :func:`repro_torch.parallel.copy_record`,
 which the pass opens around the step.
@@ -162,7 +167,8 @@ class Cost:
     shards), ``matmul_flops`` the matrix products' share of ``flops``,
     ``kernels`` the hand-written kernels' share by entry point
     ({"launches", "flops", "bytes_accessed"}), ``peak_bytes`` the
-    high-water mark of live storages the step allocated, ``copies`` the
+    high-water mark of live storages the step allocated, ``profile`` its
+    stretches between marks as (tag, high-water mark), ``copies`` the
     bytes copied between shards by kind and ``n_copies`` how many."""
 
     flops: float = 0.0
@@ -172,6 +178,7 @@ class Cost:
     ops: int = 0
     kernels: dict = field(default_factory=dict)
     peak_bytes: int = 0
+    profile: list = field(default_factory=list)
     copies: dict = field(default_factory=dict)
     n_copies: int = 0
 
@@ -190,6 +197,7 @@ class CostMode(TorchDispatchMode):
         self._live: dict = {}  # storage key -> [bytes, tensors seen on it]
         self._live_bytes = 0
         self._refs: dict = {}  # id -> weak reference to each tensor seen
+        self._stretch = ["start", 0]  # the open stretch: its tag and high-water mark
 
     def __enter__(self):
         _ACTIVE.append(self)
@@ -224,11 +232,22 @@ class CostMode(TorchDispatchMode):
                 return
             entry = self._live[key] = [t.untyped_storage().nbytes(), 0]
             self._live_bytes += entry[0]
-            if self._live_bytes > self.cost.peak_bytes:
-                self.cost.peak_bytes = self._live_bytes
+            if self._live_bytes > self._stretch[1]:
+                self._stretch[1] = self._live_bytes
+                if self._live_bytes > self.cost.peak_bytes:
+                    self.cost.peak_bytes = self._live_bytes
         entry[1] += 1
         ref = weakref.ref(t, lambda ref, key=key: self._release(key, ref))
         self._refs[id(ref)] = ref
+
+    def mark(self, tag: str) -> None:
+        """Close the open stretch of the live-bytes profile and open one
+        under ``tag``."""
+        self.cost.profile.append(tuple(self._stretch))
+        self._stretch = [tag, self._live_bytes]
+
+    def close(self) -> None:
+        self.cost.profile.append(tuple(self._stretch))
 
     # -- the count ----------------------------------------------------------
     def _count(self, func, args, kwargs, out) -> None:
@@ -290,6 +309,33 @@ def counting() -> bool:
     return bool(_ACTIVE)
 
 
+LAYER, LAYERS_DONE = "layer", "layers_done"  # forward marks
+LAYER_GRAD, LAYER_GRADS_DONE = "layer_grad", "layer_grads_done"  # backward marks
+
+
+def mark(tag: str) -> None:
+    """Open a stretch of the live-bytes profile under ``tag`` in every
+    running count (an optimizer's leaf: each stretch then holds one leaf's
+    temporaries, whose size follows that leaf's)."""
+    for mode in _ACTIVE:
+        mode.mark(tag)
+
+
+def layer_boundary(x, i: int, n: int) -> None:
+    """Mark the boundary before layer ``i`` of ``n`` (``i == n``: after the
+    last) in every running count: ``layer`` (``layers_done``) now and,
+    where ``x`` (the residual entering layer ``i``) takes a gradient,
+    ``layer_grad`` (``layer_grads_done`` for layer 0) when the backward
+    reaches it: the start of layer ``i - 1``'s backward. Nothing when no
+    count runs."""
+    if not _ACTIVE:
+        return
+    mark(LAYER if i < n else LAYERS_DONE)
+    if isinstance(x, torch.Tensor) and x.requires_grad:
+        tag = LAYER_GRAD if i > 0 else LAYER_GRADS_DONE
+        x.register_hook(lambda grad: mark(tag))
+
+
 def kernel_work(name: str, *, flops: float, bytes_accessed: float,
                 transcendentals: float = 0.0) -> None:
     """A hand-written kernel's work, added to every running count."""
@@ -311,6 +357,7 @@ def count(fn, *args, **kwargs):
     mode = CostMode()
     with copy_record() as copies, mode:
         out = fn(*args, **kwargs)
+    mode.close()
     mode.cost.copies = dict(copies.bytes)
     mode.cost.n_copies = copies.count
     return out, mode.cost

@@ -2,7 +2,7 @@
 
 The model paths over a mesh (``repro_torch.launch.mesh``: row-sharded
 tables, expert parallelism, the edge-sharded EGNN, the LM's tensor
-parallelism and FSDP) move tensors between shards through four
+parallelism and FSDP) move tensors between shards through five
 ``torch.autograd.Function``s, so that every sum across shards, forward
 and backward, is one made in shard order on one device:
 
@@ -16,18 +16,22 @@ and backward, is one made in shard order on one device:
 * :func:`gather_blocks` concatenates blocks split along an axis onto each
   device of a group (FSDP's all-gather); its backward adds the group's
   gradients in group order and hands each block its slice on its own
-  device (the reduce-scatter).
+  device (the reduce-scatter);
+* :func:`all_to_all` re-lays blocks out across a row of shards (the
+  LM's attention split inside heads: columns to sequence blocks and
+  back); it adds nothing, forward or backward.
 
-Each of the four notes what it copies in every :func:`copy_record` that
+Each of the five notes what it copies in every :func:`copy_record` that
 is open, by kind (the reference's collective names where the collective
 is the same): ``replicate`` a ``broadcast`` and its backward a
 ``reduce``; ``sum_to_lead`` an ``all-reduce`` and its backward a
 ``broadcast``; ``split_rows`` a ``scatter`` and its backward a
 ``gather``; ``gather_blocks`` an ``all-gather`` and its backward a
-``reduce-scatter``. The bytes are those a mesh of distinct devices would
-move, counted by shard index and not by what was copied here: on a mesh
-whose shards share a device (a dry run's ``meta`` entries, one card in
-several shards) every shard other than the source's receives its part.
+``reduce-scatter``; ``all_to_all`` an ``all-to-all`` both ways. The
+bytes are those a mesh of distinct devices would move, counted by shard
+index and not by what was copied here: on a mesh whose shards share a
+device (a dry run's ``meta`` entries, one card in several shards) every
+shard other than the source's receives its part.
 A tensor lives on the first shard whose device is its own (or on none).
 
 Left to plain ``.to(device)`` under autograd, a tensor used on several
@@ -210,6 +214,50 @@ def gather_blocks(blocks, axis: int, devices, moved=None) -> list:
     note, (bytes, copies), where the caller knows the shards better than
     the devices tell (:meth:`MeshPlan.views`)."""
     return list(_GatherBlocks.apply(axis, [torch.device(d) for d in devices], moved, *blocks))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_axis, cat_axis, devices, *parts):
+        n = len(devices)
+        if any(p.shape[split_axis] % n for p in parts):
+            raise ValueError(f"an axis of {parts[0].shape[split_axis]} does not split over "
+                             f"{n} shards")
+        ctx.axes = (split_axis, cat_axis)
+        ctx.homes = [p.device for p in parts]
+        ctx.widths = [p.shape[cat_axis] for p in parts]
+        pieces = [p.chunk(n, split_axis) for p in parts]
+        moved = [_nbytes(pc[j]) for r, pc in enumerate(pieces) for j in range(n) if r != j]
+        ctx.moved = (sum(moved), len(moved))
+        _note("all-to-all", *ctx.moved)
+        out = []
+        for j, d in enumerate(devices):
+            got = [_view_or_copy(pc[j], d) for pc in pieces]
+            out.append(got[0] if len(got) == 1 else torch.cat(got, cat_axis))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _note("all-to-all", *ctx.moved)
+        split, cat = ctx.axes
+        out, start = [], 0
+        for home, width in zip(ctx.homes, ctx.widths):
+            got = [g.narrow(cat, start, width).to(home) for g in grads]
+            out.append(got[0] if len(got) == 1 else torch.cat(got, split))
+            start += width
+        return (None, None, None, *out)
+
+
+def all_to_all(parts, split_axis: int, cat_axis: int, devices) -> list:
+    """Each of ``parts`` (part r on shard r of a row) cut into
+    ``len(devices)`` equal blocks along ``split_axis``, and target j (shard
+    j, on ``devices[j]``) given the parts' j-th blocks concatenated along
+    ``cat_axis``: columns to row blocks, or back. One part is a split, one
+    target a gather. Nothing is added, forward or backward (the backward is
+    the inverse re-layout), and the bytes noted are the blocks whose shard
+    is not their target's."""
+    return list(_AllToAll.apply(split_axis, cat_axis, [torch.device(d) for d in devices],
+                                *parts))
 
 
 def _spans(n: int, parts: int) -> list:

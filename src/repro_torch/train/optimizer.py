@@ -22,6 +22,9 @@ clip scale and bias corrections copied there, and the global norm adds
 each block's sum of squares on the first leaf's device in one fixed order
 (tree order, a grid's blocks row by row). The reference's norm runs over
 the whole array at once, so the two agree within rounding.
+Under a cost count each leaf's norm and update opens a stretch of the
+live-bytes profile (``obs/cost.py`` ``mark``), so a deeper step's peak
+can be reckoned leaf by leaf.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import tree_leaves, tree_map
+from repro_torch.obs.cost import mark
 
 CHUNK = 1 << 24  # elements per slice of a leaf's update and norm
 
@@ -74,6 +78,7 @@ def global_norm(tree) -> torch.Tensor:
     in tree order on the first leaf's device."""
     total = None
     for leaf in tree_leaves(tree):
+        mark("leaf")
         sq = None
         for part in _slices(leaf.detach()):
             s = part.float().square().sum()
@@ -101,6 +106,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     with torch.no_grad():
         for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
                                 tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+            mark("leaf")
             if p.device not in on:
                 on[p.device] = tuple(v.to(p.device) for v in on[gnorm.device])
             scale, bc1, bc2 = on[p.device]

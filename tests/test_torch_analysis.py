@@ -26,7 +26,7 @@ serve executor's ``cost_summaries``) against the reference's.
   none of its plain version's ops;
 * ``run_cell`` and the CLI write records with the reference's keys; an
   LM cell reckoned from one and two layers (and microbatches) equals
-  its whole count;
+  its whole count, its temps included;
 * the executor's ``cost_summaries`` are filled after one drain.
 """
 
@@ -405,31 +405,36 @@ def test_run_cell_and_cli_write_reference_keys(tmp_path, monkeypatch):
     assert len(recs) == 2 and all(REF_KEYS <= set(r) for r in recs)
 
 
+@pytest.mark.parametrize("n_layers", [3, 5])
 @pytest.mark.parametrize("kind,dims", [
     ("train", {"seq_len": 32, "global_batch": 6, "n_micro": 3}),
     ("prefill", {"seq_len": 96, "global_batch": 2}),
     ("decode", {"seq_len": 96, "global_batch": 4})])
-def test_extrapolated_count_equals_the_whole_count(kind, dims):
-    """A reduced stablelm of three layers (train: three microbatches,
-    remat) at (2, 2): the count reckoned from one and two layers (and
-    microbatches) equals the whole count in every field but the temps'
-    high-water mark, which a record of an extrapolated cell leaves null."""
+def test_extrapolated_count_equals_the_whole_count(kind, dims, n_layers):
+    """A reduced stablelm of three or five layers (train: three
+    microbatches, remat) at (2, 2): the count reckoned from one and two
+    layers (and microbatches) equals the whole count in every field, the
+    temps' high-water mark too (reckoned from the counts' live-bytes
+    profiles), and the cell's record carries those temps and a peak."""
     from repro_torch.configs.base import ShapeSpec
 
     arch = get_arch("stablelm-1.6b").reduced()
-    arch = replace(arch, model_cfg=replace(arch.model_cfg, n_layers=3, remat=kind == "train"),
+    arch = replace(arch, model_cfg=replace(arch.model_cfg, n_layers=n_layers,
+                                           remat=kind == "train"),
                    shapes={"s": ShapeSpec("s", kind, dims)})
     mesh = _meta_mesh((2, 2))
     built = tsteps.build_step(arch, "s", mesh)
     got, how = dryrun.count_cell(arch, "s", mesh, built)
     assert how == {"layers": [1, 2], "micro": [1, 2] if kind == "train" else [1]}
-    want = dryrun._counted(built, mesh.grid())
+    want, _ = dryrun._counted(built, mesh.grid())
     assert set(got) == set(want)
     for k, v in want.items():
-        if k != ("memory", "temp_bytes"):
-            assert got[k] == pytest.approx(v, rel=1e-12), k
+        assert got[k] == pytest.approx(v, rel=1e-12), k
+    temps = want[("memory", "temp_bytes")]
+    assert got[("memory", "temp_bytes")] == temps > 0
     rec = dryrun.run_cell(arch, "s", False, layer_probe=False, mesh=mesh)
-    assert rec["memory"]["temp_bytes"] is None and rec["extrapolated"] == how
+    assert rec["memory"]["temp_bytes"] == temps and rec["extrapolated"] == how
+    assert rec["memory"]["peak_per_device_gib"] is not None
 
 
 # -- the serve executor ----------------------------------------------------------------

@@ -6,11 +6,10 @@ reference.
 * Placement: for the five full-width configs, the port's
   ``param_pspecs`` (and ``fsdpify`` of it) at tp 1, 2, 4, 16 and fs 1, 2,
   16, and ``cache_pspecs``, equal to the reference's leaf for leaf except
-  the departures ``DEPARTURES`` lists, each asserted: attention unsplit
-  where the heads do not divide (qwen at tp 16), kv projections kept
-  whole where q heads split but kv heads do not (phi and granite at tp
-  16), and the cache split by the kv heads each shard reads (shared) or
-  not at all, where the reference splits its sequence axis.
+  the departures ``DEPARTURES`` lists, each asserted: kv projections
+  kept whole where q heads split but kv heads do not (phi and granite at
+  tp 16), and the cache split by the kv heads each shard reads (shared),
+  where the reference splits its sequence axis.
 * Parity: the five reduced archs' built train, prefill and decode (bf16
   and int8 cache) steps over (1, 2), (1, 4) and (2, 2) meshes of the CPU,
   on the reference's inputs (its weights carried across), against the
@@ -92,12 +91,10 @@ REF_TIMEOUT_S = 600
 # The placements where the port departs from the reference: (arch, tp) ->
 # the leaves whose "model" entry the port drops, and the cache's spec.
 DEPARTURES = {
-    ("qwen1.5-32b", 16): ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
     ("phi3.5-moe-42b-a6.6b", 16): ("wk", "wv"),
     ("granite-moe-1b-a400m", 16): ("wk", "wv"),
 }
 CACHE_DEPARTURES = {  # the port's head axis entry where it differs
-    ("qwen1.5-32b", 16): None,
     ("phi3.5-moe-42b-a6.6b", 16): "model",
     ("granite-moe-1b-a400m", 16): "model",
 }
