@@ -120,9 +120,21 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   means equal to the host's; then the copies between distinct devices:
   the reduced two-tower and EGNN train steps on a (1, 2) mesh of this
   card and the host, replayed from the seed with every leaf equal to the
-  bit and within tolerance of the (1, 1) step on the card;
+  bit and within tolerance of the (1, 1) step on the card; the reduced
+  four recsys archs data-parallel (train, serve, retrieval) on a (2, 1)
+  and a (2, 2) mesh whose second data shard is the host, every table and
+  leaf placed once per data shard, the host's rows through its own dense
+  layers: outputs within 1e-5 of the card's (1, 1) step, every replica
+  on the card within 1e-5 of its replica on the host after each train
+  step (the host's float32 root is not the card's), a replay from the
+  seed equal in every leaf, and the same train steps on the card alone
+  with replicas placed by hand, equal to the bit; two-tower's
+  train_batch at full width (B 32,768) data-parallel on a (2, 1) mesh of
+  this card (and a (4, 1) mesh of four cards when four are visible,
+  every replica equal to the bit) against (1, 1): losses within 1e-5,
+  each data shard's bag and backward once a step, time and peak memory;
 - the LM's tensor parallelism and FSDP (the tp phase, no kernel on its
-  path): qwen1.5-32b at full width, its depth cut to 8 layers, through
+  path): qwen1.5-32b at full width, its depth cut to 4 layers, through
   its built prefill (B 2 x S 4096) and decode steps (B 4 on an S 16,384
   cache, bf16 and int8) on a (1, 4) mesh of this card (attention by whole
   heads, the cache by kv heads) and on a (1, 16) mesh (attention split
@@ -169,6 +181,7 @@ exit, no result line) without a card, and outside a checkout of the repo.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -176,6 +189,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -3482,6 +3496,19 @@ def md_meshes(dev) -> list:
             for name, d in cases]
 
 
+def md_dp_meshes(dev) -> list:
+    """(name, mesh) for two-tower's data-parallel train step at full width:
+    a (2, 1) mesh of this card, and a (4, 1) mesh of four cards when four
+    are visible."""
+    from repro_torch.launch.mesh import make_mesh
+
+    cases = [("one card", make_mesh((2, 1), ("data", "model"), devices=[dev] * 2))]
+    if torch.cuda.device_count() >= 4:
+        cases.append(("four cards", make_mesh((4, 1), ("data", "model"),
+                                              devices=[torch.device("cuda", i) for i in range(4)])))
+    return cases
+
+
 def counted(total: dict, fn):
     """(fn(), the launches it made): every count set to 0 before the call
     and read after it, and added into ``total``."""
@@ -3658,17 +3685,22 @@ def md_twotower_serve(one, mesh, total: dict) -> dict:
 
 
 def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
-    """two-tower-retrieval's train_batch (B TT_TRAIN_B) with its tables
-    row-sharded: TRAIN_STEPS built steps timed, the bag and its backward
-    launched once per shard a step, losses and grad norms within
+    """two-tower-retrieval's train_batch (B TT_TRAIN_B) over ``mesh``: with
+    its tables row-sharded over a model axis, or data-parallel over a data
+    axis (each data shard's rows through its own bag and towers):
+    TRAIN_STEPS built steps timed, the bag and its backward launched once
+    per (data shard, table shard) a step, losses and grad norms within
     RECSYS_TOL of the train phase's unsharded steps from the same seed,
-    peak memory; the same steps again from the state materialized anew,
-    equal to the bit; then the backward kernel alone on each shard."""
+    peak memory, every replica (a leaf held once per data shard on
+    distinct cards) equal to the bit; the same steps again from the state
+    materialized anew, equal to the bit; then, where the table is
+    row-sharded, the backward kernel alone on each shard."""
     from repro_torch.configs.recsys_archs import TWO_TOWER
     from repro_torch.launch.steps import build_step, materialize_inputs
 
     arch = cut_arch(TWO_TOWER, train_batch=("train", {"batch": TT_TRAIN_B}))
     built = build_step(arch, "train_batch", mesh)
+    shards = mesh.size
     params, opt, batch = materialize_inputs(arch, "train_batch", built, seed=MODEL_SEED)
     reset_peaks(mesh)
     losses, norms, step_ms = [], [], []
@@ -3683,8 +3715,11 @@ def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
 
     _, got = counted(total, steps)
     peaks = peak_bytes(mesh)
-    expect_launches(got, {"embedding_bag.embedding_bag": MD_SHARDS * TRAIN_STEPS,
-                          "embedding_bag.embedding_bag_backward": MD_SHARDS * TRAIN_STEPS},
+    apart = max(_replica_gap(params), _replica_gap(opt))[1]
+    if apart:  # replicas on distinct cards: every one updated with the same bits
+        raise AssertionError(f"two-tower sharded train: replicas differ in {apart} elements")
+    expect_launches(got, {"embedding_bag.embedding_bag": shards * TRAIN_STEPS,
+                          "embedding_bag.embedding_bag_backward": shards * TRAIN_STEPS},
                     "two-tower sharded train")
     want = np.array([unsharded["losses"], unsharded["grad_norms"]])
     rel = np.abs(np.array([losses, norms]) / want - 1)
@@ -3703,13 +3738,16 @@ def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
                              f"the first run {list(zip(losses, norms))}")
     del opt
     torch.cuda.empty_cache()
-    shards = md_bag_backward_shards(params["item_emb"], batch["hist"])
+    rec = {"B": TT_TRAIN_B, "mesh": list(mesh.devices.shape), "split": built.meta["split"],
+           "losses": losses, "grad_norms": norms, "rel_diff": float(rel.max()),
+           "step_ms": step_ms, "unsharded_step_ms": unsharded["step_ms"],
+           "peak_bytes": peaks, "unsharded_peak_bytes": unsharded["peak_bytes"],
+           "launches": got, "replay_equal": True, "replicas_equal": True}
+    if built.meta["sharded_tables"]:
+        rec["bag_backward_shards"] = md_bag_backward_shards(params["item_emb"], batch["hist"])
     del params, batch
     torch.cuda.empty_cache()
-    return {"B": TT_TRAIN_B, "losses": losses, "grad_norms": norms, "rel_diff": float(rel.max()),
-            "step_ms": step_ms, "unsharded_step_ms": unsharded["step_ms"],
-            "peak_bytes": peaks, "unsharded_peak_bytes": unsharded["peak_bytes"],
-            "launches": got, "replay_equal": True, "bag_backward_shards": shards}
+    return rec
 
 
 def md_lookups(one, mesh, total: dict) -> dict:
@@ -3994,8 +4032,9 @@ def md_serving_replicas(dev, one) -> dict:
     """The reduced din and bert4rec serve_p99 steps on a (2, 2) mesh whose
     first data shard is this card and second the host: ``place_params``
     puts each row-sharded table once per data shard (the host's blocks on
-    the host), the step copies none of them, and its output equals the
-    (1, 1) step's on the card to the bit."""
+    the host), the step copies none of them, and its output is within
+    RECSYS_TOL of the (1, 1) step's on the card (the second data shard's
+    rows go through its dense layers on the host)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import build_step, materialize_inputs, place_params
@@ -4018,14 +4057,218 @@ def md_serving_replicas(dev, one) -> dict:
         with copy_record() as copies:
             got = bs.fn(placed, batch)
         table_bytes = sum(placed[k].shards[0].numel() * 4 for k in names)
-        if not torch.equal(got.to(want.device), want):
-            raise AssertionError(f"{arch_id} serve_p99 on (2, 2) of the card and the host: the "
-                                 "output differs from the (1, 1) step's")
+        torch.testing.assert_close(got.to(want.device), want, rtol=RECSYS_TOL, atol=RECSYS_TOL)
         if copies.bytes.get("broadcast", 0) >= table_bytes:
             raise AssertionError(f"{arch_id} serve_p99 on (2, 2): copies {copies.bytes}")
-        out[arch_id] = {"tables": list(names), "bitwise": True, "copies": dict(copies.bytes),
-                        "table_block_bytes": table_bytes}
+        out[arch_id] = {"tables": list(names), "bitwise": torch.equal(got.to(want.device), want),
+                        "max_abs_diff": float((got.to(want.device) - want).abs().max()),
+                        "copies": dict(copies.bytes), "table_block_bytes": table_bytes}
     return out
+
+
+DP_MIXED = ((2, 1), (2, 2))  # data shard 0 on the card, data shard 1 on the host
+DP_ARCHS = ("bert4rec", "sasrec", "din", "two-tower-retrieval")
+DP_SHAPES = ("train_batch", "serve_p99", "retrieval_cand")
+
+
+def _dense_devices(calls: list):
+    """Record the device of each dense call's rows (the towers, DIN's head,
+    each seqrec block's MLP) into ``calls`` -> a function that undoes it."""
+    from repro_torch.models import recsys
+
+    saved = {n: getattr(recsys, n) for n in ("_tower", "_din_head", "mlp_block")}
+
+    def wrap(fn):
+        def recorded(p, x, *a, **k):
+            calls.append((x.device.type, int(x.shape[0])))
+            return fn(p, x, *a, **k)
+        return recorded
+
+    for n, fn in saved.items():
+        setattr(recsys, n, wrap(fn))
+    return lambda: [setattr(recsys, n, fn) for n, fn in saved.items()]
+
+
+def _replica_gap(tree) -> tuple[float, int]:
+    """(the largest absolute difference, the elements that differ) between
+    every replica row of every ``Sharded`` leaf and its first row, wherever
+    each lives: (0.0, 0) where all are equal to the bit."""
+    from repro_torch.parallel import Sharded
+
+    if isinstance(tree, dict):
+        gaps = [_replica_gap(v) for v in tree.values()]
+        return max((g for g, _ in gaps), default=0.0), sum(n for _, n in gaps)
+    if not isinstance(tree, Sharded) or tree.axes[0] is not None:
+        return 0.0, 0
+    rows, cols = tree.grid
+    gap, differ = 0.0, 0
+    for i in range(1, rows):
+        for j in range(cols):
+            d = (tree.block(i, j).cpu() - tree.block(0, j).cpu()).abs()
+            gap, differ = max(gap, float(d.max())), differ + int((d != 0).sum())
+    return gap, differ
+
+
+def _replicated(params, mesh, names):
+    """Every table of ``names`` once per (data shard, model shard), every
+    other leaf once per data shard, copies of ``params`` (one copy each,
+    as ``place_params`` keeps them on a mesh whose devices are one)."""
+    from repro_torch.parallel import Sharded
+
+    grid = mesh.grid()
+
+    def leaf(name, x):
+        if isinstance(x, dict):
+            return {k: leaf(name, v) for k, v in x.items()}
+        if name in names:
+            return Sharded.split(x.full(), grid, (None, 0))
+        return Sharded.split(x.clone(), grid[:, :1], (None, None))
+
+    return {k: leaf(k, v) for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def host_deterministic():
+    """Deterministic algorithms inside the block: the host's ``index_put_``
+    with ``accumulate`` (a lookup's backward) otherwise adds a long index
+    list with atomics across threads, in no fixed order, so a replay with
+    a shard on the host would differ (the card's sorts its list). Ops with
+    no deterministic version warn instead of raising, and the warnings are
+    dropped."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def md_recsys_dp(dev, one, total: dict) -> dict:
+    """The reduced four recsys archs data-parallel on a (2, 1) mesh
+    [card, host] and a (2, 2) mesh [card, card, host, host]: every table
+    and leaf placed once per data shard (the second on the host), each
+    data shard's rows (retrieval: candidates) through its own lookups and
+    dense layers (each dense call's device recorded: as many on the host
+    as on the card); serve and retrieval outputs within RECSYS_TOL of the
+    card's (1, 1) step (top-k ids equal where not tied); TRAIN_STEPS train
+    steps with every replica of every parameter and moment on the card
+    within RECSYS_TOL of its replica on the host after each (the host's
+    float32 root is not the card's: the gap is recorded), losses and grad
+    norms within RECSYS_TOL of the (1, 1) steps, and the same steps from
+    the seed again equal in every leaf (under :func:`host_deterministic`).
+    Then the train steps on the same mesh shapes of the card alone, with
+    the replicas placed by hand (``place_params`` keeps one copy where the
+    devices are one): every replica equal to the bit after each step."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+
+    cpu = torch.device("cpu")
+    out, calls = {}, []
+    undo = _dense_devices(calls)
+    try:
+        with host_deterministic():
+            for shape in DP_MIXED:
+                cols = shape[1]
+                mesh = make_mesh(shape, ("data", "model"), devices=[dev] * cols + [cpu] * cols)
+                for arch_id in DP_ARCHS:
+                    for name in DP_SHAPES:
+                        what = f"{arch_id} {name} on {shape} of the card and the host"
+                        r = _dp_case(get_arch(arch_id).reduced(), name, one, mesh, total,
+                                     calls, what)
+                        # retrieval's user side runs once, on the card; a seqrec scores
+                        # its candidates with no dense layer
+                        on = r["dense_calls"]
+                        if name != "retrieval_cand" and on["cpu"] != on["cuda"]:
+                            raise AssertionError(f"{what}: dense calls on the card "
+                                                 f"{on['cuda']}, on the host {on['cpu']}")
+                        if not on["cpu"] and (name != "retrieval_cand"
+                                              or arch_id in DP_ARCHS[2:]):
+                            raise AssertionError(f"{what}: no dense call on the host")
+                        out[f"{arch_id} {name} {shape[0]}x{shape[1]}"] = r
+            for shape in DP_MIXED:
+                mesh = make_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
+                for arch_id in DP_ARCHS:
+                    what = f"{arch_id} train_batch on {shape} of the card, replicas by hand"
+                    out[f"{arch_id} train_batch {shape[0]}x{shape[1]} card"] = _dp_case(
+                        get_arch(arch_id).reduced(), "train_batch", one, mesh, total, calls,
+                        what, by_hand=True)
+    finally:
+        undo()
+    return out
+
+
+def _dp_case(arch, name: str, one, mesh, total: dict, calls: list, what: str,
+             by_hand: bool = False) -> dict:
+    """One arch and shape of :func:`md_recsys_dp` on ``mesh`` against the
+    (1, 1) mesh ``one``; ``dense_calls``: the devices of the dense calls
+    the counted run on ``mesh`` made (recorded into ``calls``). A train
+    step's replicas (placed by hand where ``by_hand``) are held to the bit
+    where they are all on one kind of device, else within RECSYS_TOL."""
+    from repro_torch.launch.steps import build_step, materialize_inputs
+    from repro_torch.models import tree_leaves
+    from repro_torch.train.optimizer import init_opt_state
+
+    b1, bs = build_step(arch, name, one), build_step(arch, name, mesh)
+    first = materialize_inputs(arch, name, b1, seed=MODEL_SEED)
+    r = {"split": bs.meta["split"]}
+
+    def tally():
+        return {t: sum(c[0] == t for c in calls) for t in ("cuda", "cpu")}
+
+    def inputs():
+        args = materialize_inputs(arch, name, bs, seed=MODEL_SEED)
+        if not by_hand:
+            return args
+        p = _replicated(args[0], mesh, bs.meta["sharded_tables"])
+        return p, init_opt_state(p), args[2]
+
+    args = inputs()
+    if name != "train_batch":
+        want = b1.fn(*first)
+        calls.clear()
+        got, _ = counted(total, lambda: bs.fn(*args))
+        r["dense_calls"] = tally()
+        if isinstance(got, tuple):
+            r["tied_swaps"] = same_top_k(got, tuple(t.cpu() for t in want), what)
+        else:
+            torch.testing.assert_close(got.to(want.device), want, rtol=RECSYS_TOL,
+                                       atol=RECSYS_TOL)
+            r["max_abs_diff"] = float((got.to(want.device) - want).abs().max())
+        return r
+    kinds = {d.type for d in mesh.unique_devices()}
+    gaps = []
+
+    def run(built, args, check=False):
+        p, o, b = args
+        metrics = []
+        for _ in range(TRAIN_STEPS):
+            p, o, m = built.fn(p, o, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if check:
+                gap = max(_replica_gap(p), _replica_gap(o))
+                gaps.append(gap)
+                if (gap[1] if len(kinds) == 1 else gap[0] > RECSYS_TOL):
+                    raise AssertionError(f"{what}: replicas {gap[0]:.3e} apart in {gap[1]} "
+                                         f"elements after step {len(metrics)}")
+        return metrics, [t.detach().cpu() for t in tree_leaves((p, o))]
+
+    want, _ = run(b1, first)
+    calls.clear()
+    (got, leaves), _ = counted(total, lambda: run(bs, args, True))
+    r["dense_calls"] = tally()
+    again, leaves_again = run(bs, inputs())
+    if again != got or not all(torch.equal(a, b) for a, b in zip(leaves, leaves_again)):
+        raise AssertionError(f"{what}: a replay gives {again}, the first run {got}")
+    rel = np.abs(np.array(got) / np.array(want) - 1)
+    if not (np.isfinite(rel).all() and (rel <= RECSYS_TOL).all()):
+        raise AssertionError(f"{what}: {got} against the card's (1, 1) {want}")
+    r.update(steps=got, one_card=want, rel_diff=float(rel.max()),
+             replica_gap=max(g for g, _ in gaps), replica_elements_apart=max(n for _, n in gaps),
+             replay_equal=True)
+    return r
 
 
 def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict:
@@ -4033,6 +4276,8 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
     (and of four cards when four are visible), each case against the same
     step unsharded on the card (see the module docstring); the launches of
     the sharded runs alone under ``launches``."""
+    from repro_torch.launch.mesh import make_mesh
+
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     report = {"device_count": torch.cuda.device_count(), "cases": {}, "launches": {}}
@@ -4103,6 +4348,30 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
             f"({cp['int8_ms']:.3f} / {cp['topk_ms']:.3f} ms)")
         rec["seconds"] = time.perf_counter() - t0
         report["cases"][name] = rec
+    report["recsys_dp"] = dp = md_recsys_dp(dev, make_mesh((1, 1), ("data", "model"),
+                                                           devices=[dev]), total)
+    for key, r in dp.items():
+        log(f"multidevice: {key} data-parallel (split {r['split']}): "
+            + (f"{r['steps']} against the card's (1, 1) {r['one_card']} (max rel diff "
+               f"{r['rel_diff']:.2e}); replicas at most {r['replica_gap']:.2e} apart, in "
+               f"{r['replica_elements_apart']} elements; a replay equal in every leaf"
+               if "steps" in r else
+               f"top-k within {RECSYS_TOL} of the card's (1, 1), {r['tied_swaps']} tied swaps"
+               if "tied_swaps" in r else
+               f"max abs diff {r['max_abs_diff']:.2e} to the card's (1, 1)")
+            + f"; dense calls card {r['dense_calls']['cuda']}, host {r['dense_calls']['cpu']}")
+    report["twotower_dp"] = {}
+    for name, mesh in md_dp_meshes(dev):
+        report["twotower_dp"][name] = tr = md_twotower_train(mesh, total, train["twotower"])
+        log(f"multidevice {name}: two-tower train B {tr['B']} data-parallel on {tr['mesh']}: "
+            f"losses {tr['losses']} (max rel diff {tr['rel_diff']:.2e} to (1, 1)); ms per step "
+            f"{[round(x, 2) for x in tr['step_ms']]} against (1, 1) "
+            f"{[round(x, 2) for x in tr['unsharded_step_ms']]}; peak "
+            f"{[round(b / 1e9, 3) for b in tr['peak_bytes']]} GB against "
+            f"{tr['unsharded_peak_bytes'] / 1e9:.3f} GB; bag and backward "
+            f"{tr['launches']['embedding_bag.embedding_bag']} / "
+            f"{tr['launches']['embedding_bag.embedding_bag_backward']} launches in "
+            f"{TRAIN_STEPS} steps; replay equal to the bit")
     report["mixed"] = mx = md_mixed(dev, total)
     log("multidevice: replicate, split_rows and sum_to_lead over the card and the host, and "
         "their gradient, equal to the same over the card to the bit")
@@ -4114,8 +4383,9 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
             f"({r['host_leaves']} on the host); card launches {r['launches']}, as the (1, 1) step's")
     for arch_id, r in mx["serving_replicas"].items():
         log(f"multidevice: {arch_id} reduced serve_p99 on a (2, 2) mesh of the card and the "
-            f"host: tables {r['tables']} placed once per data shard, the output equal to the "
-            f"card's (1, 1) step's to the bit; copies {r['copies']} (a table block "
+            f"host: tables {r['tables']} placed once per data shard, the output within "
+            f"{RECSYS_TOL} of the card's (1, 1) step's (max abs diff {r['max_abs_diff']:.2e}, "
+            f"bitwise {r['bitwise']}); copies {r['copies']} (a table block "
             f"{r['table_block_bytes']} B)")
     if torch.cuda.device_count() < MD_SHARDS:
         log("multidevice: fewer than four cards visible; the shards share one card and no "
@@ -4145,9 +4415,9 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
 
 # -- the LM's tensor parallelism and FSDP (no kernel on this path) -------------------
 TP_SHARDS = (4, 16)  # qwen's model axes on one card: whole heads at 4, inside heads at 16
-TP_QWEN_LAYERS = 8  # qwen1.5-32b's depth, cut from 64: 11.5 GB of bf16 weights
+TP_QWEN_LAYERS = 4  # qwen1.5-32b's depth, cut from 64: 5.8 GB of bf16 weights
 TP_PREFILL = {"seq_len": 4096, "global_batch": 2}
-TP_DECODE = {"seq_len": 16384, "global_batch": 4}  # a 10.7 GB bf16 cache at 8 layers
+TP_DECODE = {"seq_len": 16384, "global_batch": 4}  # a 5.4 GB bf16 cache at 4 layers
 TP_DECODE_STEPS = 3  # decode steps at the cache's last positions, the (1, 1) greedy tokens
 TP_COS = 0.999  # (1, 4) and (1, 16) logits against (1, 1)
 TP_TIE = 4.0  # a row's top-1 may differ only where (1, 1)'s top-2 gap < TP_TIE x the rows' rms diff
@@ -4616,8 +4886,9 @@ def tp_phase(dev, smi: str) -> dict:
                                        f" decode B {TP_DECODE['global_batch']} on "
                                        f"{TP_DECODE['seq_len']} rows",
          "why": "64 layers are 70.4 GB of bf16 weights, over the card's 76 GB with a cache; "
-                "8 keep the (1, 1), (1, 4) and (1, 16) runs inside the script's time; "
-                "the (1, 1) step it is held to must fit the same card"},
+                "4 keep the (1, 1), (1, 4) and (1, 16) runs inside the script's time beside "
+                "the recsys data shards' runs; the (1, 1) step it is held to must fit the "
+                "same card"},
         {"what": "stablelm-1.6b train_4k on (2, 2)", "cut": f"B {TP_TRAIN['global_batch']} "
                                                             "(the train phase's B 8 halved)",
          "why": "one card holds all four shards: at B 8, one microbatch of 8, the (2, 2) step "

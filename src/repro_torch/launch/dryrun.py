@@ -17,7 +17,9 @@ no card), places the parameters as the step expects them
 (``steps.placed_args``) and runs the built step once on its abstract
 arguments under the cost pass (``repro_torch.obs.cost``). One process runs
 every shard's work, so the counts are the whole mesh's; the record gives
-them per device, as the mean over the mesh's devices. A record holds:
+them per device, as the mean over the mesh's devices (a mean cannot show
+work a step leaves to some devices: those do more than it says, the
+others less). A record holds:
 
 * ``memory`` (bytes per device): ``argument_bytes`` and ``output_bytes``,
   the step's arguments and results as placed, on the device holding the

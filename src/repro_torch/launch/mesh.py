@@ -66,6 +66,11 @@ class Mesh:
         order = [names.index(a) for a in (*DP_AXES, "model") if a in names]
         return self.devices.transpose(order).reshape(-1, tp_size(self))
 
+    def data_row(self, d: int) -> "Mesh":
+        """Data shard ``d``'s devices, ``grid()[d]``, as a (1, model) mesh:
+        the mesh a data shard's lookups run over."""
+        return Mesh(self.grid()[d:d + 1], ("data", "model"))
+
     def unique_devices(self) -> list:
         """Each distinct device once, in mesh order."""
         out = []

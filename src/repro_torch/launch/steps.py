@@ -29,15 +29,19 @@ every device):
 * GNN: the unbatched loss with its edges sharded over every mesh axis
   (the reference's ``all_axes``), the batched (molecule) loss with its
   graphs split over the data axes.
-* recsys: each table that the reference row-shards over the model axis
-  (``recsys.row_sharded``) is a ``Sharded``, block r on the model
-  column r's devices (row views of one table where that is one device):
-  serving keeps a replica of each block per data shard, as the
-  reference keeps its tables replicated over the data axes; training
-  keeps one on the first data shard and replicates it over the data
-  shards inside the step; the towers and the batch on the lead device.
-  Retrieval splits its candidates over the data axes when they divide
-  them.
+* recsys: data-parallel as the reference's ``batch_pspec`` places the
+  batch: rows over the data shards where B > 1 and they divide it,
+  retrieval's candidates where they divide them, else unsplit (computed
+  once on the lead device). Each table that the reference row-shards
+  over the model axis (``recsys.row_sharded``) is a ``Sharded`` with a
+  block per (data shard, model shard), every other leaf once per data
+  shard on its lead device, as the reference replicates them over the
+  data axes (where the data shards' devices differ: on one device nothing
+  is duplicated). Data shard d runs its lookups over its row of blocks
+  and its dense layers on its lead device (``recsys.DataShards``); a
+  train step sums each replicated leaf's gradient over its replicas in
+  shard order (``parallel.all_reduce``) before AdamW, so the replicas
+  stay equal to the bit.
 * search: doc-sharded over the model axis, as the serving path is.
 
 :func:`materialize_inputs` makes concrete inputs: the port's own seeded
@@ -48,7 +52,10 @@ synthetic batch, the same numpy draws in the same order.
 A train step is ``(params, opt_state, batch) -> (params, opt_state,
 {"loss", "grad_norm"})``. It updates ``params`` and the moments in place
 and returns them: the reference's jitted step donates them, and at full
-width there is no room for a second copy.
+width there is no room for a second copy. A leaf held once per data
+shard (:func:`place_leaf`) has its replicas' gradients summed
+(:func:`sum_replicas`), its moments follow it, and the norm counts it
+once.
 
 :func:`build_lm_layer_probe` builds one transformer layer with the
 cell's placement, the roofline's per-layer cost (``launch/dryrun.py``).
@@ -71,7 +78,7 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.recsys_archs import N_NEG
 from repro_torch.kernels.common import SENTINEL
 from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
-from repro_torch.parallel import MeshPlan, Sharded
+from repro_torch.parallel import MeshPlan, Sharded, all_reduce
 from repro_torch.models import gnn, n_params, recsys, torch_dtype, transformer, value_and_grad
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
@@ -121,23 +128,23 @@ def _axis_of(spec, name: str):
     return hits[0] if hits else None
 
 
-def place_leaf(x: torch.Tensor, spec: tuple, mesh, replicas: bool = False):
+def place_leaf(x: torch.Tensor, spec: tuple, mesh):
     """``x`` placed per its spec on the mesh: split over the first pod's
     data rows along its ``data`` axis and over the model columns along
     its ``model`` axis, each block a contiguous tensor on its grid device
-    (a ``Sharded``). A leaf not split over the data rows is kept on the
-    first one, or with ``replicas`` (serving) once per data shard where
-    the data shards' devices differ (always on a mesh of ``meta``
-    entries, which stands for distinct devices), so that no step copies
-    weights between them; a leaf kept in one block stays whole on the lead
-    device."""
+    (a ``Sharded``). A leaf not split over the data rows is kept once per
+    data shard where the data shards' devices differ (always on a mesh of
+    ``meta`` entries, which stands for distinct devices), as the reference
+    replicates it over the data axes, so that no step copies weights
+    between them; where they share the devices, once. A leaf kept in one
+    block stays whole on the lead device."""
     grid = mesh.grid()
     axes = (_axis_of(spec, "data"), _axis_of(spec, "model"))
     cols = grid.shape[1] if axes[1] is not None else 1
     differ = (grid[:, :cols] != grid[:1, :cols]).any() or grid[0, 0].type == "meta"
     if axes[0] is not None:
         rows = mesh.shape.get("data", 1)
-    elif replicas and differ:
+    elif differ:
         rows = grid.shape[0]
     else:
         rows = 1
@@ -146,10 +153,25 @@ def place_leaf(x: torch.Tensor, spec: tuple, mesh, replicas: bool = False):
     return Sharded.split(x, grid[:rows, :cols], axes)
 
 
-def _place_tree(tree, specs, mesh, replicas: bool):
+def _place_tree(tree, specs, mesh):
     if isinstance(tree, dict):
-        return {k: _place_tree(v, specs[k], mesh, replicas) for k, v in tree.items()}
-    return place_leaf(tree, specs, mesh, replicas)
+        return {k: _place_tree(v, specs if isinstance(specs, tuple) else specs[k], mesh)
+                for k, v in tree.items()}
+    return place_leaf(tree, specs, mesh)
+
+
+def sum_replicas(grads):
+    """A gradient tree with each leaf held once per data shard (a
+    ``Sharded`` whose rows are replicas) summed over its replicas, column
+    by column (``parallel.all_reduce``: in shard order, every replica the
+    same bits); every other leaf as it is."""
+    if isinstance(grads, dict):
+        return {k: sum_replicas(v) for k, v in grads.items()}
+    if not (isinstance(grads, Sharded) and grads.axes[0] is None and grads.grid[0] > 1):
+        return grads
+    rows, cols = grads.grid
+    summed = [all_reduce([grads.block(i, j) for i in range(rows)]) for j in range(cols)]
+    return replace(grads, shards=[summed[j][i] for i in range(rows) for j in range(cols)])
 
 
 # ==========================================================================
@@ -209,6 +231,7 @@ def build_lm_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
             loss, grads = transformer.lm_grads_microbatched(
                 cfg, params, batch["tokens"], batch["targets"], n_micro, mesh, dp_ax,
                 bf16_gather=bf16_gather)
+            grads = sum_replicas(grads)
             params, opt_state, gnorm = adamw_update(opt_cfg, params, grads, opt_state)
             return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
@@ -296,7 +319,7 @@ def build_lm_layer_probe(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
                 return torch.sum(y.float()) + aux
 
             loss, grads = value_and_grad(f, {"x": x, "p": p_l})
-            return loss, (grads["x"], grads["p"])
+            return loss, (grads["x"], sum_replicas(grads["p"]))
 
         return BuiltStep(probe, (_abstract((B, S, cfg.d_model), dt), layer_abs), meta)
 
@@ -429,27 +452,21 @@ def _sharded_tables(params_abs, tp: int) -> tuple:
 
 
 def place_params(built: BuiltStep, params):
-    """A step's parameters where it expects them. An LM's, per the step's
-    ``meta["pspecs"]`` (:func:`place_leaf`; serving with a replica per
-    data shard): on a mesh of one device a split leaf's column blocks are
-    contiguous copies, its row blocks too.
-    A recsys step's tables that it keeps row-sharded, as a ``Sharded``
-    over the model columns (row views of the table where a block's device
-    is the table's, so a mesh of one device copies nothing): a serving
-    step's once per data shard where the data shards' devices differ, as
-    serving places an LM's weights (:func:`place_leaf`), so that no step
-    copies a table between them; a train step's on the first data shard's
-    devices, replicated inside the step.
-    Other families' parameters pass through."""
+    """A step's parameters where it expects them (:func:`place_leaf`: a
+    leaf the data axes do not split once per data shard where their
+    devices differ). An LM's per the step's ``meta["pspecs"]``: on a mesh
+    of one device a split leaf's column blocks are contiguous copies, its
+    row blocks too. A recsys step's row-sharded tables over the model
+    columns (row views of the table where a block's device is the
+    table's, so a mesh of one device copies nothing), every other leaf
+    whole. Other families' parameters pass through."""
     if "pspecs" in built.meta:
-        return _place_tree(params, built.meta["pspecs"], built.meta["mesh"],
-                           replicas=built.meta["kind"] != "train")
-    names = built.meta.get("sharded_tables", ())
-    if not names:
+        return _place_tree(params, built.meta["pspecs"], built.meta["mesh"])
+    if "sharded_tables" not in built.meta:
         return params
-    mesh, serving = built.meta["mesh"], built.meta["kind"] != "train"
-    return {k: place_leaf(v, ("model", None), mesh, replicas=serving)
-            if k in names and isinstance(v, torch.Tensor) else v for k, v in params.items()}
+    names = built.meta["sharded_tables"]
+    return {k: _place_tree(v, ("model", None) if k in names else (), built.meta["mesh"])
+            for k, v in params.items()}
 
 
 def place_caches(built: BuiltStep, caches: dict, stacked: bool = True) -> dict:
@@ -487,8 +504,7 @@ def placed_args(built: BuiltStep) -> tuple:
     args = list(built.args)
     meta = built.meta
     if meta.get("probe"):
-        args[1] = _place_tree(args[1], meta["pspecs"], meta["mesh"],
-                              replicas=meta["kind"] != "train")
+        args[1] = _place_tree(args[1], meta["pspecs"], meta["mesh"])
         if meta["kind"] == "decode":
             args[2] = place_caches(built, args[2], stacked=False)
             args[3] = built.args[2]["k"].shape[1] - 1
@@ -538,13 +554,23 @@ def _recsys_batch(cfg, arch_kind: str, kind: str, dims: dict) -> dict:
 
 
 def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
+    """A recsys train, serve or retrieval step, data-parallel where the
+    reference's ``batch_pspec`` splits the batch (see the module
+    docstring): ``meta["split"]`` names what goes over the data shards,
+    ``rows``, ``candidates`` or None."""
     cfg = arch.model_cfg
-    dp_ax = dp_axes_of(mesh)
     kind = shape.kind
     arch_kind = _arch_kind(cfg)
     params_abs = _INITS[arch_kind](cfg, device=META)
     sharded = _sharded_tables(params_abs, tp_size(mesh))
-    use_mesh = mesh if sharded else None
+    shards = recsys.DataShards(mesh, lookups=bool(sharded))
+    dp, B, C = shards.dp, shape.dims["batch"], shape.dims.get("n_candidates", 0)
+    if dp > 1 and B > 1 and B % dp == 0:
+        split = "rows"
+    elif dp > 1 and kind == "retrieval" and C % dp == 0:
+        split = "candidates"
+    else:
+        split = None
     meta = {
         "n_layers": getattr(cfg, "n_blocks", 1),
         "model_params": n_params(params_abs),
@@ -552,6 +578,7 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         "mesh": mesh,
         "kind": kind,
         "sharded_tables": sharded,
+        "split": split,
     }
     batch_abs = _recsys_batch(cfg, arch_kind, kind, shape.dims)
 
@@ -559,35 +586,57 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
         opt_cfg = AdamWConfig(lr=1e-3, weight_decay=0.0)
         loss_fn = {"seqrec": recsys.seqrec_loss, "din": recsys.din_loss,
                    "twotower": recsys.twotower_loss}[arch_kind]
+        row_losses = {"seqrec": recsys.seqrec_row_losses, "din": recsys.din_row_losses}
+
+        def loss(params, batch):
+            if split is None:
+                return shards.once(lambda *a: loss_fn(cfg, *a), params, batch)
+            if arch_kind == "twotower":
+                return recsys.twotower_loss_over(cfg, params, batch, shards)
+            return shards.mean(lambda *a: row_losses[arch_kind](cfg, *a), params, batch)
 
         def step(params, opt_state, batch):
-            loss, grads = value_and_grad(
-                lambda p: loss_fn(cfg, p, batch, use_mesh, dp_ax), params)
+            value, grads = value_and_grad(loss, params, batch)
+            grads = sum_replicas(grads)
             params, opt_state, gnorm = adamw_update(opt_cfg, params, grads, opt_state)
-            return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+            return params, opt_state, {"loss": value, "grad_norm": gnorm}
 
         return BuiltStep(step, (params_abs, init_opt_state(params_abs), batch_abs), meta)
 
     if kind == "serve":
-        serve_fn = {
-            "seqrec": lambda p, b: recsys.seqrec_score(cfg, p, b, use_mesh, dp_ax),
-            "din": lambda p, b: recsys.din_forward(cfg, p, b, use_mesh, dp_ax),
-            "twotower": lambda p, b: recsys.twotower_score(cfg, p, b, use_mesh, dp_ax),
-        }[arch_kind]
-        return BuiltStep(serve_fn, (params_abs, batch_abs), meta)
+        fn = {"seqrec": recsys.seqrec_score, "din": recsys.din_forward,
+              "twotower": recsys.twotower_score}[arch_kind]
+        f = lambda *a: fn(cfg, *a)  # noqa: E731
 
-    # retrieval (B=1): one user against the candidate axis, split over dp
-    dp = dp_size(mesh)
-    cand = (dp_ax,) if dp > 1 and shape.dims.get("n_candidates", 0) % dp == 0 else ()
-    if arch_kind == "seqrec":
-        retr = lambda p, b: recsys.seqrec_score(cfg, p, b, use_mesh, ())  # noqa: E731
-    elif arch_kind == "din":
-        retr = lambda p, b: recsys.din_retrieval(  # noqa: E731
-            cfg, p, b, 100, use_mesh, (), cand_pspec=cand)
-    else:
-        retr = lambda p, b: recsys.twotower_retrieve(  # noqa: E731
-            cfg, p, b, 100, use_mesh, (), cand_pspec=cand)
-    return BuiltStep(retr, (params_abs, batch_abs), meta)
+        def serve(params, batch):
+            if split is None:
+                return shards.once(f, params, batch)
+            return shards.concat(shards.over_rows(f, params, batch))
+
+        return BuiltStep(serve, (params_abs, batch_abs), meta)
+
+    # retrieval: one user against the candidates, split over the data
+    # shards where they divide them
+    user, scores = {
+        "seqrec": (recsys.seqrec_user, recsys.seqrec_candidate_scores),
+        "din": (recsys.din_user, recsys.din_candidate_scores),
+        "twotower": (recsys.twotower_query, recsys.twotower_candidate_scores),
+    }[arch_kind]
+    cand_axes = ({"candidates": 1} if arch_kind == "seqrec"
+                 else {"cand_items": 0, "cand_cates": 0})
+
+    def retrieve(params, batch):
+        if split is None:
+            out = shards.once(lambda p, b, m, ax: scores(cfg, p, user(cfg, p, b, m, ax), b, m, ax),
+                              params, batch)
+        else:
+            out = shards.over_candidates(lambda *a: user(cfg, *a), lambda *a: scores(cfg, *a),
+                                         params, batch, cand_axes)
+        if arch_kind == "seqrec":
+            return out
+        return recsys.top_k_scores(out if out.dim() == 2 else out[None, :], 100)
+
+    return BuiltStep(retrieve, (params_abs, batch_abs), meta)
 
 
 # ==========================================================================

@@ -103,17 +103,20 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, replicas: bool = True) -> list:
     """The leaves of a tree of dicts, lists and tuples in the reference's
     ``jax.tree.leaves`` order: dict keys sorted, sequences by index, None
     an empty subtree; a :class:`~repro_torch.parallel.Sharded` gives its
-    blocks in grid order."""
+    blocks in grid order. ``replicas=False``: a ``Sharded`` whose rows are
+    replicas gives its first row only, so each element comes once."""
     if isinstance(tree, Sharded):
+        if not replicas and tree.axes[0] is None:
+            return list(tree.shards[:tree.grid[1]])
         return list(tree.shards)
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], replicas)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
+        return [x for v in tree for x in tree_leaves(v, replicas)]
     return [] if tree is None else [tree]
 
 

@@ -19,15 +19,18 @@ port's single-controller mesh (``launch/mesh.py``, with the collectives
 of ``parallel.py``): the table's rows are ``tp`` contiguous blocks over
 the model axis: a :class:`Sharded` (one leaf per block) or a plain tensor
 split by ``split_rows``. Shard ``(d, r)`` of the mesh's (data, model)
-grid takes data shard d's ids and block r, its own where the table is
-placed once per data shard (serving), else ``replicate``d over the data
-shards from the model column's first device, looks up or bags the ids it
-owns, and ``sum_to_lead`` adds the ``tp`` partials of each data shard on
-the lead device in rank order, where the data shards' results are
-concatenated. ``ids_pspec`` is the reference's partition spec of the
-ids, a tuple of None, an axis name or a tuple of axis names per axis: the
-axis it names is split over those axes' data shards (default: the first
-axis over ``dp_axes``).
+grid takes data shard d's ids and block r (:func:`table_blocks`: its
+own where the table is placed once per data shard, else ``replicate``d
+over the data shards from the model column's first device), looks up or
+bags the ids it owns, and ``sum_to_lead`` adds the ``tp`` partials of
+data shard d on its lead device ``grid[d, 0]`` in rank order; the data
+shards' results are concatenated on the mesh's lead device in shard
+order (``concat_to_lead``). A built recsys step calls these over one data
+shard's row of the grid at a time (``models/recsys.py``
+``DataShards``), so each result stays on its data shard. ``ids_pspec``
+is the reference's partition spec of the ids, a tuple of None, an axis
+name or a tuple of axis names per axis: the axis it names is split over
+those axes' data shards (default: the first axis over ``dp_axes``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import math
 import torch
 
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.parallel import Sharded, replicate, split_rows, sum_to_lead
+from repro_torch.parallel import Sharded, concat_to_lead, replicate, split_rows, sum_to_lead
 
 
 def embedding_lookup(table, ids):
@@ -110,12 +113,13 @@ def _ids_split(ids, mesh, tp_axis: str, dp_axes, ids_pspec) -> tuple:
     return axis, n
 
 
-def _table_blocks(table, mesh, tp_axis: str, n: int) -> list:
-    """The table's ``tp`` row blocks for each of ``n`` data shards, [r][d]:
-    a ``Sharded`` placed once per data shard (serving's replicas) hands
-    data shard d its own row of blocks and copies nothing; a plain tensor,
-    or a ``Sharded`` of one row, is split over the model columns' first
-    devices and each block ``replicate``d over the data shards."""
+def table_blocks(table, mesh, n: int, tp_axis: str = "model") -> list:
+    """The table's ``tp`` row blocks for each of the first ``n`` data
+    shards, [r][d]: a ``Sharded`` placed once per data shard hands data
+    shard d its own row of blocks and copies nothing; a plain tensor, or a
+    ``Sharded`` of one row, is split over the model columns' first devices
+    and each block ``replicate``d over the data shards (one data shard
+    takes a block on its device as it is)."""
     if tp_axis != "model":
         raise ValueError(f"tables are sharded over the model axis, not {tp_axis!r}")
     tp = mesh.shape[tp_axis]
@@ -133,15 +137,17 @@ def _table_blocks(table, mesh, tp_axis: str, n: int) -> list:
         blocks = list(table.shards)
     else:
         blocks = split_rows(table, list(grid[0]))
-    return [replicate(b, list(grid[:n, r])) for r, b in enumerate(blocks)]
+    return [[b] if n == 1 and b.device == grid[0, r] else replicate(b, list(grid[:n, r]))
+            for r, b in enumerate(blocks)]
 
 
 def _sharded(per_shard, table, ids, mesh, tp_axis, dp_axes, ids_pspec, *others):
     """Run ``per_shard(block, ids, *others, rank, rows_per_shard)`` on every
-    (data, model) shard and add each data shard's partials on the lead
-    device; ``others`` are split like ``ids``."""
+    (data, model) shard, add each data shard's partials on its lead device
+    and concatenate the data shards' sums on the mesh's lead device;
+    ``others`` are split like ``ids``."""
     axis, n = _ids_split(ids, mesh, tp_axis, dp_axes, ids_pspec)
-    per_data = _table_blocks(table, mesh, tp_axis, n)
+    per_data = table_blocks(table, mesh, n, tp_axis)
     rows = per_data[0][0].shape[0]
     grid = mesh.grid()
     pieces = [(ids, *others)] if axis is None else list(zip(
@@ -153,8 +159,8 @@ def _sharded(per_shard, table, ids, mesh, tp_axis, dp_axes, ids_pspec, *others):
             dev = grid[d, r]
             moved = [None if t is None else t.to(dev) for t in others_d]
             parts.append(per_shard(per_data[r][d], ids_d.to(dev), *moved, r, rows))
-        outs.append(sum_to_lead(parts, mesh.lead))
-    return outs[0] if axis is None else torch.cat(outs, dim=axis)
+        outs.append(sum_to_lead(parts, grid[d, 0]))
+    return outs[0] if len(outs) == 1 else concat_to_lead(outs, axis, mesh.lead)
 
 
 def lookup_row(blocks, ids, lead):

@@ -31,7 +31,7 @@ in shard order. The embedding is vocab-sharded
 (``embedding.lookup_row``) and the loss vocab-parallel
 (:func:`_token_losses`): no device holds the whole (B, S, V) float32
 logits. A parameter is a tensor or a ``parallel.Sharded`` grid of blocks
-(FSDP rows over the data shards or serving's replicas, TP columns),
+(FSDP rows over the data shards or a replica per data shard, TP columns),
 which ``parallel.MeshPlan`` hands to each shard, gathered inside the
 layer that uses it (``parallel.gather_blocks``, under the layer's
 remat), so every sum across shards, forward and backward, has one fixed

@@ -1,10 +1,11 @@
 """Collectives of the single-controller mesh's model paths.
 
 The model paths over a mesh (``repro_torch.launch.mesh``: row-sharded
-tables, expert parallelism, the edge-sharded EGNN, the LM's tensor
-parallelism and FSDP) move tensors between shards through five
-``torch.autograd.Function``s, so that every sum across shards, forward
-and backward, is one made in shard order on one device:
+tables, the recsys steps' data shards, expert parallelism, the
+edge-sharded EGNN, the LM's tensor parallelism and FSDP) move tensors
+between shards through six ``torch.autograd.Function``s, and sum a
+gradient's replicas through :func:`all_reduce`, so that every sum across
+shards, forward and backward, is one made in shard order on one device:
 
 * :func:`replicate` copies a tensor to each shard's device; its backward
   adds the shards' gradients in shard order on the source device;
@@ -13,24 +14,35 @@ and backward, is one made in shard order on one device:
   copies the gradient back to each shard;
 * :func:`split_rows` gives shard i the i-th of equal contiguous row
   blocks, on its device; its backward concatenates the blocks' gradients;
+* :func:`concat_to_lead` concatenates the shards' blocks on the first
+  shard's device (data shards' outputs meeting on the lead); its
+  backward hands each block its slice of the gradient;
 * :func:`gather_blocks` concatenates blocks split along an axis onto each
   device of a group (FSDP's all-gather); its backward adds the group's
   gradients in group order and hands each block its slice on its own
   device (the reduce-scatter);
+* :func:`all_reduce` sums replicas, one per shard, in place, and gives
+  every shard the sum (a train step's gradients of a leaf held once per
+  data shard, outside autograd): each shard adds its 1/n of the elements
+  over all replicas in shard order (the reduce-scatter), then the slices
+  are copied into every replica (the all-gather), so every replica gets
+  the same bits;
 * :func:`all_to_all` re-lays blocks out across a row of shards (the
   LM's attention split inside heads: columns to sequence blocks and
   back); it adds nothing, forward or backward.
 
-Each of the five notes what it copies in every :func:`copy_record` that
+Each of the seven notes what it copies in every :func:`copy_record` that
 is open, by kind (the reference's collective names where the collective
 is the same): ``replicate`` a ``broadcast`` and its backward a
 ``reduce``; ``sum_to_lead`` an ``all-reduce`` and its backward a
 ``broadcast``; ``split_rows`` a ``scatter`` and its backward a
-``gather``; ``gather_blocks`` an ``all-gather`` and its backward a
-``reduce-scatter``; ``all_to_all`` an ``all-to-all`` both ways. The
-bytes are those a mesh of distinct devices would move, counted by shard
-index and not by what was copied here: on a mesh whose shards share a
-device (a dry run's ``meta`` entries, one card in several shards) every
+``gather``; ``concat_to_lead`` a ``gather`` and its backward a
+``scatter``; ``gather_blocks`` an ``all-gather`` and its backward a
+``reduce-scatter``; ``all_reduce`` a ``reduce-scatter`` and an
+``all-gather``; ``all_to_all`` an ``all-to-all`` both ways.
+The bytes are those a mesh of distinct devices would move, counted by
+shard index and not by what was copied here: on a mesh whose shards share
+a device (a dry run's ``meta`` entries, one card in several shards) every
 shard other than the source's receives its part.
 A tensor lives on the first shard whose device is its own (or on none).
 
@@ -153,6 +165,150 @@ class _SplitRows(torch.autograd.Function):
         return torch.cat([g.to(ctx.source) for g in grads]), None
 
 
+class _ConcatToLead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, lead, *blocks):
+        ctx.axis = axis
+        ctx.homes = [b.device for b in blocks]
+        ctx.sizes = [b.shape[axis] for b in blocks]
+        moved = [_nbytes(b) for b in blocks[1:]]  # by shard index: every block but the first's
+        ctx.moved = (sum(moved), len(moved))
+        _note("gather", *ctx.moved)
+        return torch.cat([b.to(lead) for b in blocks], axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _note("scatter", *ctx.moved)
+        return (None, None, *(g.to(h) for g, h in zip(grad.split(ctx.sizes, ctx.axis),
+                                                       ctx.homes)))
+
+
+def _own(replicas) -> list:
+    """The replicas, each contiguous and with storage of its own (a copy
+    of one that is not, or that shares another's)."""
+    out, seen = [], set()
+    for r in replicas:
+        key = None if r.device.type == "meta" else (r.device, r.untyped_storage().data_ptr())
+        if not r.is_contiguous() or key in seen:
+            r = r.clone(memory_format=torch.contiguous_format)
+        seen.add(key)
+        out.append(r)
+    return out
+
+
+RECEIVE_CHUNK = 1 << 24  # elements of a slice that all_reduce receives at once
+_STREAMS: dict = {}  # a card's (send, receive) streams for all_reduce's copies
+
+
+def _side_streams(devices):
+    """(each device's own stream, a send stream, a receive stream) a device
+    where every replica is on a card of its own, else None. PyTorch runs a
+    copy between cards on the source's current stream once the
+    destination's current stream has drained, so on the cards' own
+    streams each copy would wait for all the work queued before it; on
+    these, in rounds in which each card sends one block and receives one,
+    the cards' copies run at once."""
+    if any(d.type != "cuda" for d in devices) or len(set(devices)) < len(devices):
+        return None
+    for d in devices:
+        if d not in _STREAMS:
+            _STREAMS[d] = (torch.cuda.Stream(d), torch.cuda.Stream(d))
+    own = [torch.cuda.current_stream(d) for d in devices]
+    send = [_STREAMS[d][0] for d in devices]
+    recv = [_STREAMS[d][1] for d in devices]
+    for o, s in zip(own, send):
+        s.wait_stream(o)  # the replicas are written
+    return own, send, recv
+
+
+def _copy(x: torch.Tensor, streams, src: int, dst: int, into: torch.Tensor):
+    """``x`` (shard ``src``'s) copied into ``into`` (shard ``dst``'s), on
+    the side streams where there are any."""
+    if streams is None:
+        return into.copy_(x)
+    _, send, recv = streams
+    with torch.cuda.stream(send[src]), torch.cuda.stream(recv[dst]):
+        return into.copy_(x)
+
+
+def _add_in_order(mine: torch.Tensor, parts: list, i: int) -> None:
+    """``mine`` (``parts[i]``) made ``parts[0] + parts[1] + ...`` added left
+    to right: the parts before it summed first, then added to it
+    (addition commutes), then the parts after it."""
+    if i:
+        before = parts[0]
+        for p in parts[1:i]:
+            before = before + p
+        mine.add_(before)
+    for p in parts[i + 1:]:
+        mine.add_(p)
+
+
+def all_reduce(replicas) -> list:
+    """The sum of ``replicas`` (replica i shard i's, each on its device, all
+    of one shape) written into them, equal to the bit on every device, and
+    the replicas returned: replica i's device adds its 1/n of the elements
+    over all replicas in shard order into its own slice (the
+    reduce-scatter), and each finished slice is copied into the other
+    replicas' (the all-gather); both noted by shard index. No replica is
+    allocated anew: a device receives RECEIVE_CHUNK elements of its slice
+    from each other shard at a time, and adds one chunk while the next
+    arrives. In round k of each half, shard i receives from shard
+    (i + k) mod n (on side streams where the replicas are on cards of
+    their own: :func:`_side_streams`)."""
+    n = len(replicas)
+    replicas = _own(replicas)
+    devices = [r.device for r in replicas]
+    slices = [torch.tensor_split(r.view(-1), n) for r in replicas]
+    streams = _side_streams(devices)
+    pending = None
+    for start in range(0, slices[0][0].numel(), RECEIVE_CHUNK):
+        pieces = [[s.narrow(0, start, max(0, min(RECEIVE_CHUNK, s.numel() - start)))
+                   for s in row] for row in slices]
+        got = [[pieces[i][i] if j == i else None for j in range(n)] for i in range(n)]
+        if streams is not None:
+            for o, r in zip(streams[0], streams[2]):
+                r.wait_stream(o)  # a received chunk's block is free on its device's own stream
+        for k in range(1, n):
+            for i in range(n):
+                j = (i + k) % n
+                if streams is None:
+                    got[i][j] = _view_or_copy(pieces[j][i], devices[i])
+                else:
+                    got[i][j] = _copy(pieces[j][i], streams, j, i,
+                                      torch.empty_like(pieces[j][i], device=devices[i]))
+        done = None if streams is None else [r.record_event() for r in streams[2]]
+        if pending is not None:
+            _add_chunk(*pending, streams)
+        pending = (got, done)
+    if pending is not None:
+        _add_chunk(*pending, streams)
+    if streams is not None:
+        for o, s in zip(streams[0], streams[1]):
+            s.wait_stream(o)  # the sums are written, and every read of a slice they replace
+    for k in range(1, n):
+        for i in range(n):
+            j = (i + k) % n
+            _copy(slices[i][i], streams, i, j, slices[j][i])
+    if streams is not None:
+        for o, s, r in zip(*streams):
+            o.wait_stream(s)
+            o.wait_stream(r)
+    moved = (n - 1) * _nbytes(replicas[0])
+    _note("reduce-scatter", moved, n * (n - 1))
+    _note("all-gather", moved, n * (n - 1))
+    return replicas
+
+
+def _add_chunk(got: list, done, streams) -> None:
+    """Each shard's chunk of its slice summed in shard order, on its own
+    stream once the chunk's copies have arrived."""
+    for i, parts in enumerate(got):
+        if done is not None:
+            streams[0][i].wait_event(done[i])
+        _add_in_order(parts[i], parts, i)
+
+
 def replicate(x: torch.Tensor, devices) -> list:
     """``x`` on each of ``devices`` (a view where the device is ``x``'s);
     the gradient is the shards' gradients added in shard order on ``x``'s
@@ -174,6 +330,13 @@ def split_rows(x: torch.Tensor, devices) -> list:
     if x.shape[0] % len(devices):
         raise ValueError(f"{x.shape[0]} rows do not split over {len(devices)} shards")
     return list(_SplitRows.apply(x, [torch.device(d) for d in devices]))
+
+
+def concat_to_lead(blocks, axis: int, lead) -> torch.Tensor:
+    """The blocks (block i shard i's) concatenated along ``axis`` on
+    ``lead``, the first shard's device, in shard order; block i's gradient
+    is its slice of the result's, copied to block i's device."""
+    return _ConcatToLead.apply(axis, torch.device(lead), *blocks)
 
 
 class _GatherBlocks(torch.autograd.Function):
@@ -310,20 +473,27 @@ class Sharded:
         the grid): split over the rows along ``axes[0]`` (each row a
         replica where that is None) and over the columns along ``axes[1]``
         (at ``spans`` where given). A block that is already contiguous on
-        its device is a view of ``x``."""
+        its device is a view of ``x``, except a replica of a block already
+        placed there, which is a copy of its own (each replica is updated
+        in place)."""
         devices = np.array(devices, dtype=object).reshape(len(devices), -1)
         rows, cols = devices.shape
         row_spans = _spans(x.shape[axes[0]], rows) if axes[0] is not None else [None] * rows
         if spans is None:
             spans = _spans(x.shape[axes[1]], cols) if axes[1] is not None else [None]
-        blocks = []
+        blocks, placed = [], set()
         x = x.detach()
         with torch.no_grad():
             for i, rs in enumerate(row_spans):
                 part = x if rs is None else x.narrow(axes[0], rs[0], rs[1] - rs[0])
                 for j, cs in enumerate(spans):
                     b = part if cs is None else part.narrow(axes[1], cs[0], cs[1] - cs[0])
-                    blocks.append(b.to(devices[i, j]).contiguous())
+                    b = b.to(devices[i, j]).contiguous()
+                    if rs is None and i > 0 and b.device.type != "meta" and (
+                            b.device, b.data_ptr()) in placed:
+                        b = b.clone()
+                    placed.add((b.device, b.data_ptr()))
+                    blocks.append(b)
         return cls(blocks, (rows, cols), tuple(axes),
                    None if axes[1] is None else tuple(spans))
 

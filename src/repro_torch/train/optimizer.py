@@ -21,10 +21,21 @@ each on its own device: each is updated in place where it lives, with the
 clip scale and bias corrections copied there, and the global norm adds
 each block's sum of squares on the first leaf's device in one fixed order
 (tree order, a grid's blocks row by row). The reference's norm runs over
-the whole array at once, so the two agree within rounding.
-Under a cost count each leaf's norm and update opens a stretch of the
-live-bytes profile (``obs/cost.py`` ``mark``), so a deeper step's peak
-can be reckoned leaf by leaf.
+the whole array at once, so the two agree within rounding. A ``Sharded``
+whose rows are replicas (a parameter held once per data shard) counts
+its first row only in the norm, and every replica is updated with the
+same arithmetic on the same gradient, so the replicas on devices of one
+kind stay equal to the bit (the built train steps sum the replicas'
+gradients first: ``parallel.all_reduce``). The host's float32 ``sqrt``
+is not the card's: it is an ulp off the correctly rounded root on some
+elements (``tools/adamw_root_check.py``), so a replica on the host
+drifts from one on the card by about that much.
+Leaves on several devices are updated a slice of each device in turn,
+so that every device's queue stays fed while the one thread launches
+the others' work (a device's whole update first would leave the others
+idle once its queue is full). Under a cost count each leaf's norm and
+update opens a stretch of the live-bytes profile (``obs/cost.py``
+``mark``), so a deeper step's peak can be reckoned leaf by leaf.
 """
 
 from __future__ import annotations
@@ -74,10 +85,11 @@ def init_opt_state(params):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the float32 sum of squares over every leaf, the leaves added
-    in tree order on the first leaf's device."""
+    """sqrt of the float32 sum of squares over every leaf, each element
+    once (a replicated ``Sharded``'s first row), the leaves added in tree
+    order on the first leaf's device."""
     total = None
-    for leaf in tree_leaves(tree):
+    for leaf in tree_leaves(tree, replicas=False):
         mark("leaf")
         sq = None
         for part in _slices(leaf.detach()):
@@ -103,13 +115,17 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
     bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
     on = {gnorm.device: (scale, bc1, bc2)}  # the step's scalars, per device
-    with torch.no_grad():
-        for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
-                                tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+    leaves = {}  # each device's leaves, in tree order
+    for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
+                            tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+        if p.device not in on:
+            on[p.device] = tuple(v.to(p.device) for v in on[gnorm.device])
+        leaves.setdefault(p.device, []).append((p, g, mu, nu))
+
+    def update(dev):  # one slice of the device's update a turn
+        scale, bc1, bc2 = on[dev]
+        for p, g, mu, nu in leaves[dev]:
             mark("leaf")
-            if p.device not in on:
-                on[p.device] = tuple(v.to(p.device) for v in on[gnorm.device])
-            scale, bc1, bc2 = on[p.device]
             for ps, gs, ms, ns in zip(_slices(p), _slices(g), _slices(mu), _slices(nu)):
                 gf = gs.float() * scale
                 ms.mul_(b1).add_(gf * omb1)
@@ -117,5 +133,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
                 pf = ps.float()
                 upd = (ms / bc1).div_((ns / bc2).sqrt_().add_(eps)).add_(pf * wd)
                 ps.copy_(pf.sub_(upd.mul_(lr)))
+                yield
+
+    with torch.no_grad():
+        turns = [update(dev) for dev in leaves]
+        while turns:
+            turns = [t for t in turns if next(t, t) is not t]
     state["step"] = step
     return params, state, gnorm

@@ -506,20 +506,21 @@ def test_decode_takes_whole_caches_on_one_device():
 
 
 def test_serving_keeps_a_replica_per_data_shard():
-    """Serving places each weight once per data shard where the data
-    shards' devices differ (training keeps one copy, FSDP rows aside), and
-    the plan hands data shard d its own replica, no copy between rows."""
+    """A weight the data axes do not split is placed once per data shard
+    where the data shards' devices differ, serving or training (FSDP rows
+    are split, not replicated), and the plan hands data shard d its own
+    replica, no copy between rows."""
     x = torch.arange(24.0).reshape(4, 6)
     spread = make_mesh((2, 2), AXES, devices=["cpu", "cpu", "meta", "meta"])
-    served = tsteps.place_leaf(x, (None, "model"), spread, replicas=True)
+    served = tsteps.place_leaf(x, (None, "model"), spread)
     assert served.grid == (2, 2) and served.axes == (None, 1)
     assert [b.device.type for b in served.shards] == ["cpu", "cpu", "meta", "meta"]
     assert torch.equal(served.full(), x)
-    trained = tsteps.place_leaf(x, (None, "model"), spread)
-    assert trained.grid == (1, 2)
-    assert isinstance(tsteps.place_leaf(x, (None, None), spread, replicas=True), Sharded)
+    fsdp = tsteps.place_leaf(x, ("data", "model"), spread)
+    assert fsdp.grid == (2, 2) and fsdp.axes == (0, 1)
+    assert isinstance(tsteps.place_leaf(x, (None, None), spread), Sharded)
     one = cpu_mesh((2, 2))  # one device: no replica
-    assert tsteps.place_leaf(x, (None, "model"), one, replicas=True).grid == (1, 2)
+    assert tsteps.place_leaf(x, (None, "model"), one).grid == (1, 2)
     rows = Sharded.split(x, one.grid(), (None, 1))
     views = MeshPlan(one, ("data",)).views(rows, 2, 1, [(0, 3), (3, 6)])
     for d in range(2):

@@ -19,7 +19,7 @@ departed from it, on CPU meshes and on meshes of ``meta`` entries.
   decode_32k holds the arguments the shapes reckon on a device, under the
   card's 76 GB; two-tower-retrieval's serve_p99 copies no table block
   (its tables placed once per data shard), its all-reduce 92,160 B a
-  device.
+  device and its scores' gather onto the lead device 7 B.
 * The recsys serving steps on (2, 2) CPU meshes: with each table placed
   once per data shard, every output equal to the bit to the step whose
   tables are replicated from the first data shard inside the step, and
@@ -321,11 +321,15 @@ def test_twotower_serve_copies_no_table_on_16x16():
     """two-tower-retrieval's serve_p99 on the 16x16 mesh of ``meta``: its
     tables placed once per data shard, the step copies nothing of a table
     (it broadcast 1,206,000,000 B a device when each block was replicated
-    inside the step); the partial bags meet in 92,160 B a device."""
+    inside the step); the partial bags meet in 92,160 B a device, and the
+    16 data shards' scores (B 512, 32 float32 each) on the lead device:
+    15 x 128 B over the mesh, 7 B a device (the record's whole bytes)."""
     arch = get_arch("two-tower-retrieval")
     rec = dryrun.run_cell(arch, "serve_p99", False, mesh=meta_mesh((16, 16)))
     once = rec["collectives"]["once_bytes"]
-    assert once == {"all-reduce": 92_160}
+    B, dp, n_dev = arch.shapes["serve_p99"].dims["batch"], 16, 256
+    assert once == {"all-reduce": 92_160, "gather": int((dp - 1) * (B // dp) * 4 / n_dev)}
+    assert once["gather"] == 7
     cfg = arch.model_cfg
     assert 92_160 < cfg.n_items // 16 * cfg.embed_dim * 4  # far below a block of item_emb
 

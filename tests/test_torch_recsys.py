@@ -198,7 +198,7 @@ def test_seqrec_retrieval_top_k(ref, arch_id):
     got = tr.seqrec_score(pc, pp, tb)
     _close(got, want)
     wv, wi = jax.lax.top_k(jnp.asarray(want), 100)
-    gv, gi = tr._top_k(got, 100)
+    gv, gi = tr.top_k_scores(got, 100)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     _close(gv, wv)
 
