@@ -71,9 +71,13 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   then against the same step through the plain bag under autograd, the
   backward at that shape equal to the host's plain version and timed
   against its bound, the plan (sort and offsets), the plain version and
-  F.embedding_bag's backward; 3 built steps with the counts set to 0 (one
-  forward and one backward launch a step), then the same 3 steps from the
-  state materialized anew from the seed (losses and grad norms equal);
+  F.embedding_bag's backward; the segment sum at the item lookup's
+  backward (32,768 ids, C 256 into 10M rows) against its bound, the plan,
+  ``index_add_`` and ``index_put_(..., accumulate=True)``; 3 built steps
+  with the counts set to 0 (one forward and one backward launch of the
+  bag a step, and a segment sum for each lookup's backward, item and
+  category), then the same 3 steps from the state materialized anew from
+  the seed (losses and grad norms equal);
   two gradient calls from one state, every leaf compared with
   ``torch.equal``, of stablelm-1.6b at B 8 x S 4096 and granite-moe at B
   2 x S 2048 (full width, the bf16 gather, Zipf-drawn tokens);
@@ -127,12 +131,18 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` (one
   layers: outputs within 1e-5 of the card's (1, 1) step, every replica
   on the card within 1e-5 of its replica on the host after each train
   step (the host's float32 root is not the card's), a replay from the
-  seed equal in every leaf, and the same train steps on the card alone
-  with replicas placed by hand, equal to the bit; two-tower's
-  train_batch at full width (B 32,768) data-parallel on a (2, 1) mesh of
-  this card (and a (4, 1) mesh of four cards when four are visible,
-  every replica equal to the bit) against (1, 1): losses within 1e-5,
-  each data shard's bag and backward once a step, time and peak memory;
+  seed equal in every leaf (deterministic algorithms off: every lookup's
+  backward is the sorted segment sum, on the host too), and the same
+  train steps on the card alone with replicas placed by hand, equal to
+  the bit; ``parallel.all_reduce`` and ``all_reduce_rows`` side by side
+  on two 10M x 256 float32 table gradients on this card, each a (2, 1)
+  data shard's item lookups of two-tower's B 32,768 batch: equal to the
+  bit, each timed; two-tower's train_batch at full width (B 32,768)
+  data-parallel on a (2, 1) mesh of this card (and a (4, 1) mesh of four
+  cards when four are visible, every replica equal to the bit, the tables
+  summed over their touched rows) against (1, 1): losses within 1e-5,
+  each data shard's bag and backward once a step, time, peak memory and
+  ``sum_replicas`` synchronised;
 - the LM's tensor parallelism and FSDP (the tp phase, no kernel on its
   path): qwen1.5-32b at full width, its depth cut to 4 layers, through
   its built prefill (B 2 x S 4096) and decode steps (B 4 on an S 16,384
@@ -181,7 +191,6 @@ exit, no result line) without a card, and outside a checkout of the repo.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import statistics
@@ -189,7 +198,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -2634,6 +2642,21 @@ def bag_backward_record(ids, table) -> dict:
     return rec
 
 
+def lookup_backward_record(item, V: int, D: int) -> dict:
+    """Row 6 at two-tower's item lookup's backward: the segment sum of B
+    (B, D) gradient rows by the item ids into V rows (:func:`segment_sum_record`),
+    and the parent's whole backward of the lookup beside it: a zeroed
+    (V, D) buffer, then ``index_put_(..., accumulate=True)``."""
+    rec = segment_sum_record(item.to(torch.int32), V, D, seed=92, sm_hz=sm_clock_hz())
+    data = torch.randn((item.shape[0], D), device=item.device)
+    idx = item.long()
+    rec["zeros_index_put_ms"] = device_ms(lambda: torch.zeros(
+        (V, D), device=item.device).index_put_((idx,), data, accumulate=True), runs=9)
+    del data
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _twotower_grads(cfg, params, batch, bag):
     """(loss, grads by leaf name, the bag's ids and output gradient) of
     twotower_loss with its user tower's bag-sum done by ``bag``."""
@@ -2669,10 +2692,11 @@ def twotower_train(dev, mesh) -> dict:
     """two-tower-retrieval's train_batch at full width, cut to TT_TRAIN_B:
     one step's gradients through both bag kernels twice (every leaf equal
     to the bit), then against the same step through embedding_bag_plain
-    under autograd; the bag's backward at this shape; then TRAIN_STEPS
-    built steps on one batch with every launch count at 0, and the same
-    steps again from a state materialized anew from the seed (losses and
-    grad norms equal)."""
+    under autograd; the bag's backward at this shape, and the segment sum
+    at the item lookup's backward (B ids, C 256 into 10M rows); then
+    TRAIN_STEPS built steps on one batch with every launch count at 0,
+    and the same steps again from a state materialized anew from the seed
+    (losses and grad norms equal)."""
     from repro_torch.configs.recsys_archs import TWO_TOWER
     from repro_torch.kernels.embedding_bag import embedding_bag_plain
     from repro_torch.launch.steps import build_step, materialize_inputs
@@ -2722,6 +2746,8 @@ def twotower_train(dev, mesh) -> dict:
     del grads_k, grads_p, g_hist
     torch.cuda.empty_cache()
     bag = bag_backward_record(ids, params["item_emb"])
+    torch.cuda.empty_cache()
+    lookup = lookup_backward_record(batch["item"], cfg.n_items, cfg.embed_dim)
 
     torch.cuda.empty_cache()  # the check's blocks, of other sizes, would fragment the steps'
     opt = init_opt_state(params)
@@ -2736,10 +2762,12 @@ def twotower_train(dev, mesh) -> dict:
         step_ms.append(ms)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name in ("embedding_bag.embedding_bag", "embedding_bag.embedding_bag_backward"):
-        if launches[name] != TRAIN_STEPS:
+    for name, n in (("embedding_bag.embedding_bag", TRAIN_STEPS),
+                    ("embedding_bag.embedding_bag_backward", TRAIN_STEPS),
+                    ("segment_sum.segment_sum", 2 * TRAIN_STEPS)):  # the item and cate lookups
+        if launches[name] != n:
             raise AssertionError(f"two-tower train: {launches[name]} launches of {name} in "
-                                 f"{TRAIN_STEPS} steps")
+                                 f"{TRAIN_STEPS} steps, want {n}")
     if losses[0] != float(loss_k):
         raise AssertionError("two-tower train: the first step's loss differs from the gradient check's")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
@@ -2759,7 +2787,8 @@ def twotower_train(dev, mesh) -> dict:
     return {"B": TT_TRAIN_B, "setup_s": setup_s, "losses": losses, "grad_norms": norms,
             "step_ms": step_ms, "peak_bytes": peak, "launches": launches,
             "grad_max_abs_diff": worst, "bitwise_equal_leaves": bitwise, "loss_bitwise": True,
-            "twice_equal": True, "replay_equal": True, "bag_backward": bag}
+            "twice_equal": True, "replay_equal": True, "bag_backward": bag,
+            "lookup_backward": lookup}
 
 
 def grads_close_bf16(got, want, what: str) -> dict:
@@ -3038,6 +3067,15 @@ def train_phase(dev) -> dict:
         f"{bag['bound_by']} ({bag['bytes'] / 1e9:.2f} GB: the gradient written once, g and the "
         f"ids read once; {bag['distinct_rows']} distinct rows); unit-scale grad_out equal to the "
         "host's plain version to the bit")
+    lk = tt["lookup_backward"]
+    log(f"train: kernel segment_sum at the item lookup's backward E={lk['E']} C={lk['C']} into "
+        f"N={lk['N']}: kernel {lk['ms']:.4f} ms (every row written), plan {lk['plan_ms']:.4f} ms, "
+        f"wrapper {lk['wrapper_ms']:.4f} ms, plain {lk['plain_ms']:.4f} ms, library "
+        f"{lk['library_ms']:.4f} ms (index_add_), index_put_ accumulate {lk['index_put_ms']:.4f} "
+        f"ms, zeros then index_put_ {lk['zeros_index_put_ms']:.4f} ms (the lookup's backward "
+        f"before), bound {lk['bound_ms']:.4f} ms by {lk['bound_by']} "
+        f"({lk['bytes'] / 1e9:.2f} GB), chain {lk['chain_bound_ms']:.4f} ms (longest "
+        f"{lk['longest']}); equal to the host's plain version to the bit")
 
     from repro_torch.configs.lm_archs import LM_ARCHS
 
@@ -3692,9 +3730,11 @@ def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
     per (data shard, table shard) a step, losses and grad norms within
     RECSYS_TOL of the train phase's unsharded steps from the same seed,
     peak memory, every replica (a leaf held once per data shard on
-    distinct cards) equal to the bit; the same steps again from the state
-    materialized anew, equal to the bit; then, where the table is
-    row-sharded, the backward kernel alone on each shard."""
+    distinct cards) equal to the bit after one more step with
+    ``sum_replicas`` synchronised (:func:`synchronised_sum`); the same
+    steps again from the state materialized anew, equal to the bit; then,
+    where the table is row-sharded, the backward kernel alone on each
+    shard."""
     from repro_torch.configs.recsys_archs import TWO_TOWER
     from repro_torch.launch.steps import build_step, materialize_inputs
 
@@ -3715,6 +3755,7 @@ def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
 
     _, got = counted(total, steps)
     peaks = peak_bytes(mesh)
+    (params, opt, _), summed = synchronised_sum(built, (params, opt, batch), mesh)
     apart = max(_replica_gap(params), _replica_gap(opt))[1]
     if apart:  # replicas on distinct cards: every one updated with the same bits
         raise AssertionError(f"two-tower sharded train: replicas differ in {apart} elements")
@@ -3742,10 +3783,117 @@ def md_twotower_train(mesh, total: dict, unsharded: dict) -> dict:
            "losses": losses, "grad_norms": norms, "rel_diff": float(rel.max()),
            "step_ms": step_ms, "unsharded_step_ms": unsharded["step_ms"],
            "peak_bytes": peaks, "unsharded_peak_bytes": unsharded["peak_bytes"],
-           "launches": got, "replay_equal": True, "replicas_equal": True}
+           "launches": got, "replay_equal": True, "replicas_equal": True, **summed}
     if built.meta["sharded_tables"]:
         rec["bag_backward_shards"] = md_bag_backward_shards(params["item_emb"], batch["hist"])
     del params, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def synchronised_sum(built, args, mesh) -> tuple:
+    """(one more built step's result, what its ``sum_replicas`` did): every
+    card of the mesh synchronised before and after ``launch/steps.py``'s
+    ``sum_replicas``, its time alone and its copies by kind
+    (``row-lists`` for the tables summed over their touched rows)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.parallel import copy_record
+
+    devices, orig, rec = mesh.unique_devices(), steps_mod.sum_replicas, {}
+
+    def timed_sum(grads, touched=None):
+        if rec:  # its own recursion over the tree
+            return orig(grads, touched)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t = time.perf_counter()
+        rec["sum_replicas_ms"] = None
+        with copy_record() as copies:
+            out = orig(grads, touched)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        rec.update(sum_replicas_ms=(time.perf_counter() - t) * 1e3,
+                   sum_replicas_copies=dict(copies.bytes))
+        return out
+
+    steps_mod.sum_replicas = timed_sum
+    try:
+        out = built.fn(*args)
+    finally:
+        steps_mod.sum_replicas = orig
+    return out, rec
+
+
+TOUCHED_RUNS = 5  # timed calls of each sum at the one-card sum line
+
+
+def md_touched_sum(dev) -> dict:
+    """``parallel.all_reduce`` and ``parallel.all_reduce_rows`` side by side
+    on two dense 10,000,000 x 256 float32 table gradients on this card,
+    each the segment sum of seeded rows over one (2, 1) data shard's item
+    lookups (its 16,384 rows' 50 history ids and item) of two-tower's B
+    32,768 batch, drawn as the built step draws it: the two sums equal to
+    the bit; each timed alone TOUCHED_RUNS times (CUDA events, the
+    gradients made anew before each); the bytes a device each copies by
+    kind, the list bound and the live rows. The replicas share the card:
+    this times the adds and the plan, not the links."""
+    from repro_torch.configs.recsys_archs import TWO_TOWER
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, materialize_batch
+    from repro_torch.parallel import all_reduce, all_reduce_rows, copy_record, rows_move_less
+
+    arch = cut_arch(TWO_TOWER, train_batch=("train", {"batch": TT_TRAIN_B}))
+    V, D, n = arch.model_cfg.n_items, arch.model_cfg.embed_dim, 2
+    built = build_step(arch, "train_batch", make_mesh((1, 1), ("data", "model"), devices=[dev]))
+    batch = materialize_batch(arch, "train_batch", built, seed=MODEL_SEED)[0]
+    ids = [torch.cat([h.reshape(-1), i]).to(torch.int32) for h, i in
+           zip(batch["hist"].chunk(n), batch["item"].chunk(n))]
+    del batch
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED)
+    rows = [torch.randn((x.numel(), D), device=dev, generator=gen) for x in ids]
+    plans = [segment_plan(x, V) for x in ids]
+
+    def grads():
+        return [segment_sum(r, p) for r, p in zip(rows, plans)]
+
+    def one(fn):
+        w = grads()
+        with copy_record() as rec:
+            fn(w)
+        return w, {k: v / n for k, v in rec.bytes.items()}
+
+    w, dense_bytes = one(all_reduce)
+    want = w[0]
+    del w
+    w, rows_bytes = one(lambda x: all_reduce_rows(x, ids))
+    apart = sum(int((x.view(torch.int32) != want.view(torch.int32)).sum()) for x in w)
+    del w, want
+    if apart:
+        raise AssertionError(f"touched-row sum: {apart} elements differ from all_reduce's")
+
+    def timed_ms(fn) -> list:
+        out = []
+        for _ in range(TOUCHED_RUNS):
+            w = grads()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(w)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+            del w
+        return out
+
+    rec = {"V": V, "D": D, "replicas": n, "rows_a_shard": TT_TRAIN_B // n,
+           "bound": [x.numel() for x in ids],
+           "live_rows": [int(torch.unique(x).numel()) for x in ids],
+           "equal_to_the_bit": True,
+           "rows_move_less": rows_move_less(n, max(x.numel() for x in ids), (V, D)),
+           "all_reduce_ms": timed_ms(all_reduce),
+           "all_reduce_rows_ms": timed_ms(lambda x: all_reduce_rows(x, ids)),
+           "all_reduce_bytes_a_device": dense_bytes, "all_reduce_rows_bytes_a_device": rows_bytes}
+    del rows, plans, ids
     torch.cuda.empty_cache()
     return rec
 
@@ -4127,25 +4275,6 @@ def _replicated(params, mesh, names):
     return {k: leaf(k, v) for k, v in params.items()}
 
 
-@contextlib.contextmanager
-def host_deterministic():
-    """Deterministic algorithms inside the block: the host's ``index_put_``
-    with ``accumulate`` (a lookup's backward) otherwise adds a long index
-    list with atomics across threads, in no fixed order, so a replay with
-    a shard on the host would differ (the card's sorts its list). Ops with
-    no deterministic version warn instead of raising, and the warnings are
-    dropped."""
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            yield
-    finally:
-        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
-
-
 def md_recsys_dp(dev, one, total: dict) -> dict:
     """The reduced four recsys archs data-parallel on a (2, 1) mesh
     [card, host] and a (2, 2) mesh [card, card, host, host]: every table
@@ -4158,8 +4287,9 @@ def md_recsys_dp(dev, one, total: dict) -> dict:
     within RECSYS_TOL of its replica on the host after each (the host's
     float32 root is not the card's: the gap is recorded), losses and grad
     norms within RECSYS_TOL of the (1, 1) steps, and the same steps from
-    the seed again equal in every leaf (under :func:`host_deterministic`).
-    Then the train steps on the same mesh shapes of the card alone, with
+    the seed again equal in every leaf (deterministic algorithms off: every
+    lookup's backward is the sorted segment sum, on the host too). Then
+    the train steps on the same mesh shapes of the card alone, with
     the replicas placed by hand (``place_params`` keeps one copy where the
     devices are one): every replica equal to the bit after each step."""
     from repro_torch.configs.registry import get_arch
@@ -4169,32 +4299,29 @@ def md_recsys_dp(dev, one, total: dict) -> dict:
     out, calls = {}, []
     undo = _dense_devices(calls)
     try:
-        with host_deterministic():
-            for shape in DP_MIXED:
-                cols = shape[1]
-                mesh = make_mesh(shape, ("data", "model"), devices=[dev] * cols + [cpu] * cols)
-                for arch_id in DP_ARCHS:
-                    for name in DP_SHAPES:
-                        what = f"{arch_id} {name} on {shape} of the card and the host"
-                        r = _dp_case(get_arch(arch_id).reduced(), name, one, mesh, total,
-                                     calls, what)
-                        # retrieval's user side runs once, on the card; a seqrec scores
-                        # its candidates with no dense layer
-                        on = r["dense_calls"]
-                        if name != "retrieval_cand" and on["cpu"] != on["cuda"]:
-                            raise AssertionError(f"{what}: dense calls on the card "
-                                                 f"{on['cuda']}, on the host {on['cpu']}")
-                        if not on["cpu"] and (name != "retrieval_cand"
-                                              or arch_id in DP_ARCHS[2:]):
-                            raise AssertionError(f"{what}: no dense call on the host")
-                        out[f"{arch_id} {name} {shape[0]}x{shape[1]}"] = r
-            for shape in DP_MIXED:
-                mesh = make_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
-                for arch_id in DP_ARCHS:
-                    what = f"{arch_id} train_batch on {shape} of the card, replicas by hand"
-                    out[f"{arch_id} train_batch {shape[0]}x{shape[1]} card"] = _dp_case(
-                        get_arch(arch_id).reduced(), "train_batch", one, mesh, total, calls,
-                        what, by_hand=True)
+        for shape in DP_MIXED:
+            cols = shape[1]
+            mesh = make_mesh(shape, ("data", "model"), devices=[dev] * cols + [cpu] * cols)
+            for arch_id in DP_ARCHS:
+                for name in DP_SHAPES:
+                    what = f"{arch_id} {name} on {shape} of the card and the host"
+                    r = _dp_case(get_arch(arch_id).reduced(), name, one, mesh, total, calls, what)
+                    # retrieval's user side runs once, on the card; a seqrec scores its
+                    # candidates with no dense layer
+                    on = r["dense_calls"]
+                    if name != "retrieval_cand" and on["cpu"] != on["cuda"]:
+                        raise AssertionError(f"{what}: dense calls on the card {on['cuda']}, "
+                                             f"on the host {on['cpu']}")
+                    if not on["cpu"] and (name != "retrieval_cand" or arch_id in DP_ARCHS[2:]):
+                        raise AssertionError(f"{what}: no dense call on the host")
+                    out[f"{arch_id} {name} {shape[0]}x{shape[1]}"] = r
+        for shape in DP_MIXED:
+            mesh = make_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
+            for arch_id in DP_ARCHS:
+                what = f"{arch_id} train_batch on {shape} of the card, replicas by hand"
+                out[f"{arch_id} train_batch {shape[0]}x{shape[1]} card"] = _dp_case(
+                    get_arch(arch_id).reduced(), "train_batch", one, mesh, total, calls, what,
+                    by_hand=True)
     finally:
         undo()
     return out
@@ -4360,6 +4487,15 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
                if "tied_swaps" in r else
                f"max abs diff {r['max_abs_diff']:.2e} to the card's (1, 1)")
             + f"; dense calls card {r['dense_calls']['cuda']}, host {r['dense_calls']['cpu']}")
+    report["touched_sum"] = ts = md_touched_sum(dev)
+    log(f"multidevice: two-tower item_emb gradients ({ts['V']} x {ts['D']} float32), "
+        f"{ts['replicas']} replicas on this card, each a (2, 1) data shard's {ts['rows_a_shard']} "
+        f"rows (list bound {ts['bound']}, live rows {ts['live_rows']}): all_reduce_rows equal to "
+        f"all_reduce to the bit; ms all_reduce {[round(x, 3) for x in ts['all_reduce_ms']]}, "
+        f"all_reduce_rows {[round(x, 3) for x in ts['all_reduce_rows_ms']]}; bytes a device "
+        f"{ts['all_reduce_bytes_a_device']} against {ts['all_reduce_rows_bytes_a_device']} "
+        f"(rows_move_less {ts['rows_move_less']}; the replicas share the card: the adds and the "
+        "plan, not the links)")
     report["twotower_dp"] = {}
     for name, mesh in md_dp_meshes(dev):
         report["twotower_dp"][name] = tr = md_twotower_train(mesh, total, train["twotower"])
@@ -4371,7 +4507,8 @@ def multidevice_phase(dev, train: dict, gnn: dict, stream_batches: list) -> dict
             f"{tr['unsharded_peak_bytes'] / 1e9:.3f} GB; bag and backward "
             f"{tr['launches']['embedding_bag.embedding_bag']} / "
             f"{tr['launches']['embedding_bag.embedding_bag_backward']} launches in "
-            f"{TRAIN_STEPS} steps; replay equal to the bit")
+            f"{TRAIN_STEPS} steps; sum_replicas synchronised {tr['sum_replicas_ms']:.3f} ms, "
+            f"copies {tr['sum_replicas_copies']}; replay equal to the bit")
     report["mixed"] = mx = md_mixed(dev, total)
     log("multidevice: replicate, split_rows and sum_to_lead over the card and the host, and "
         "their gradient, equal to the same over the card to the bit")
@@ -4926,7 +5063,7 @@ def analysis_cells() -> list:
     return [("search qt1_heavy", get_arch("proximity-search"), "qt1_heavy", (), 5),
             ("egnn minibatch_lg", get_arch("egnn"), "minibatch_lg", (seg,), 5),
             ("two-tower serve_bulk", tt, "serve_bulk", (bag,), 5),
-            ("two-tower train_batch", tt, "train_batch", (bag, bwd), 3),
+            ("two-tower train_batch", tt, "train_batch", (bag, bwd, seg), 3),
             ("stablelm prefill", lm, "prefill", (), 3),
             ("stablelm decode", lm, "decode", (), 5),
             ("stablelm train", lm, "train", (), 2)]
@@ -5305,6 +5442,10 @@ def main() -> int:
                          for rec in gnn["shapes"].values()), 0.0,
                      gnn["segment_sum"]["sampler C64"],
                      {"matches_plain": "bitwise, against the plain version on the host",
+                      "also_replaces": "the gradient of jnp.take in src/repro/models/"
+                                       "embedding.py:19-24 and :34-40 (every recsys lookup)",
+                      "launches_models": models["launches"].get("segment_sum.segment_sum", 0),
+                      "launches_train": train["twotower"]["launches"]["segment_sum.segment_sum"],
                       "launches_multidevice": multi["launches"]["segment_sum.segment_sum"],
                       "launches_analysis": analysis["launches"]["segment_sum.segment_sum"],
                       "long_launches_multidevice": multi["launches"]["segment_sum.segment_sum long"],
@@ -5318,8 +5459,13 @@ def main() -> int:
                       "other_shapes": {tag: {k: r[k] for k in (
                           "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                           "index_put_ms", "chain_bound_ms")}
-                                       for tag, r in gnn["segment_sum"].items()
-                                       if tag != "sampler C64"}}),
+                                       for tag, r in {**gnn["segment_sum"], "two-tower item "
+                                                      "lookup backward": train["twotower"][
+                                                          "lookup_backward"]}.items()
+                                       if tag != "sampler C64"},
+                      "touched_sum": {k: multi["touched_sum"][k] for k in (
+                          "bound", "live_rows", "all_reduce_ms", "all_reduce_rows_ms",
+                          "all_reduce_bytes_a_device", "all_reduce_rows_bytes_a_device")}}),
     ]}
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

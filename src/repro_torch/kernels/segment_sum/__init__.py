@@ -9,4 +9,5 @@ from repro_torch.kernels.segment_sum.ops import (  # noqa: F401
     segment_plan,
     segment_sum,
     segment_sum_plain,
+    take_rows,
 )

@@ -28,7 +28,11 @@ layer and both passes).
 Two ``torch.autograd.Function``s keep every scatter of a model on the
 kernel: :class:`SegmentSum` (its backward a gather ``grad[ids]``) and
 :class:`GatherRows`, ``x[ids]`` (its backward the segment sum by
-``ids``). float32 only; other types raise TypeError.
+``ids``): :func:`gather_rows` for ids inside ``x``, :func:`take_rows`
+(the recsys lookups) with a row of zeros for an id outside it, which its
+backward drops. float32 only; other types raise TypeError. A segment sum
+outside autograd may write into a tensor of the caller's (``out=``, the
+replica sum of ``parallel.all_reduce_rows``).
 
 Under a cost count (:mod:`repro_torch.obs.cost`) the entry point reports
 its work and returns an uninitialised output, launching nothing: the
@@ -116,16 +120,21 @@ def _rows(data: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
+                      num_segments: int, out: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`segment_sum`, on any device:
-    ``index_add_`` into zeros, in index order on the CPU (with atomics on
-    a card), ids outside ``[0, num_segments)`` dropped first."""
+    ``index_add_`` into zeros (``out`` zeroed, where given), in index
+    order on the CPU (with atomics on a card), ids outside ``[0,
+    num_segments)`` dropped first."""
     _check_ids(segment_ids, num_segments)
     rows = _rows(data, segment_ids.shape[0])
     keep = (segment_ids >= 0) & (segment_ids < num_segments)
-    out = torch.zeros((num_segments, rows.shape[1]), dtype=torch.float32, device=data.device)
-    out.index_add_(0, segment_ids[keep].long(), rows[keep])
-    return out.reshape((num_segments,) + tuple(data.shape[1:]))
+    shape = (num_segments,) + tuple(data.shape[1:])
+    if out is None:
+        out = torch.zeros(shape, dtype=torch.float32, device=data.device)
+    else:
+        out.zero_()
+    out.view(num_segments, rows.shape[1]).index_add_(0, segment_ids[keep].long(), rows[keep])
+    return out
 
 
 def _plan(segment_ids, num_segments) -> SegmentPlan:
@@ -139,47 +148,65 @@ def _plan(segment_ids, num_segments) -> SegmentPlan:
     return segment_plan(segment_ids, num_segments)
 
 
-def _forward(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+def _forward(data: torch.Tensor, plan: SegmentPlan, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """The checked segment sum: the kernel on a card, the plain version on
-    the CPU."""
+    the CPU; into ``out`` where given."""
     rows = _rows(data, plan.ids.shape[0])
     if plan.ids.device != data.device:
         raise ValueError(f"segment ids are on {plan.ids.device}, the data on {data.device}")
+    n, shape = plan.num_segments, (plan.num_segments,) + tuple(data.shape[1:])
+    if out is not None and (tuple(out.shape) != shape or out.dtype != torch.float32
+                            or out.device != data.device or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} for a contiguous "
+                         f"float32 sum of {shape} on {data.device}")
     if counting():
-        (E, C), n = rows.shape, plan.num_segments
+        E, C = rows.shape
         kernel_work("segment_sum.segment_sum", flops=E * C,
                     bytes_accessed=E * C * 4 + E * 4 + (n + 1) * 4 + n * C * 4)
-        return torch.empty((n,) + tuple(data.shape[1:]), dtype=torch.float32,
-                           device=data.device)
+        return torch.empty(shape, dtype=torch.float32, device=data.device) if out is None else out
     if not data.is_cuda:
-        return segment_sum_plain(data, plan.ids, plan.num_segments)
+        return segment_sum_plain(data, plan.ids, n, out)
     rows = rows.contiguous()
-    out = torch.empty((plan.num_segments, rows.shape[1]), dtype=torch.float32, device=data.device)
-    launch_segment_sum(rows, plan, out)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=data.device)
+    launch_segment_sum(rows, plan, out.view(n, rows.shape[1]))
     segment_sum.launches += 1
     if plan.long_rows.numel():
         segment_sum.long_launches += 1
-    return out.reshape((plan.num_segments,) + tuple(data.shape[1:]))
+    return out
 
 
-def segment_sum(data: torch.Tensor, segment_ids, num_segments: int | None = None) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, segment_ids, num_segments: int | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """Sum of ``data`` (n, ...) float32 rows per segment -> (num_segments,
     ...) float32. ``segment_ids`` is an (n,) int32 tensor on the data's
     device, or a :class:`SegmentPlan` of one (``num_segments`` then comes
     from it). Differentiable with respect to ``data`` (see
-    :class:`SegmentSum`)."""
+    :class:`SegmentSum`); ``out``, a contiguous float32 tensor of the
+    result's shape on the data's device, takes the sum in place of a new
+    tensor (every row written), outside autograd only."""
     plan = _plan(segment_ids, num_segments)
     if torch.is_grad_enabled() and data.requires_grad:
+        if out is not None:
+            raise ValueError("a segment sum under autograd writes no out=")
         return SegmentSum.apply(data, plan)
-    return _forward(data, plan)
+    return _forward(data, plan, out)
 
 
 segment_sum.launches = 0
 segment_sum.long_launches = 0
 
 
-def _gather(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
-    return x[plan.ids.long()]
+def _gather(x: torch.Tensor, ids: torch.Tensor, fill: bool) -> torch.Tensor:
+    """``x[ids]``; with ``fill``, a row of zeros for an id outside ``[0,
+    x.shape[0])``."""
+    if not fill:
+        return x[ids.long()]
+    keep = (ids >= 0) & (ids < x.shape[0])
+    rows = x[ids.clamp(0, x.shape[0] - 1).long()]
+    keep = keep.reshape((-1,) + (1,) * (rows.dim() - 1))
+    return torch.where(keep, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
 def gather_rows(x: torch.Tensor, segment_ids) -> torch.Tensor:
@@ -189,8 +216,21 @@ def gather_rows(x: torch.Tensor, segment_ids) -> torch.Tensor:
     segment sum by ``ids``."""
     plan = _plan(segment_ids, x.shape[0])
     if torch.is_grad_enabled() and x.requires_grad:
-        return GatherRows.apply(x, plan)
-    return _gather(x, plan)
+        return GatherRows.apply(x, plan, False)
+    return _gather(x, plan.ids, False)
+
+
+def take_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(x, ids, axis=0, mode="fill", fill_value=0)`` for (n,)
+    int32 ids: ``x[ids]``, a row of zeros for an id outside ``[0,
+    x.shape[0])``. Differentiable with respect to ``x`` through
+    :class:`GatherRows`: its backward is the segment sum by ``ids``, which
+    drops those ids, so the gradient is the same in every run on both
+    devices. The plan is made only where a gradient will be taken, and
+    the forward takes any type (a serving table may be bfloat16)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return GatherRows.apply(x, _plan(ids, x.shape[0]), True)
+    return _gather(x, ids, True)
 
 
 class SegmentSum(torch.autograd.Function):
@@ -214,16 +254,17 @@ class SegmentSum(torch.autograd.Function):
 
 class GatherRows(torch.autograd.Function):
     """``x[ids]`` with its gradient, the segment sum of the output's
-    gradient by ``ids`` into ``x.shape[0]`` rows (the kernel on a card)."""
+    gradient by ``ids`` into ``x.shape[0]`` rows (the kernel on a card);
+    ``fill``: zeros for the ids outside ``x``, whose terms the sum drops."""
 
     @staticmethod
-    def forward(ctx, x, plan):
+    def forward(ctx, x, plan, fill):
         ctx.plan = plan
-        return _gather(x, plan)
+        return _gather(x, plan.ids, fill)
 
     @staticmethod
     def backward(ctx, grad_out):
-        return _forward(grad_out.contiguous(), ctx.plan), None
+        return _forward(grad_out.contiguous(), ctx.plan), None, None
 
 
 def launch_segment_sum(rows: torch.Tensor, plan: SegmentPlan, out: torch.Tensor) -> None:

@@ -40,8 +40,10 @@ every device):
   is duplicated). Data shard d runs its lookups over its row of blocks
   and its dense layers on its lead device (``recsys.DataShards``); a
   train step sums each replicated leaf's gradient over its replicas in
-  shard order (``parallel.all_reduce``) before AdamW, so the replicas
-  stay equal to the bit.
+  shard order before AdamW, so the replicas stay equal to the bit: a
+  table's over the rows its lookups read (``parallel.all_reduce_rows``)
+  where that moves fewer bytes than the dense sum
+  (``parallel.all_reduce``), which every other leaf takes.
 * search: doc-sharded over the model axis, as the serving path is.
 
 :func:`materialize_inputs` makes concrete inputs: the port's own seeded
@@ -78,8 +80,9 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.configs.recsys_archs import N_NEG
 from repro_torch.kernels.common import SENTINEL
 from repro_torch.launch.mesh import dp_axes_of, dp_size, tp_size
-from repro_torch.parallel import MeshPlan, Sharded, all_reduce
+from repro_torch.parallel import MeshPlan, Sharded, all_reduce, all_reduce_rows, rows_move_less
 from repro_torch.models import gnn, n_params, recsys, torch_dtype, transformer, value_and_grad
+from repro_torch.models.embedding import touched_rows
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 
 F32 = torch.float32
@@ -160,18 +163,48 @@ def _place_tree(tree, specs, mesh):
     return place_leaf(tree, specs, mesh)
 
 
-def sum_replicas(grads):
+def sum_replicas(grads, touched=None):
     """A gradient tree with each leaf held once per data shard (a
     ``Sharded`` whose rows are replicas) summed over its replicas, column
-    by column (``parallel.all_reduce``: in shard order, every replica the
-    same bits); every other leaf as it is."""
+    by column, in shard order, every replica the same bits; every other
+    leaf as it is. ``touched`` is a tree like ``grads`` giving, for each
+    block, the rows its lookups read (``embedding.TouchedRows.tree``) or
+    None: a table column whose every replica has them is summed over
+    them (``parallel.all_reduce_rows``) where that moves fewer bytes a
+    device (``parallel.rows_move_less``, from the shapes), every other
+    column densely (``parallel.all_reduce``). The two give the same
+    bits."""
     if isinstance(grads, dict):
-        return {k: sum_replicas(v) for k, v in grads.items()}
+        return {k: sum_replicas(v, None if touched is None else touched.get(k))
+                for k, v in grads.items()}
     if not (isinstance(grads, Sharded) and grads.axes[0] is None and grads.grid[0] > 1):
         return grads
     rows, cols = grads.grid
-    summed = [all_reduce([grads.block(i, j) for i in range(rows)]) for j in range(cols)]
+    summed = []
+    for j in range(cols):
+        col = [grads.block(i, j) for i in range(rows)]
+        ids = None if touched is None else [touched[i * cols + j] for i in range(rows)]
+        if (ids is not None and all(x is not None for x in ids)
+                and rows_move_less(rows, max(x.numel() for x in ids), col[0].shape)):
+            summed.append(all_reduce_rows(col, ids))
+        else:
+            summed.append(all_reduce(col))
     return replace(grads, shards=[summed[j][i] for i in range(rows) for j in range(cols)])
+
+
+def grads_and_rows(loss, params, batch) -> tuple:
+    """(loss, its gradients, the rows each table block's lookups read, a
+    tree like the gradients) of ``loss(params, batch)``, for
+    :func:`sum_replicas`."""
+    seen = []
+
+    def watched(p, b):
+        seen.append(p)
+        return loss(p, b)
+
+    with touched_rows() as touched:
+        value, grads = value_and_grad(watched, params, batch)
+    return value, grads, touched.tree(seen[0])
 
 
 # ==========================================================================
@@ -596,8 +629,8 @@ def build_recsys_step(arch: ArchSpec, shape: ShapeSpec, mesh) -> BuiltStep:
             return shards.mean(lambda *a: row_losses[arch_kind](cfg, *a), params, batch)
 
         def step(params, opt_state, batch):
-            value, grads = value_and_grad(loss, params, batch)
-            grads = sum_replicas(grads)
+            value, grads, touched = grads_and_rows(loss, params, batch)
+            grads = sum_replicas(grads, touched)
             params, opt_state, gnorm = adamw_update(opt_cfg, params, grads, opt_state)
             return params, opt_state, {"loss": value, "grad_norm": gnorm}
 

@@ -13,6 +13,24 @@ segment sum in (b, s) order; ``embedding_bag_backward_plain`` on the CPU,
 equal to it bit for bit), dense like the reference's gradient of its
 gather and sum.
 
+The recsys lookups (``embedding_lookup`` and ``sharded_embedding_lookup``)
+gather through ``kernels.segment_sum.take_rows``: the gradient of a
+lookup is the sorted segment sum of its rows' gradients by id
+(``csrc/segment_sum.cu`` on a card, ``index_add_`` in index order on the
+CPU), so it is the same in every run on both devices; an id that reads
+no row (-1, past the table, not the shard's) adds nothing to it. The
+LM's vocabulary lookup (``lookup_row``) keeps its own gather: it may read
+a bfloat16 table, which the segment sum does not take.
+
+Inside :func:`touched_rows` every recsys lookup and bag notes, for the
+table block it reads, the rows it reads: its ids flattened, outside the
+block's rows where it reads none. A train step hands them to ``launch/steps.py``
+``sum_replicas``: a replica's gradient is exactly +0.0 on every other
+row (the segment sum and the bag's backward write each row from 0.0),
+so the data shards' gradients of a table may be summed over those rows
+alone (``parallel.all_reduce_rows``). The recsys models read their
+tables through these lookups only.
+
 The row-sharded lookups (``sharded_embedding_lookup``,
 ``sharded_embedding_bag``) are the reference's ``shard_map``s on the
 port's single-controller mesh (``launch/mesh.py``, with the collectives
@@ -35,20 +53,81 @@ those axes' data shards (default: the first axis over ``dp_axes``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.segment_sum import take_rows
 from repro_torch.parallel import Sharded, concat_to_lead, replicate, split_rows, sum_to_lead
+
+
+class TouchedRows:
+    """The rows the lookups inside :func:`touched_rows` read from each
+    table block, by the block's tensor (the one the lookup was given)."""
+
+    def __init__(self):
+        self._noted = {}  # id(block) -> (block, [its lookups' ids])
+
+    def note(self, block: torch.Tensor, ids: torch.Tensor) -> None:
+        self._noted.setdefault(id(block), (block, []))[1].append(ids.reshape(-1))
+
+    def of(self, block: torch.Tensor):
+        """Every id the lookups of ``block`` were given, in call order, int32
+        on its device (a list as long as its lookups' ids; an id outside
+        the block's rows read none of them); None where no lookup read
+        it."""
+        hit = self._noted.get(id(block))  # the record holds the block: its id is its own
+        if hit is None:
+            return None
+        return torch.cat([i.to(block.device, torch.int32) for i in hit[1]])
+
+    def tree(self, params):
+        """``params``' tree with each tensor (each block of a ``Sharded``,
+        as a list in grid order) replaced by :meth:`of` it."""
+        if isinstance(params, dict):
+            return {k: self.tree(v) for k, v in params.items()}
+        if isinstance(params, Sharded):
+            return [self.of(b) for b in params.shards]
+        return self.of(params)
+
+
+_TOUCHED: list = []  # the open records
+
+
+@contextlib.contextmanager
+def touched_rows():
+    """A :class:`TouchedRows` of every recsys lookup and bag inside the
+    block."""
+    rec = TouchedRows()
+    _TOUCHED.append(rec)
+    try:
+        yield rec
+    finally:
+        _TOUCHED.remove(rec)
+
+
+def _note(block, ids) -> None:
+    for rec in _TOUCHED:
+        rec.note(block, ids)
+
+
+def _take(table, ids):
+    """``take_rows`` of ``table`` at ``ids`` (..., int, -1 where none is
+    read) -> (..., D), noted."""
+    _note(table, ids)
+    flat = take_rows(table, ids.reshape(-1).to(torch.int32))
+    return flat.reshape(*ids.shape, *table.shape[1:])
 
 
 def embedding_lookup(table, ids):
     """Unsharded lookup: ids (...,) int, -1 = padding -> zeros. An id at
     or past the table's rows gives a row of NaN, as ``jnp.take``'s fill
-    mode does in the reference."""
+    mode does in the reference (its gradient drops it, as the reference's
+    does)."""
     V = table.shape[0]
-    rows = table[ids.clamp(0, V - 1).long()]
+    rows = _take(table, torch.where(ids < V, ids, -1))
     mask = (ids >= 0).to(table.dtype).masked_fill(ids >= V, float("nan"))
     return rows * mask[..., None]
 
@@ -61,6 +140,7 @@ def embedding_bag_sum(table, ids, weights=None):
     kernel's rule), where the reference's fill mode gives NaN."""
     lead, S = ids.shape[:-1], ids.shape[-1]
     w = None if weights is None else weights.reshape(-1, S)
+    _note(table, ids)
     out = embedding_bag(ids.reshape(-1, S), table, w, "sum")
     return out.reshape(*lead, table.shape[1])
 
@@ -71,12 +151,20 @@ def _owned(ids, rank: int, rows_per_shard: int):
     return local, (local >= 0) & (local < rows_per_shard) & (ids >= 0)
 
 
+def _local_take(table_l, ids, rank: int, rows_per_shard: int):
+    """Shard ``rank``'s recsys lookup: its rows of ``ids``, zeros for an
+    id it does not own (``take_rows``, noted; such an id adds nothing to
+    the gradient)."""
+    return _take(table_l, local_ids(ids, rank, rows_per_shard))
+
+
 def _local_lookup(table_l, ids, rank: int, rows_per_shard: int):
-    """Shard ``rank``'s lookup: its rows of ``ids``, zeros for an id it
-    does not own. Such an id reads row ``position mod rows`` (the
-    reference clamps it to the first or last row): in the backward each
-    adds its zero to its own row, where clamped ids would make two long
-    runs of one row that CUDA's sorted ``index_put_`` adds one by one."""
+    """Shard ``rank``'s lookup of the LM's vocabulary: its rows of
+    ``ids``, zeros for an id it does not own. Such an id reads row
+    ``position mod rows`` (the reference clamps it to the first or last
+    row): in the backward each adds its zero to its own row, where
+    clamped ids would make two long runs of one row that CUDA's sorted
+    ``index_put_`` adds one by one."""
     local, valid = _owned(ids, rank, rows_per_shard)
     spread = torch.arange(ids.numel(), device=ids.device).reshape(ids.shape) % rows_per_shard
     safe = torch.where(valid, local.long(), spread)
@@ -179,7 +267,7 @@ def sharded_embedding_lookup(table, ids, mesh, tp_axis="model", dp_axes=("data",
     every shard gathers the ids it owns, zeros elsewhere, and the partials
     are added, so each result row is its one owner's row (-1 and ids past
     the table give zeros). On the lead device."""
-    return _sharded(_local_lookup, table, ids, mesh, tp_axis, dp_axes, ids_pspec)
+    return _sharded(_local_take, table, ids, mesh, tp_axis, dp_axes, ids_pspec)
 
 
 def sharded_embedding_bag(table, ids, mesh, weights=None, tp_axis="model", dp_axes=("data",),
@@ -193,6 +281,7 @@ def sharded_embedding_bag(table, ids, mesh, weights=None, tp_axis="model", dp_ax
 
     def per_shard(block, ids_l, w_l, rank, rows):
         local = local_ids(ids_l, rank, rows).to(torch.int32)
+        _note(block, local)
         w = None if w_l is None else w_l.reshape(-1, S)
         out = embedding_bag(local.reshape(-1, S), block, w, "sum")
         return out.reshape(*local.shape[:-1], block.shape[1])

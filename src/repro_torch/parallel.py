@@ -27,11 +27,17 @@ shards, forward and backward, is one made in shard order on one device:
   over all replicas in shard order (the reduce-scatter), then the slices
   are copied into every replica (the all-gather), so every replica gets
   the same bits;
+* :func:`all_reduce_rows` gives the same sum, to the bit, from the rows
+  each replica's lookups touched (a table's gradient, exactly +0.0 on
+  every other row): each shard sends its list of rows, each row once, and
+  their values to every other, and each sums the lists, concatenated in
+  shard order, with the sorted segment sum into its replica; a train
+  step takes it where it moves fewer bytes (:func:`rows_move_less`);
 * :func:`all_to_all` re-lays blocks out across a row of shards (the
   LM's attention split inside heads: columns to sequence blocks and
   back); it adds nothing, forward or backward.
 
-Each of the seven notes what it copies in every :func:`copy_record` that
+Each of the eight notes what it copies in every :func:`copy_record` that
 is open, by kind (the reference's collective names where the collective
 is the same): ``replicate`` a ``broadcast`` and its backward a
 ``reduce``; ``sum_to_lead`` an ``all-reduce`` and its backward a
@@ -39,7 +45,8 @@ is the same): ``replicate`` a ``broadcast`` and its backward a
 ``gather``; ``concat_to_lead`` a ``gather`` and its backward a
 ``scatter``; ``gather_blocks`` an ``all-gather`` and its backward a
 ``reduce-scatter``; ``all_reduce`` a ``reduce-scatter`` and an
-``all-gather``; ``all_to_all`` an ``all-to-all`` both ways.
+``all-gather``; ``all_reduce_rows`` its ``row-lists``; ``all_to_all``
+an ``all-to-all`` both ways.
 The bytes are those a mesh of distinct devices would move, counted by
 shard index and not by what was copied here: on a mesh whose shards share
 a device (a dry run's ``meta`` entries, one card in several shards) every
@@ -297,6 +304,81 @@ def all_reduce(replicas) -> list:
     moved = (n - 1) * _nbytes(replicas[0])
     _note("reduce-scatter", moved, n * (n - 1))
     _note("all-gather", moved, n * (n - 1))
+    return replicas
+
+
+def rows_move_less(n: int, bound: int, shape, itemsize: int = 4) -> bool:
+    """Whether :func:`all_reduce_rows` over ``n`` replicas of ``shape``
+    whose row lists hold at most ``bound`` ids moves fewer bytes a device
+    than :func:`all_reduce`: (n - 1) lists of ``bound`` rows and their ids,
+    (n - 1) bound (width itemsize + 4), against the reduce-scatter's and
+    the all-gather's 2 (n - 1) / n of the replica."""
+    width = math.prod(shape[1:])
+    return n > 1 and n * bound * (width * itemsize + 4) < 2 * shape[0] * width * itemsize
+
+
+def _each_once(ids: torch.Tensor, rows: int) -> torch.Tensor:
+    """``ids`` sorted, each row once: a repeat, and an id outside ``[0,
+    rows)``, made -1 (a list as long as ``ids``, made on its device with
+    nothing read back)."""
+    s = torch.sort(torch.where((ids >= 0) & (ids < rows), ids, -1)).values
+    repeat = torch.cat([torch.zeros(min(1, s.numel()), dtype=torch.bool, device=s.device),
+                        s[1:] == s[:-1]])
+    return torch.where(repeat, -1, s)
+
+
+def all_reduce_rows(replicas, rows) -> list:
+    """:func:`all_reduce` of ``replicas`` (replica i shard i's, (R, ...)
+    float32, all of one shape) from the rows its lookups touched, ``rows[i]``
+    (int32 ids, -1 or repeats allowed), outside of which replica i must be
+    exactly +0.0: the same bits written into every replica, in place.
+    Each shard sorts its list and keeps each row once (:func:`_each_once`,
+    as long as the list), gathers those rows, and sends both to every
+    other shard (round k: shard i receives shard (i + k) mod n's, on side
+    streams where the replicas are on cards of their own); each shard
+    concatenates the n lists in shard order and writes their sorted
+    segment sum (``kernels.segment_sum``) into its replica, every row, so
+    a row's terms are added from 0.0 in shard order: the reduce-scatter's
+    sum, since the untouched rows' +0.0 adds nothing. The lists are noted
+    as ``row-lists``, each to the n - 1 other shards."""
+    from repro_torch.kernels.segment_sum import segment_plan, segment_sum
+
+    n = len(replicas)
+    replicas = _own(replicas)
+    devices = [r.device for r in replicas]
+    R = replicas[0].shape[0]
+    flat = [r.view(R, -1) for r in replicas]
+    lists = [_each_once(ids.to(d, torch.int32).reshape(-1), R) for ids, d in zip(rows, devices)]
+    starts = np.cumsum([0] + [x.numel() for x in lists]).tolist()
+    ids_all = [torch.empty(starts[-1], dtype=torch.int32, device=d) for d in devices]
+    vals_all = [torch.empty((starts[-1], f.shape[1]), dtype=f.dtype, device=d)
+                for f, d in zip(flat, devices)]
+
+    def slot(x, i):
+        return x.narrow(0, starts[i], starts[i + 1] - starts[i])
+
+    for i, (f, own) in enumerate(zip(flat, lists)):
+        slot(ids_all[i], i).copy_(own)
+        torch.index_select(f, 0, own.clamp(min=0).long(), out=slot(vals_all[i], i))
+    streams = _side_streams(devices)
+    if streams is not None:
+        for o, r in zip(streams[0], streams[2]):
+            r.wait_stream(o)  # the receiving buffers are free on their device's own stream
+    for k in range(1, n):
+        for i in range(n):
+            j = (i + k) % n
+            for x in (ids_all, vals_all):
+                _copy(slot(x[j], j), streams, j, i, slot(x[i], j))
+    if streams is not None:
+        for o, r in zip(streams[0], streams[2]):
+            o.wait_stream(r)
+    for i in range(n):
+        segment_sum(vals_all[i], segment_plan(ids_all[i], R), out=flat[i])
+    if streams is not None:
+        for o, s in zip(streams[0], streams[1]):
+            o.wait_stream(s)
+    width = flat[0].shape[1] * flat[0].element_size() + 4
+    _note("row-lists", (n - 1) * starts[-1] * width, n * (n - 1))
     return replicas
 
 

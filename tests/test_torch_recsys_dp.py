@@ -289,21 +289,9 @@ def _first_rows(tree) -> list:
     return tree_leaves(tree, replicas=False)
 
 
-@pytest.fixture
-def deterministic():
-    """Deterministic algorithms for the test: the host's ``index_put_`` with
-    ``accumulate`` (a lookup's backward) otherwise adds a long index list
-    with atomics across threads, in no fixed order (the card's sorts
-    it)."""
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    yield
-    torch.use_deterministic_algorithms(was)
-
-
 @pytest.mark.parametrize("mesh", [(2, 1), (2, 2)], ids=_tag)
 @pytest.mark.parametrize("arch_id", ARCH_IDS)
-def test_replicas_stay_equal_to_the_bit(monkeypatch, deterministic, arch_id, mesh):
+def test_replicas_stay_equal_to_the_bit(monkeypatch, arch_id, mesh):
     """Three train steps on replicas placed by hand against the same steps
     on ``place_params``' placement (one copy: the mesh's devices are one):
     replicas equal after every step, losses, grad norms and parameters

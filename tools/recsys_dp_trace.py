@@ -19,7 +19,10 @@ phases (``launch/steps.py``: ``value_and_grad``, ``sum_replicas``,
 
 With ``--copy``, the rate of one 1 GiB copy from card 0 to card 1, and
 ``parallel.all_reduce`` alone over one replica a card of the item table's
-shape.
+shape; where the package has it, ``parallel.all_reduce_rows`` alone over
+the same replicas, each the segment sum of seeded rows over one data
+shard's item lookups (its rows' 50 history ids and item, uniform ids),
+the lists' rows being those lookups.
 
   python tools/recsys_dp_trace.py [--no-one] [--profile] [--copy] \\
       [--label NAME] [--out results/recsys_dp_trace.jsonl]
@@ -180,6 +183,38 @@ def all_reduce_alone(devices, shape) -> dict:
     return {"shape": list(shape), "bytes_a_card": nbytes, "ms": ms}
 
 
+def all_reduce_rows_alone(devices, shape, rows_a_shard: int) -> dict:
+    """``parallel.all_reduce_rows`` over one float32 replica of ``shape`` a
+    card, replica i the segment sum of seeded rows over card i's list of
+    ``rows_a_shard`` x 51 uniform ids, synchronised; the sum equal to
+    ``all_reduce``'s on every card, compared after the timed runs."""
+    from repro_torch import parallel
+    from repro_torch.kernels.segment_sum import segment_sum
+
+    V, D = shape
+    gen = torch.Generator(device=devices[0]).manual_seed(SEED)
+    ids = [torch.randint(0, V, (rows_a_shard * 51,), generator=gen, device=devices[0],
+                         dtype=torch.int32).to(d) for d in devices]
+    rows = [torch.randn((i.numel(), D), generator=gen, device=devices[0]).to(d)
+            for i, d in zip(ids, devices)]
+    ms = []
+    for _ in range(3):
+        reps = [segment_sum(r, i, V) for r, i in zip(rows, ids)]
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t = time.perf_counter()
+        reps = parallel.all_reduce_rows(reps, ids)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        ms.append((time.perf_counter() - t) * 1e3)
+    want = parallel.all_reduce([segment_sum(r, i, V) for r, i in zip(rows, ids)])
+    apart = sum(int((a != b).sum()) for a, b in zip(reps, want))
+    del reps, want, rows
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "bound_a_card": rows_a_shard * 51, "ms": ms,
+            "elements_apart_from_all_reduce": apart}
+
+
 KINDS = (("bag", "embedding_bag"), ("sort", "sort"), ("radix", "sort"), ("index", "index"),
          ("gemm", "gemm"), ("cutlass", "gemm"), ("cublas", "gemm"), ("Memcpy PtoP", "peer copy"),
          ("Memcpy", "copy"), ("Memset", "memset"), ("reduce", "reduce"),
@@ -315,7 +350,7 @@ def main() -> None:
     n = min(torch.cuda.device_count(), 4)
     cards = [torch.device("cuda", i) for i in range(n)]
     out = {"label": args.label, "cards": [torch.cuda.get_device_name(i) for i in range(n)],
-           "build_s": build(("embedding_bag",))}
+           "build_s": build(("embedding_bag", "segment_sum"))}
     one = None
     if not args.no_one:
         out["1x1"] = steps_on(make_mesh((1, 1), ("data", "model"), devices=cards[:1]),
@@ -329,8 +364,12 @@ def main() -> None:
         phases.undo()
     if args.copy and n > 1:
         out["copy_0_to_1"] = copy_rate(cards[0], cards[1])
-        out["all_reduce_item_emb"] = all_reduce_alone(cards, (TWO_TOWER.model_cfg.n_items,
-                                                              TWO_TOWER.model_cfg.embed_dim))
+        shape = (TWO_TOWER.model_cfg.n_items, TWO_TOWER.model_cfg.embed_dim)
+        out["all_reduce_item_emb"] = all_reduce_alone(cards, shape)
+        from repro_torch import parallel
+
+        if hasattr(parallel, "all_reduce_rows"):
+            out["all_reduce_rows_item_emb"] = all_reduce_rows_alone(cards, shape, B // n)
     out["seconds"] = time.perf_counter() - t_start
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "a") as f:
