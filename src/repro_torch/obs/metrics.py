@@ -4,12 +4,14 @@ histograms (DESIGN.md §15).
 One :class:`MetricsRegistry` instance lives on each
 ``repro_torch.serving.service.SearchService`` and is shared by every layer of
 the serving tier: the service records per-phase request latencies, the
-executors record per-(step_family, B, L) measured step costs and
-compile times, and the packed-posting caches record hit/miss counts and
-derivation timings. Names are dotted strings (``serve.phase.pack``,
-``serve.step.qt1.B16.L1024``); the registry is the single
-source the phase rows of BENCH_serve.json, ``stats_snapshot()`` and
-``explain(costs=True)`` all read from.
+executors record per-(step_family, B, L) measured step costs (host and,
+on a card, device), host-to-device copy times and bytes, and compile
+times, and the packed-posting caches record derivation timings and the
+bytes their misses derive (their hit and miss counts are
+``PackedPostingCache.stats``). Names are dotted strings
+(``serve.phase.pack``, ``serve.step.qt1.B16.L1024``); the registry is
+what ``metrics_snapshot()``, the admission predictor and
+``explain(costs=True)`` read from.
 
 Design constraints (the overhead budget of §15):
 

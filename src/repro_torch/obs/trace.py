@@ -26,20 +26,34 @@ microsecond ``ts``/``dur`` — which https://ui.perfetto.dev and
 containment per track, which is exactly the invariant the span stack
 enforces (tests/test_obs.py pins it).
 
-The buffer is a bounded ring (default 8192 completed spans, oldest
-evicted first) so a long-lived service cannot grow without bound;
+Every span carries an ``id`` (numbered from 1 as spans open) and the
+``parent`` id of the span open around it on its thread (0 at a root),
+so a trace reads as a tree without relying on time containment; the
+service adds request ids to its spans' args (``requests`` on a batch,
+``request`` on an admission decision). While a ``torch.profiler``
+session records, each span is also a ``record_function`` range named
+``serve:<name>`` (``serve:<name>:<kind>`` for a span with a ``kind``,
+``serve:batch:<family>:B<B>:L<L>`` for a batch), so every stretch of the
+profiler's timeline falls under a program span; when none records, the
+cost is one check a span.
+
+The buffer is a bounded ring (oldest evicted first, ``dropped`` counts
+the evictions) so a long-lived service cannot grow without bound;
 ``enabled=False`` turns ``span()`` into a no-op context manager whose
 overhead is one attribute read.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
-from contextlib import contextmanager
 from collections import deque
 from dataclasses import dataclass, field
+
+import torch
+from torch.autograd import _profiler_enabled
 
 __all__ = ["Span", "Tracer", "chrome_trace", "write_chrome_trace"]
 
@@ -49,7 +63,9 @@ class Span:
     """One completed interval. ``ts``/``dur`` are seconds relative to
     the tracer's epoch; ``tid`` the recording thread's ident; ``depth``
     the nesting level at record time (0 = root); ``args`` free-form
-    metadata rendered into the Chrome trace ``args`` field."""
+    metadata rendered into the Chrome trace ``args`` field; ``id`` the
+    span's number and ``parent`` that of the span open around it on the
+    same thread (0 at a root)."""
 
     name: str
     cat: str
@@ -58,6 +74,8 @@ class Span:
     tid: int
     depth: int = 0
     args: dict = field(default_factory=dict)
+    id: int = 0
+    parent: int = 0
 
     @property
     def end(self) -> float:
@@ -65,10 +83,17 @@ class Span:
 
 
 class _NullSpan:
-    """The disabled-tracer span handle: accepts arg updates, keeps
-    nothing."""
+    """The disabled-tracer span: a context manager that accepts arg
+    updates and keeps nothing; its ``id`` is 0."""
 
     __slots__ = ()
+    id = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
 
     def set(self, **kw) -> None:
         pass
@@ -78,17 +103,52 @@ _NULL_SPAN = _NullSpan()
 
 
 class _LiveSpan:
-    """Handle yielded by :meth:`Tracer.span` while the span is open —
-    lets the body attach args discovered mid-span (e.g. the payload
-    kind a compressed pack settled on)."""
+    """An open span, the context manager :meth:`Tracer.span` returns: it
+    is numbered and pushed on its thread's stack on entry and recorded on
+    exit, and lets the body attach args discovered mid-span (e.g. the
+    payload kind a compressed pack settled on)."""
 
-    __slots__ = ("args",)
+    __slots__ = ("tracer", "name", "cat", "args", "id", "parent", "depth",
+                 "range", "t0")
 
-    def __init__(self, args: dict):
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
+        self.tracer = tracer
+        self.name = name
+        self.cat = cat
         self.args = args
 
     def set(self, **kw) -> None:
         self.args.update(kw)
+
+    def __enter__(self):
+        stack = self.tracer._stack()
+        self.depth = len(stack)
+        self.parent = stack[-1] if stack else 0
+        self.id = next(self.tracer._ids)
+        stack.append(self.id)
+        self.range = None
+        if _profiler_enabled():
+            self.range = torch.profiler.record_function(_range_label(self.name, self.args))
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        if exc_type is not None:
+            self.args["error"] = True
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        tracer = self.tracer
+        tracer._stack().pop()
+        # the ring holds Span's fields as a tuple; snapshot() builds Spans
+        sp = (self.name, self.cat, self.t0 - tracer.epoch, t1 - self.t0,
+              threading.get_ident(), self.depth, self.args, self.id, self.parent)
+        with tracer._lock:
+            if len(tracer._spans) == tracer.capacity:
+                tracer._dropped += 1
+            tracer._spans.append(sp)
+        return False
 
 
 class Tracer:
@@ -100,10 +160,11 @@ class Tracer:
         self.capacity = capacity
         self.enabled = enabled
         self.epoch = time.perf_counter()
-        self._spans: deque[Span] = deque(maxlen=capacity)
+        self._spans: deque[tuple] = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._local = threading.local()
         self._dropped = 0
+        self._ids = itertools.count(1)
 
     # -- recording ---------------------------------------------------------
     def _stack(self) -> list:
@@ -112,33 +173,14 @@ class Tracer:
             st = self._local.stack = []
         return st
 
-    @contextmanager
     def span(self, name: str, cat: str = "serve", **args):
-        """Record ``name`` over the ``with`` body. Exceptions propagate;
-        the span is still recorded (with ``error=True``) so a trace of
-        a failing drain shows where it died."""
+        """A context manager that records ``name`` over the ``with``
+        body. Exceptions propagate; the span is still recorded (with
+        ``error=True``) so a trace of a failing drain shows where it
+        died. Disabled, it is a shared no-op."""
         if not self.enabled:
-            yield _NULL_SPAN
-            return
-        stack = self._stack()
-        depth = len(stack)
-        live = _LiveSpan(dict(args))
-        stack.append(name)
-        t0 = time.perf_counter()
-        try:
-            yield live
-        except BaseException:
-            live.args["error"] = True
-            raise
-        finally:
-            t1 = time.perf_counter()
-            stack.pop()
-            sp = Span(name=name, cat=cat, ts=t0 - self.epoch, dur=t1 - t0,
-                      tid=threading.get_ident(), depth=depth, args=live.args)
-            with self._lock:
-                if len(self._spans) == self.capacity:
-                    self._dropped += 1
-                self._spans.append(sp)
+            return _NULL_SPAN
+        return _LiveSpan(self, name, cat, args)
 
     # -- introspection -----------------------------------------------------
     def snapshot(self) -> list[Span]:
@@ -146,11 +188,12 @@ class Tracer:
         (record order is *end* order — a parent records after its
         children — so export re-sorts by ``ts``)."""
         with self._lock:
-            spans = list(self._spans)
+            spans = [Span(*sp) for sp in self._spans]
         return sorted(spans, key=lambda s: (s.ts, -s.dur))
 
     @property
     def dropped(self) -> int:
+        """Completed spans evicted from the full ring."""
         return self._dropped
 
     def clear(self) -> None:
@@ -159,13 +202,24 @@ class Tracer:
             self._dropped = 0
 
 
+def _range_label(name: str, args: dict) -> str:
+    """The profiler range of a span: ``serve:<name>``, with the batch's
+    family and shape or the span's kind after it."""
+    if name == "batch":
+        return f"serve:batch:{args.get('family')}:B{args.get('B')}:L{args.get('bucket')}"
+    if "kind" in args:
+        return f"serve:{name}:{args['kind']}"
+    return f"serve:{name}"
+
+
 def chrome_trace(spans: list[Span], process_name: str = "repro_torch.serving") -> dict:
     """Render completed spans as a Chrome JSON trace object.
 
     Complete events (``ph: "X"``) with integer-microsecond ``ts`` and
     ``dur``, one track per recording thread; Perfetto nests events on a
     track by time containment. Metadata events name the process and
-    threads so the UI shows something better than bare ids."""
+    threads so the UI shows something better than bare ids. Each
+    event's ``args`` carry the span's ``id`` and ``parent``."""
     events = []
     tids = []
     for sp in sorted(spans, key=lambda s: (s.ts, -s.dur)):
@@ -175,7 +229,8 @@ def chrome_trace(spans: list[Span], process_name: str = "repro_torch.serving") -
             "name": sp.name, "cat": sp.cat, "ph": "X",
             "ts": round(sp.ts * 1e6, 3), "dur": round(sp.dur * 1e6, 3),
             "pid": 0, "tid": tids.index(sp.tid),
-            "args": {k: _jsonable(v) for k, v in sp.args.items()},
+            "args": {**{k: _jsonable(v) for k, v in sp.args.items()},
+                     "id": sp.id, "parent": sp.parent},
         })
     meta = [{
         "name": "process_name", "ph": "M", "pid": 0, "tid": 0,
@@ -191,6 +246,8 @@ def chrome_trace(spans: list[Span], process_name: str = "repro_torch.serving") -
 def _jsonable(v):
     if isinstance(v, (str, int, float, bool)) or v is None:
         return v
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
     return str(v)
 
 

@@ -20,7 +20,11 @@ Observability contract (§15): both executors record into the service's
 shared :class:`repro_torch.obs.MetricsRegistry` and
 :class:`repro_torch.obs.Tracer`. Every batch emits a span tree
 (``batch`` → ``pack`` / ``compress`` / ``compile`` / ``dispatch`` /
-``execute`` / ``decode``) and every :class:`ExecResult` carries the same
+``execute`` / ``decode``; the host-to-device copy is an ``h2d`` span
+inside ``pack``, or inside ``compress`` on the cache-less compressed
+path, with its ``bytes``, and the row cache's misses ``derive`` spans
+inside ``pack``); a ``batch`` span lists the ``requests`` it serves
+and every :class:`ExecResult` names that span (``batch_span``) and carries the same
 timings as a ``phases`` dict whose values tile ``[started_at,
 finished_at]`` exactly — the service adds queue/plan on top, which is how
 a response's phase breakdown sums to its end-to-end latency. PyTorch runs
@@ -33,7 +37,14 @@ tensors of the batch's shapes, on the host, never on the card and never
 on a warm call. Later calls skip it, so
 the ``serve.step.<family>.B<B>.L<L>`` histograms measure run time only.
 On a card the ``execute`` phase ends with ``torch.cuda.synchronize`` on
-every device of the mesh.
+every device of the mesh; while the tracer is enabled, CUDA events on
+each device's current stream just before and after the step's launches
+give the device time of one warm step in ``step_event_every``, the
+longest over the mesh, in the ``serve.step_device.<family>.B<B>.L<L>``
+histograms (µs): the stream's span from the step's first operation to
+its last, launch gaps included. Recording and reading the events costs
+the host ~0.1 ms a batch, so the histograms hold a sample. The copy's host time streams into ``serve.h2d.<family>``
+(µs) and its bytes into the ``serve.h2d.bytes`` counter.
 
 The executor serves over a device mesh (``repro_torch.launch.mesh``):
 on a one-device mesh a batch's host arrays go to that device whole
@@ -100,7 +111,8 @@ class ExecResult:
     perf_counter timestamps of *that batch* (not the whole group: the
     service derives queue waits and deadline verdicts per batch), and
     ``phases`` the batch's per-phase durations in seconds — contiguous
-    sub-intervals tiling [started_at, finished_at]."""
+    sub-intervals tiling [started_at, finished_at]; ``batch_span`` the
+    id of the tracer's ``batch`` span that served it (0 without one)."""
 
     results: dict
     latency_s: float
@@ -110,6 +122,7 @@ class ExecResult:
     started_at: float = 0.0
     finished_at: float = 0.0
     phases: dict = field(default_factory=zero_phases)
+    batch_span: int = 0
 
 
 class Executor(Protocol):
@@ -118,7 +131,8 @@ class Executor(Protocol):
 
     def execute(self, index, queries: list, selections: list, *,
                 step_family: str | None, bucket: int | None,
-                shared: list | None = None) -> list[ExecResult]: ...
+                shared: list | None = None,
+                request_ids: list | None = None) -> list[ExecResult]: ...
 
 
 # kind suffix -> planner payload name
@@ -128,6 +142,12 @@ _PAYLOAD_OF_KIND = {"base": PAYLOAD_RAW, "raw": PAYLOAD_RAW,
 
 def _payload_of_kind(kind: str) -> str:
     return _PAYLOAD_OF_KIND[kind.rsplit("_", 1)[-1] if "_" in kind else kind]
+
+
+def _record_events(devices, events) -> None:
+    """Record each card's timing event on that card's current stream."""
+    for device, ev in zip(devices, events):
+        ev.record(torch.cuda.current_stream(device))
 
 
 def _sync(devices) -> None:
@@ -166,12 +186,20 @@ class CompiledExecutor:
     metrics registry as ``serve.step.<family>.B<B>.L<L>`` histograms
     (µs)."""
 
+    # one warm step in this many is timed by CUDA events (tracer on, card)
+    step_event_every = 16
+
     def __init__(self, mesh, config, pack_cache=None, compressed_cache=None,
                  metrics: MetricsRegistry | None = None,
                  tracer: Tracer | None = None, costs=None):
         self.mesh = mesh
         self.device = mesh.devices.flat[0]
         self._devices = mesh.unique_devices()
+        self._cards = [d for d in self._devices if d.type == "cuda"]
+        # a warm step's (start, end) timing events on each card, reused:
+        # each batch reads them after its synchronise, before the next
+        self._step_events = None
+        self._warm_steps = 0  # warm steps while the events could time them
         self.config = config
         self.pack_cache = pack_cache
         self.compressed_cache = compressed_cache
@@ -242,7 +270,7 @@ class CompiledExecutor:
                 compress_qt5_batch, "qt5_", {"Kn": cfg.k_ns, "Ks": cfg.k_st})
 
     def execute(self, index, queries, selections, *, step_family, bucket,
-                shared=None, payload=None):
+                shared=None, payload=None, request_ids=None):
         """Serve one (step family, L-bucket) group: chunked to
         ``config.max_batch``, each chunk padded to the power-of-two
         batch ladder and executed on the (kind, B, L) step.
@@ -251,7 +279,9 @@ class CompiledExecutor:
         plans by the caller; a batch containing any counts as shared.
         ``payload`` is the group's planner-chosen format: ``raw`` on a
         compressed engine forces the raw pack path (the cost model's
-        raw arm); None keeps the config-static behavior."""
+        raw arm); None keeps the config-static behavior.
+        ``request_ids`` (aligned with ``queries``) are listed on each
+        batch span while the tracer is enabled."""
         cfg = self.config
         out: list[ExecResult] = []
         for lo in range(0, len(queries), cfg.max_batch):
@@ -259,8 +289,11 @@ class CompiledExecutor:
             chunk_s = selections[lo:lo + cfg.max_batch]
             B_pad = batch_size_bucket(len(chunk_q), cfg.max_batch)
             pad = B_pad - len(chunk_q)
+            traced = self.tracer.enabled
+            ids = ({"requests": request_ids[lo:lo + cfg.max_batch]}
+                   if traced and request_ids is not None else {})
             with self.tracer.span("batch", family=step_family, bucket=bucket,
-                                  B=B_pad, n=len(chunk_q)) as bsp:
+                                  B=B_pad, n=len(chunk_q), **ids) as bsp:
                 t0 = time.perf_counter()
                 kind, stub, args, t_pack, t_comp = self._prepare(
                     index, step_family, bucket,
@@ -270,9 +303,22 @@ class CompiledExecutor:
                 key = (kind, B_pad, bucket)
                 step = self._step(kind, index.max_distance)
                 first = self._warm_up(key, kind, step, args)
+                timed = bool(traced and not first and self._cards)
+                if timed:
+                    timed = self._warm_steps % self.step_event_every == 0
+                    self._warm_steps += 1
+                if timed and self._step_events is None:
+                    self._step_events = tuple(
+                        [torch.cuda.Event(enable_timing=True) for _ in self._cards]
+                        for _ in range(2))
                 t_compile = time.perf_counter()
                 with self.tracer.span("dispatch", kind=kind):
+                    if timed:
+                        starts, ends = self._step_events
+                        _record_events(self._cards, starts)
                     raw = step.run(args)
+                    if timed:
+                        _record_events(self._cards, ends)
                 t_disp = time.perf_counter()
                 with self.tracer.span("execute", kind=kind, compile=first):
                     _sync(self._devices)
@@ -299,6 +345,14 @@ class CompiledExecutor:
                     f"serve.step.{step_family}.B{B_pad}.L{bucket}",
                     (t_exec - t_compile) * 1e6,
                 )
+                if timed:
+                    # the step's device time: the longest stream span
+                    # over the mesh's cards (the events completed by the
+                    # execute phase's synchronise)
+                    self.metrics.observe(
+                        f"serve.step_device.{step_family}.B{B_pad}.L{bucket}",
+                        max(s.elapsed_time(e) for s, e in zip(starts, ends)) * 1e3,
+                    )
                 # whole warm batch wall-clock (host pack/compress/decode
                 # included, warm-up excluded): what one more batch of the shape
                 # actually costs the serving loop — the admission
@@ -322,7 +376,7 @@ class CompiledExecutor:
                 ExecResult(results=decoded[bi], latency_s=t1 - t0,
                            bucket=bucket, batch_size=len(chunk_q),
                            payload=payload, started_at=t0, finished_at=t1,
-                           phases=dict(phases))
+                           phases=dict(phases), batch_span=bsp.id)
                 for bi in range(len(chunk_q))
             )
         return out
@@ -464,10 +518,20 @@ class CompiledExecutor:
         return out
 
     # -- batch preparation --------------------------------------------------
-    def _place(self, kind: str, args, max_distance: int):
+    def _place(self, family: str, kind: str, args, max_distance: int):
         """A batch's host arrays on the mesh: whole on a one-device
-        mesh, each shard's block on its own device otherwise."""
-        return self._step(kind, max_distance).place(args)
+        mesh, each shard's block on its own device otherwise. The copy
+        from pageable memory holds the host until it is done, so its
+        host time (``serve.h2d.<family>``, µs) is the copy's time."""
+        nbytes = sum(a.nbytes for a in args if isinstance(a, np.ndarray))
+        step = self._step(kind, max_distance)
+        with self.tracer.span("h2d", bytes=nbytes):
+            t0 = time.perf_counter()
+            placed = step.place(args)
+            dt = time.perf_counter() - t0
+        self.metrics.observe(f"serve.h2d.{family}", dt * 1e6)
+        self.metrics.inc("serve.h2d.bytes", nbytes)
+        return placed
 
     def _prepare(self, index, family, bucket, queries, selections, t0,
                  payload=None):
@@ -492,7 +556,7 @@ class CompiledExecutor:
                     ccache=ccache, cache=self.pack_cache, plans=selections,
                     **kw,
                 )
-                args = self._place(kind, args, index.max_distance)
+                args = self._place(family, kind, args, index.max_distance)
             self._count_compressed(kind)
             t_pack = time.perf_counter()
             return kind, stub, args, t_pack, t_pack
@@ -505,7 +569,8 @@ class CompiledExecutor:
                 )
                 # the host->device transfer of the packed rows belongs
                 # to pack, not to whatever phase is timed next
-                args = self._place(kind, batch.host_args(), index.max_distance)
+                args = self._place(family, kind, batch.host_args(),
+                                   index.max_distance)
             t_pack = time.perf_counter()
             return kind, batch, args, t_pack, t_pack
         with self.tracer.span("pack", family=family):
@@ -517,7 +582,7 @@ class CompiledExecutor:
         with self.tracer.span("compress", family=family):
             kind, args = self._compress_batch(bucket, batch, compress_fn,
                                               prefix)
-            args = self._place(kind, args, index.max_distance)
+            args = self._place(family, kind, args, index.max_distance)
         return kind, batch, args, t_pack, time.perf_counter()
 
     def _compress_batch(self, bucket, batch, compress_fn, prefix=""):
@@ -580,10 +645,13 @@ class ScalarExecutor:
         return self._engine
 
     def execute(self, index, queries, selections, *, step_family=None,
-                bucket=None, shared=None):
+                bucket=None, shared=None, request_ids=None):
         eng = self._engine_for(index)
         out = []
-        with self.tracer.span("batch", family="scalar", n=len(queries)):
+        ids = ({"requests": request_ids}
+               if self.tracer.enabled and request_ids is not None else {})
+        with self.tracer.span("batch", family="scalar", n=len(queries),
+                              **ids) as bsp:
             for q in queries:
                 t0 = time.perf_counter()
                 with self.tracer.span("execute", kind="scalar"):
@@ -597,6 +665,7 @@ class ScalarExecutor:
                              "end": res.end, "score": res.score},
                     latency_s=t1 - t0, bucket=0, batch_size=1,
                     started_at=t0, finished_at=t1, phases=phases,
+                    batch_span=bsp.id,
                 ))
         return out
 

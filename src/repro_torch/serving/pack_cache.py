@@ -43,11 +43,14 @@ Bounded by both an entry count and a byte budget (LRU eviction); hits,
 misses, evictions, invalidations, retentions and resident bytes are
 surfaced via ``.stats`` and re-exported in ``SearchService.stats``.
 Given a :class:`repro_torch.obs.MetricsRegistry` (``metrics=``, with a
-``scope`` name prefix), the cache additionally streams hit/miss
-counters, a resident-bytes gauge and a per-miss derivation-time
-histogram into it (DESIGN.md §15) — the same registry the serving
-phases land in, so a drain's pack phase can be decomposed into cache
-hits vs row derivations.
+``scope`` name prefix), the cache additionally streams a per-miss
+derivation-time histogram (``<scope>.derive_us``) and the bytes of the
+present rows its misses derived (``<scope>.miss_bytes``) into it; given a
+:class:`repro_torch.obs.Tracer` (``tracer=``), each miss's derivation is
+a ``derive`` span (``kind=`` the row kind) under the batch's ``pack``
+(DESIGN.md §15). The registry and tracer are the service's, so a drain's
+pack phase decomposes into row derivations and the array fill around
+them.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from repro_torch.core.torch_search import (
 from repro_torch.index.merge import isin_sorted
 from repro_torch.index.segmented import snapshot_token
 from repro_torch.kernels.common import SENTINEL
+from repro_torch.obs import Tracer
 
 _DERIVERS = {
     "fst": pack_fst_key_rows,
@@ -114,7 +118,7 @@ class PackedPostingCache:
 
     def __init__(self, max_entries: int = 4096, max_bytes: int = 256 << 20,
                  source: "PackedPostingCache | None" = None,
-                 metrics=None, scope: str = "cache"):
+                 metrics=None, scope: str = "cache", tracer=None):
         if max_entries < 1:
             raise ValueError("max_entries must be >= 1")
         self.max_entries = max_entries
@@ -122,6 +126,7 @@ class PackedPostingCache:
         self.source = source  # raw-row cache compressed kinds derive from
         self._metrics = metrics  # optional repro_torch.obs.MetricsRegistry
         self._scope = scope
+        self._tracer = tracer if tracer is not None else Tracer(enabled=False)
         self._entries: OrderedDict = OrderedDict()  # positive: ck -> (rows, nbytes)
         self._absent: OrderedDict = OrderedDict()  # negative: ck -> rows
         self._token = None
@@ -175,26 +180,21 @@ class PackedPostingCache:
             if ent is not None:
                 self._entries.move_to_end(ck)
                 self._counts["hits"] += 1
-                if self._metrics is not None:
-                    self._metrics.inc(f"{self._scope}.hits")
                 return ent[0]
             neg = self._absent.get(ck)
             if neg is not None:
                 self._absent.move_to_end(ck)
                 self._counts["hits"] += 1
-                if self._metrics is not None:
-                    self._metrics.inc(f"{self._scope}.hits")
                 return neg
             self._counts["misses"] += 1
         # derive outside the lock: merged segment reads can be slow and
         # must not serialize concurrent serving threads
-        t_derive = time.perf_counter()
-        rows = self._derive(index, kind, key, L, doc_shards, stride)
+        with self._tracer.span("derive", kind=kind):
+            t_derive = time.perf_counter()
+            rows = self._derive(index, kind, key, L, doc_shards, stride)
+            dt = time.perf_counter() - t_derive
         if self._metrics is not None:
-            self._metrics.inc(f"{self._scope}.misses")
-            self._metrics.observe(f"{self._scope}.derive_us",
-                                  (time.perf_counter() - t_derive) * 1e6)
-            self._metrics.set(f"{self._scope}.bytes", self._bytes)
+            self._metrics.observe(f"{self._scope}.derive_us", dt * 1e6)
         if not rows[-1]:  # not present
             # negative entry: callers never read non-present rows, so they
             # alias one shared per-(kind, L) padding row set (0 bytes) and
@@ -214,6 +214,8 @@ class PackedPostingCache:
             if isinstance(a, np.ndarray):
                 a.setflags(write=False)
                 nbytes += a.nbytes
+        if self._metrics is not None:
+            self._metrics.inc(f"{self._scope}.miss_bytes", nbytes)
         with self._lock:
             if tok != self._token:
                 return rows  # a refresh raced the derivation: don't admit

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -136,8 +137,10 @@ class ServeConfig:
       against an ephemeral view; overlay-untouched queries keep their
       compiled route either way;
     * ``trace_enabled`` / ``trace_capacity`` — the §15 span tracer (a
-      bounded ring of completed spans; disabling reduces the obs
-      overhead to the per-phase timestamps);
+      bounded ring of completed spans, sized to hold a 20 s window of
+      a busy card's spans; disabling reduces the obs overhead to the
+      per-phase timestamps and the registry's instruments: no spans,
+      no CUDA step events, no profiler ranges);
     * ``metrics_capacity`` — samples retained per latency histogram."""
 
     buckets: tuple = (1024, 4096, 16384, 65536)
@@ -174,7 +177,7 @@ class ServeConfig:
     unit_us_per_kslot: float = 1.0
     unit_scalar_us: float = 5000.0
     trace_enabled: bool = True
-    trace_capacity: int = 8192
+    trace_capacity: int = 1 << 17
     metrics_capacity: int = 4096
 
     def __post_init__(self):
@@ -218,10 +221,12 @@ class SearchTicket:
     serve. ``verdict`` records the admission decision;
     ``degraded_bucket`` the cheaper bucket a degraded admit was
     rerouted to (applied by the resolving drain against its own pinned
-    snapshot)."""
+    snapshot). ``request_id`` numbers the request from 1 in submit order
+    (the ``request``/``requests`` args of its spans)."""
 
     lemma_ids: list
     deadline_s: float | None = None
+    request_id: int = 0
     arrival: float = field(default_factory=time.perf_counter)
     response: "SearchResponse | None" = None
     verdict: AdmissionVerdict | None = None
@@ -265,7 +270,11 @@ class SearchResponse:
     controller rerouted it to), ``rejected`` (budget infeasible even on
     an idle system — resolved at submit, empty results) or ``shed``
     (dropped under overload — resolved at submit or by the bounded
-    queue, empty results)."""
+    queue, empty results).
+
+    ``request_id`` is the ticket's; ``batch_span`` the id of the
+    tracer's ``batch`` span that served the request, whose ``requests``
+    arg lists it (0 when no batch served it or the tracer is off)."""
 
     results: dict
     latency_s: float
@@ -280,6 +289,8 @@ class SearchResponse:
     finished_at: float = 0.0
     deadline_blame: str | None = None
     status: str = STATUS_OK
+    request_id: int = 0
+    batch_span: int = 0
 
     @property
     def e2e_s(self) -> float:
@@ -358,10 +369,12 @@ class SearchService:
         self.metrics = MetricsRegistry(histogram_capacity=cfg.metrics_capacity)
         self.tracer = Tracer(capacity=cfg.trace_capacity,
                              enabled=cfg.trace_enabled)
+        self._request_ids = itertools.count(1)
         self.pack_cache = (
             PackedPostingCache(max_entries=cfg.cache_entries,
                                max_bytes=cfg.cache_bytes,
-                               metrics=self.metrics, scope="cache.pack")
+                               metrics=self.metrics, scope="cache.pack",
+                               tracer=self.tracer)
             if cfg.use_pack_cache
             else None
         )
@@ -373,7 +386,8 @@ class SearchService:
                                max_bytes=cfg.cache_bytes,
                                source=self.pack_cache,
                                metrics=self.metrics,
-                               scope="cache.compressed")
+                               scope="cache.compressed",
+                               tracer=self.tracer)
             if cfg.compressed and cfg.use_compressed_cache
             else None
         )
@@ -558,7 +572,8 @@ class SearchService:
         ticket resolves immediately and never hangs."""
         if deadline_s is None:
             deadline_s = self.config.default_deadline_s
-        ticket = SearchTicket(list(lemma_ids), deadline_s=deadline_s)
+        ticket = SearchTicket(list(lemma_ids), deadline_s=deadline_s,
+                              request_id=next(self._request_ids))
         if arrival is not None:
             ticket.arrival = arrival
         if self.admission is None:
@@ -603,7 +618,7 @@ class SearchService:
         resolve it right here as rejected/shed."""
         cfg = self.config
         mb = cfg.max_batch
-        with self.tracer.span("admission"):
+        with self.tracer.span("admission", request=ticket.request_id):
             p = self._plan(self.index, ticket.lemma_ids)
             gkey = self._group_key(p)
             now = time.perf_counter()
@@ -667,7 +682,8 @@ class SearchService:
                           if verdict.decision == REJECT_INFEASIBLE
                           else STATUS_SHED)
                 with self.tracer.span(f"admission.{verdict.decision}",
-                                      route=p.route):
+                                      route=p.route,
+                                      request=ticket.request_id):
                     self._resolve_unserved(ticket, p, status)
                 return
             if verdict.decision == DEGRADE:
@@ -706,7 +722,8 @@ class SearchService:
             self.metrics.inc("serve.admission.queue_shed")
             with self._stats_lock:
                 self.stats["admission"]["queue_shed"] += 1
-            with self.tracer.span("admission.queue_shed"):
+            with self.tracer.span("admission.queue_shed",
+                                  request=victim.request_id):
                 self._resolve_unserved(victim, victim.plan, STATUS_SHED)
 
     def _infeasible_victim_locked(self, now: float,
@@ -753,7 +770,7 @@ class SearchService:
             queue_wait_s=wait,
             phases={"queue": wait, "plan": 0.0, **zero_phases()},
             started_at=now, finished_at=now, deadline_blame=blame,
-            status=status,
+            status=status, request_id=ticket.request_id,
         )
         ticket.response = resp
 
@@ -793,7 +810,6 @@ class SearchService:
             pending = self._drop_expired(pending)
             if not pending:
                 return []
-        t_drain0 = time.perf_counter()
         slots: list = [None] * len(pending)
         with self.tracer.span("drain", requests=len(pending)):
             # per-request planning time is part of the phase breakdown
@@ -895,10 +911,13 @@ class SearchService:
                         )
                     continue
                 queries = [pending[i].lemma_ids for i in idxs]
+                ids = ([pending[i].request_id for i in idxs]
+                       if self.tracer.enabled else None)
                 if family == "scalar":
                     execs = self.scalar.execute(index, queries,
                                                 [None] * len(idxs),
-                                                step_family=None, bucket=None)
+                                                step_family=None, bucket=None,
+                                                request_ids=ids)
                 else:
                     sels = [self._selection_for(plans[i], family) for i in idxs]
                     shared = [plans[i].route != family for i in idxs]
@@ -907,7 +926,8 @@ class SearchService:
                     execs = self.compiled.execute(index, queries, sels,
                                                   step_family=family,
                                                   bucket=bucket, shared=shared,
-                                                  payload=plans[idxs[0]].payload)
+                                                  payload=plans[idxs[0]].payload,
+                                                  request_ids=ids)
                     if bucket in self.stats["bucket_hist"]:
                         mb = self.config.max_batch
                         with self._stats_lock:
@@ -918,10 +938,6 @@ class SearchService:
                     self._resolve(pending[i], plans[i], slots, i, ex,
                                   plan_s[i])
         self._inflight_until = 0.0
-        self.metrics.observe(
-            "serve.drain.total",
-            (time.perf_counter() - t_drain0) * 1e6,
-        )
         self._finish_stats(plans)
         return slots
 
@@ -948,7 +964,7 @@ class SearchService:
             self.metrics.inc("serve.admission.expired")
             with self._stats_lock:
                 self.stats["admission"]["expired"] += 1
-            with self.tracer.span("admission.expired"):
+            with self.tracer.span("admission.expired", request=t.request_id):
                 self._resolve_unserved(t, t.plan, STATUS_SHED)
         return live
 
@@ -1043,7 +1059,6 @@ class SearchService:
         m = self.metrics
         for name, dur in phases.items():
             m.observe(f"serve.phase.{name}", dur * 1e6)
-        m.observe("serve.request.e2e", e2e * 1e6)
         if blame is not None:
             m.inc(f"serve.deadline.miss_blame.{blame}")
         # §19 feedback loops: realized predicted-vs-actual completion
@@ -1069,7 +1084,8 @@ class SearchService:
             phases=phases, started_at=ex.started_at,
             finished_at=ex.finished_at, deadline_blame=blame,
             status=STATUS_DEGRADED if p is not None and p.degraded
-            else STATUS_OK,
+            else STATUS_OK, request_id=ticket.request_id,
+            batch_span=ex.batch_span,
         )
         ticket.response = resp
         slots[i] = resp
@@ -1116,7 +1132,8 @@ class SearchService:
         half-updated counters (or hit a dict-size-changed error); this
         snapshot is taken under the same lock the mutators hold, so the
         counters in one snapshot are mutually consistent. Benchmarks and
-        examples read this, never ``stats`` directly."""
+        examples read this, never ``stats`` directly. ``tracer`` reports
+        the span ring's capacity and the spans it ``dropped``."""
         with self._stats_lock:
             snap = copy.deepcopy(self.stats)
         # cache stats properties already return fresh dicts under the
@@ -1130,6 +1147,8 @@ class SearchService:
             snap["admission"]["margin"] = self.admission.margin_stats()
         if self.recall_costs is not None:
             snap["admission"]["recall"] = self.recall_costs.table()
+        snap["tracer"] = {"capacity": self.tracer.capacity,
+                          "dropped": self.tracer.dropped}
         return snap
 
     def metrics_snapshot(self, prefix: str = "") -> dict:
@@ -1144,7 +1163,9 @@ class SearchService:
         One span tree per drain:
         ``drain`` → ``plan`` / ``group`` / per-batch ``batch`` →
         ``pack``/``compress``/``compile``/``dispatch``/``execute``/
-        ``decode``."""
+        ``decode``, with ``h2d`` and ``derive`` under ``pack``; each
+        event's args carry its ``id`` and ``parent``, a batch's the
+        ``requests`` it served."""
         return chrome_trace(self.tracer.snapshot())
 
     def write_trace(self, path: str) -> dict:

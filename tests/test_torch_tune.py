@@ -37,6 +37,9 @@ KNOBS = dict(buckets=BUCKETS, max_batch=8, top_k=BUCKETS[0])
 REPO = Path(__file__).resolve().parent.parent
 AXES = {"r_max": [2, 4], "k": [{"k_ns": 2, "k_st": 2}, {"k_ns": 3, "k_st": 3}],
         "buckets": [(64, 256), (64, 256, 1024)]}
+# the one default the port sets apart from the reference: its span ring
+# holds a whole window of a busy card's spans
+PORT_DEFAULTS = {"trace_capacity": ServeConfig().trace_capacity}
 
 
 def _corpus(gen):
@@ -86,7 +89,7 @@ def test_grid_matches_reference():
     assert [(c.max_distance, c.overrides, c.axis_values, c.config_id) for c in got] == \
         [(c.max_distance, c.overrides, c.axis_values, c.config_id) for c in want]
     assert got[5].serve_config().to_json_dict().items() <= \
-        want[5].serve_config().to_json_dict().items()
+        {**want[5].serve_config().to_json_dict(), **PORT_DEFAULTS}.items()
 
 
 def _rigged(c, r):
@@ -142,6 +145,7 @@ def test_emitted_artifact_matches_reference_but_use_pallas(tmp_path):
     _, got = _artifact(tune, ServeConfig, tmp_path / "port.json")
     _, want = _artifact(ref_tune, JaxConfig, tmp_path / "ref.json")
     assert want["serve_config"].pop("use_pallas") is False
+    want["serve_config"].update(PORT_DEFAULTS)
     assert got == want
 
 
@@ -152,12 +156,12 @@ def test_reference_artifact_loads_with_use_pallas_dropped(tmp_path):
     assert d == 3 and meta["workload"] == "mixed"
     assert meta["dropped_fields"] == {"use_pallas": False}
     assert cfg == ServeConfig(max_batch=16, top_k=8, r_max=2, buckets=(64, 256),
-                              admit_margin=0.7)
+                              admit_margin=0.7, trace_capacity=JaxConfig().trace_capacity)
     # and the port's own artifact loads in the reference, dropping nothing
     _artifact(tune, ServeConfig, tmp_path / "port.json")
     d, jcfg, jmeta = ref_tune.load_serve_config(str(tmp_path / "port.json"))
     assert jcfg == JaxConfig(max_batch=16, top_k=8, r_max=2, buckets=(64, 256),
-                             admit_margin=0.7)
+                             admit_margin=0.7, **PORT_DEFAULTS)
     assert "dropped_fields" not in tune.load_serve_config(str(tmp_path / "port.json"))[2]
 
 
